@@ -1,0 +1,56 @@
+"""Carry a fitted model across from the JAX package.
+
+The JAX estimator's fitted state is a handful of numpy arrays; this module
+turns it into a fitted port estimator, so ``partial_fit`` continues and
+``predict`` serves from exactly that state on the card:
+
+    state = {k: getattr(jax_est, k) for k in STATE_KEYS}
+    est = from_reference(state, device="cuda", config=cfg)
+    est.partial_fit(train)          # train: the port's MTLData of the same arrays
+
+A problem goes across the same way: build the port's ``MTLData`` from the
+same numpy arrays (``core.mtl_data.from_task_list`` or
+``data.synthetic``, which match the JAX package's seed for seed).
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from .core.engines import EngineResult
+from .core.estimator import DMTRLEstimator
+
+# the JAX estimator's fitted attributes that make up its state
+STATE_KEYS = ("W_", "alpha_", "sigma_", "omega_", "rho_per_outer_", "history_")
+
+
+def from_reference(
+    state: Mapping[str, object], device="cuda", **estimator_kwargs
+) -> DMTRLEstimator:
+    """A fitted ``DMTRLEstimator`` holding ``state`` (numpy arrays under
+    the names in ``STATE_KEYS``; ``omega_``, ``rho_per_outer_`` and
+    ``history_`` may be missing). ``estimator_kwargs`` (``config=``,
+    ``loss=``, ...) configure it as the JAX estimator was configured."""
+    est = DMTRLEstimator(device=device, **estimator_kwargs)
+
+    def tensor(a):
+        return torch.as_tensor(np.array(a), dtype=torch.float32, device=est.device)
+
+    omega = state.get("omega_")
+    history: Dict[str, np.ndarray] = {
+        k: np.asarray(v) for k, v in (state.get("history_") or {}).items()
+    }
+    est._install(
+        EngineResult(
+            W=tensor(state["W_"]),
+            alpha=tensor(state["alpha_"]),
+            sigma=tensor(state["sigma_"]),
+            omega=None if omega is None else tensor(omega),
+            history=history,
+            rho_per_outer=[float(r) for r in state.get("rho_per_outer_") or []],
+        ),
+        continued=False,
+    )
+    return est

@@ -1,0 +1,126 @@
+"""Dual/primal objectives, the primal-dual map W(alpha), and the duality gap.
+
+Notation (paper Thm. 1):
+    b_i        = (1/n_i) X_i^T alpha_[i]                      (d,)
+    B          = [b_1 ... b_m]                                (d, m)
+    w_i(alpha) = (1/lambda) sum_i' b_i' sigma_ii'  =>  W = (1/lambda) B Sigma
+    alpha^T K alpha = tr(Sigma B^T B)
+    D(alpha) = -(1/2 lambda) tr(Sigma B^T B) - sum_i (1/n_i) sum_j l*(-alpha_j^i)
+    P(W)     = sum_i (1/n_i) sum_j l(w_i^T x_j^i) + (lambda/2) tr(W Omega W^T)
+
+For W = W(alpha) the regularizer simplifies:
+    tr(W Omega W^T) = (1/lambda^2) tr(Sigma B^T B)     (since Sigma Omega Sigma = Sigma)
+so the duality gap never needs Omega explicitly.
+"""
+from __future__ import annotations
+
+import torch
+
+from .losses import Loss
+from .mtl_data import MTLData
+from .sigma_view import SigmaView
+
+Tensor = torch.Tensor
+
+
+def compute_B(data: MTLData, alpha: Tensor) -> Tensor:
+    """B matrix, columns b_i = (1/n_i) X_i^T alpha_[i].  alpha: (m, n_max)."""
+    masked = alpha * data.mask  # safety: padding contributes nothing
+    b = torch.einsum("mnd,mn->md", data.x, masked) / data.n[:, None].to(data.x.dtype)
+    return b.T  # (d, m)
+
+
+def weights_from_alpha(data: MTLData, alpha: Tensor, sigma, lam: float) -> Tensor:
+    """W(alpha) = (1/lambda) B Sigma, returned as (m, d) rows = tasks.
+    ``sigma`` may be a dense (m, m) tensor or a SigmaView."""
+    B = compute_B(data, alpha)  # (d, m)
+    if isinstance(sigma, SigmaView):
+        return sigma.matvec(B.T) / lam  # Sigma symmetric: (B Sigma)^T = Sigma B^T
+    return (B @ sigma).T / lam  # (m, d)
+
+
+def quad_term(data: MTLData, alpha: Tensor, sigma) -> Tensor:
+    """alpha^T K alpha = tr(Sigma B^T B)."""
+    B = compute_B(data, alpha)
+    if isinstance(sigma, SigmaView):
+        Bt = B.T  # (m, d)
+        return torch.sum(Bt * sigma.matvec(Bt))
+    return torch.einsum("ij,ji->", sigma, B.T @ B)
+
+
+def dual_objective(
+    data: MTLData, alpha: Tensor, sigma, lam: float, loss: Loss
+) -> Tensor:
+    """D(alpha) of Eq. (2)."""
+    quad = quad_term(data, alpha, sigma)
+    conj = loss.conjugate(-alpha, data.y) * data.mask
+    conj_term = torch.sum(conj / data.n[:, None].to(conj.dtype))
+    return -quad / (2.0 * lam) - conj_term
+
+
+def _empirical_risk(data: MTLData, W: Tensor, loss: Loss) -> Tensor:
+    z = predictions(data, W)
+    return torch.sum(loss.value(z, data.y) * data.mask / data.n[:, None].to(z.dtype))
+
+
+def primal_objective(
+    data: MTLData, W: Tensor, omega: Tensor, lam: float, loss: Loss
+) -> Tensor:
+    """P(W) of Eq. (1) with explicit Omega (precision matrix). W: (m, d)."""
+    reg = 0.5 * lam * torch.einsum("id,ij,jd->", W, omega, W)
+    return _empirical_risk(data, W, loss) + reg
+
+
+def primal_objective_from_alpha(
+    data: MTLData, alpha: Tensor, sigma, lam: float, loss: Loss
+) -> Tensor:
+    """P(W(alpha)) using tr(W Omega W^T) = tr(Sigma B^T B)/lambda^2."""
+    W = weights_from_alpha(data, alpha, sigma, lam)
+    reg = quad_term(data, alpha, sigma) / (2.0 * lam)
+    return _empirical_risk(data, W, loss) + reg
+
+
+def duality_gap(
+    data: MTLData, alpha: Tensor, sigma, lam: float, loss: Loss
+) -> Tensor:
+    """G(alpha) = P(W(alpha)) - D(alpha) >= 0 (weak duality)."""
+    return primal_objective_from_alpha(data, alpha, sigma, lam, loss) - dual_objective(
+        data, alpha, sigma, lam, loss
+    )
+
+
+def predictions(data: MTLData, W: Tensor) -> Tensor:
+    """z_j^i = w_i^T x_j^i, (m, n_max)."""
+    return torch.einsum("mnd,md->mn", data.x, W)
+
+
+def task_scores(W: Tensor, X: Tensor, tasks: Tensor) -> Tensor:
+    """Per-row scores z_n = w_{tasks[n]}^T x_n for flat request batches:
+    W (m, d), X (n, d), tasks (n,) int -> (n,)."""
+    return torch.einsum("nd,nd->n", X, W[tasks])
+
+
+def error_rate(data: MTLData, W: Tensor) -> Tensor:
+    """Masked averaged-over-tasks classification error (paper's metric)."""
+    z = predictions(data, W)
+    wrong = (torch.sign(z) != torch.sign(data.y)).to(torch.float32) * data.mask
+    per_task = torch.sum(wrong, dim=1) / torch.clamp(torch.sum(data.mask, dim=1), min=1.0)
+    return torch.mean(per_task)
+
+
+def rmse(data: MTLData, W: Tensor) -> Tensor:
+    """Masked global RMSE over all test points (School metric)."""
+    z = predictions(data, W)
+    se = (z - data.y) ** 2 * data.mask
+    return torch.sqrt(torch.sum(se) / torch.clamp(torch.sum(data.mask), min=1.0))
+
+
+def explained_variance(data: MTLData, W: Tensor) -> Tensor:
+    """Explained variance as in Argyriou et al. (School): 1 - SSE/Var(y)."""
+    z = predictions(data, W)
+    msk = data.mask
+    tot = torch.clamp(torch.sum(msk), min=1.0)
+    ybar = torch.sum(data.y * msk) / tot
+    sse = torch.sum((z - data.y) ** 2 * msk)
+    svar = torch.sum((data.y - ybar) ** 2 * msk)
+    return 1.0 - sse / torch.clamp(svar, min=1e-12)

@@ -1,0 +1,60 @@
+"""The port stands alone: no module of src/repro_torch, and not
+chip_smoke.py, imports jax or the JAX package (repro), and importing the
+port pulls neither into a fresh interpreter."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _files():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name, node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module, node.lineno
+
+
+def test_port_has_modules():
+    names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert {"prng.py", "convert.py", "core/dmtrl.py", "core/estimator.py",
+            "kernels/sdca/ops.py", "kernels/sdca/sdca_kernel.py"} <= names
+    assert (PORT / "kernels/sdca/csrc/sdca_round.cu").exists()
+    assert (PORT / "kernels/sdca/csrc/sdca_block.cu").exists()
+
+
+@pytest.mark.parametrize("path", _files(), ids=lambda p: p.relative_to(REPO).as_posix())
+def test_no_jax_or_reference_imports(path):
+    bad = [
+        (name, line) for name, line in _imported(path)
+        if name.split(".")[0] in FORBIDDEN
+    ]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_import_pulls_in_no_jax():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.core, repro_torch.convert, repro_torch.prng\n"
+        "import repro_torch.kernels.sdca, repro_torch.data.synthetic\n"
+        "import repro_torch.serve.scheduler\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
