@@ -4,17 +4,31 @@
     python3 chip_smoke.py
 
 Phases, each printing its own lines:
-  1. build  — compile the SDCA kernels from src/repro_torch/kernels/sdca/csrc
-              with nvcc for sm_90a (one nvcc per source, started together);
-  2. kernels against their plain PyTorch versions on the card, at the main
-              path's shapes (10 tasks x 12000 rows x 784 features, B = 64),
-              for the hinge, squared and smoothed-hinge losses;
+  1. build  — compile the four kernels (SDCA round and block, flash
+              attention, SSD chunk) from src/repro_torch/kernels/*/csrc with
+              nvcc for sm_90a (one nvcc per source, started together);
+  2. kernels against their plain PyTorch versions on the card, at their
+              paths' shapes: the SDCA kernels at 10 tasks x 12000 rows x 784
+              features, B = 64, for the hinge, squared and smoothed-hinge
+              losses; flash attention at Zamba2-2.7B's (1, 32, 512, 80),
+              bf16 and fp32 causal and fp32 with a 128 window; the SSD chunk
+              at Zamba2-2.7B's (1, 80, 8, 64, 64, 64), dt and A in the
+              model's ranges;
   3. main path — DMTRLEstimator(solver="pallas_round") fits the paper's
               MNIST-width problem (mnist_like, scale 1.0) on the card, then
               scores and predicts; the fused round kernel must carry every
               round;
   4. second path — solver="pallas_block" on the paper's Synthetic-1 size,
-              held against solver="block_gram" (plain torch) on the card.
+              held against solver="block_gram" (plain torch) on the card;
+  5. LM path — Zamba2-2.7B at full width (54 Mamba2 layers, the shared
+              attention block 9 times; bf16, random weights from seed 0)
+              behind ServingEngine(batch=4, max_len=1024) answers 6 greedy
+              requests of 16 tokens (prompts of 512, 300, 129, 64, 200 and
+              17 tokens; the last two enter freed slots); every prefill
+              must launch flash attention 9 times and the SSD chunk 54
+              times, decode ticks neither;
+  5b. consistency — the same model in fp32: prefill of 256 tokens plus 3
+              decode steps against prefills of 257, 258 and 259 tokens.
 
 It exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository. The line before the last is a JSON object with
@@ -34,9 +48,11 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the tensor cores
-# and HBM3 bandwidth; used for each kernel's bound
+# H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the tensor cores,
+# dense bf16 on the tensor cores and HBM3 bandwidth; used for each kernel's
+# bound
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 M, N_MAX, D, BLOCK = 10, 12000, 784, 64
@@ -53,6 +69,33 @@ LOSSES = ("hinge", "squared", "smoothed_hinge")
 TOL_ROUND = 5e-4
 TOL_BLOCK = 1e-4
 TOL_W, TOL_SIGMA = 2e-4, 1e-5  # fit parity bars of the JAX package's tests
+
+# Zamba2-2.7B's shapes for the LM kernels: the shared block's attention
+# (32 heads of 80) over the longest prompt, and one Mamba2 layer's SSD
+# chunks (80 heads, P = N = 64, chunks of 64) over it
+ATTN_HEADS, ATTN_S, ATTN_HD, ATTN_WINDOW = 32, 512, 80, 128
+SSD_H, SSD_NC, SSD_Q, SSD_P, SSD_N = 80, 8, 64, 64, 64
+# flash attention and the SSD chunk against their plain versions. Flash:
+# the JAX package's bars (tests/test_kernels.py: fp32 1e-5, bf16 2e-2);
+# measured on an H100 at the shapes below, 1.13e-6 in fp32 (8.8x margin)
+# and 9.8e-4 in bf16 (one output rounding; 20x margin). The SSD chunk: the
+# JAX bar is 1e-5 at its test ranges, where |cumsum(dt A)| stays below
+# about 5. At Mamba2's ranges (A down to -16, dt up to about 0.3) it
+# reaches about -300 over a chunk, where fp32 values are 3e-5 apart, so
+# exp(cum_t - cum_tau) carries a relative rounding of about 1e-5 that
+# depends on the order of the prefix sums (the kernel's warp scan against
+# torch.cumsum); on |Y_intra| up to 7.2 that measured 1.43e-5 (relative
+# 2e-6). Held at 5e-5: a 3.5x margin.
+TOL_FLASH_F32, TOL_FLASH_BF16, TOL_SSD = 1e-5, 2e-2, 5e-5
+# the serving main path (phase 5) and its fp32 consistency check (5b)
+PROMPT_LENS = (512, 300, 129, 64, 200, 17)
+NEW_TOKENS, SERVE_BATCH, SERVE_MAX_LEN = 16, 4, 1024
+CONSIST_S = 256
+# fp32 prefill (chunked SSD through K4, flash attention through K3) against
+# the recurrent plain decode over 54 layers: the same function summed in
+# another order. tests/test_serve.py's decode bar; measured on an H100
+# 5.4e-5 on logits up to 5.0 (a 9.3x margin).
+TOL_CONSIST = 5e-4
 
 
 def fail(msg: str) -> None:
@@ -79,10 +122,250 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def lm_kernel_checks(torch, dev, card: str) -> dict:
+    """Phase 2 for flash attention (K3) and the SSD chunk (K4): each kernel
+    against its plain version at the main path's shapes, CUDA-event times
+    and bounds."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash import flash_kernel
+    from repro_torch.kernels.flash import ref as flash_ref
+    from repro_torch.kernels.ssd import ref as ssd_ref
+    from repro_torch.kernels.ssd import ssd_kernel
+
+    rs = np.random.RandomState(1)
+    H, S, HD = ATTN_HEADS, ATTN_S, ATTN_HD
+    qkv32 = [torch.from_numpy(rs.randn(1, H, S, HD).astype(np.float32)).to(dev)
+             for _ in range(3)]
+    err_flash = 0.0
+    for label, dtype, window, tol in (
+        ("bf16", torch.bfloat16, 0, TOL_FLASH_BF16),
+        ("fp32", torch.float32, 0, TOL_FLASH_F32),
+        (f"fp32 window {ATTN_WINDOW}", torch.float32, ATTN_WINDOW, TOL_FLASH_F32),
+    ):
+        q, k, v = (t.to(dtype) for t in qkv32)
+        out = flash_kernel.flash_attention(q, k, v, True, window)
+        torch.cuda.synchronize()
+        want = flash_ref.attention_ref(q, k, v, True, window)
+        check(bool(torch.isfinite(out).all()), f"flash {label}: non-finite output")
+        e = (out.float() - want.float()).abs().max().item()
+        print(f"[2 flash_fwd {label}] max|out - plain| = {e:.3e} (tolerance {tol:.0e})")
+        check(e <= tol, f"flash {label} disagrees with its plain version")
+        err_flash = max(err_flash, e)
+    q, k, v = (t.to(torch.bfloat16) for t in qkv32)
+    ms_flash = cuda_ms(torch, lambda: flash_kernel.flash_attention(q, k, v, True, 0), reps=50)
+    plain_flash = cuda_ms(torch, lambda: flash_ref.attention_ref(q, k, v, True, 0), reps=10)
+    lib_flash = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), reps=50)
+    # q, k, v read once and o written once, bf16; QK^T and PV over the
+    # causal triangle
+    b_flash, by_flash = bound_ms(4 * q.numel() * 2, 4.0 * H * HD * S * (S + 1) / 2,
+                                 PEAK_BF16_FLOPS)
+    print(f"[2 flash_fwd] bf16 {tuple(q.shape)} causal: {ms_flash:.4f} ms/call (plain "
+          f"{plain_flash:.3f} ms, scaled_dot_product_attention {lib_flash:.4f} ms), "
+          f"bound {b_flash:.5f} ms by {by_flash} on {card}")
+
+    Hs, nc, Q, P, N = SSD_H, SSD_NC, SSD_Q, SSD_P, SSD_N
+    dt0 = np.exp(np.linspace(np.log(1e-3), np.log(1e-1), Hs))
+    dt_bias = dt0 + np.log(-np.expm1(-dt0))
+    cells = [
+        rs.randn(1, Hs, nc, Q, P),  # x
+        np.logaddexp(0.0, rs.randn(1, Hs, nc, Q) + dt_bias[None, :, None, None]),  # dt
+        -np.linspace(1.0, 16.0, Hs),  # A = -exp(A_log) at init
+        0.3 * rs.randn(1, Hs, nc, Q, N),  # B
+        0.3 * rs.randn(1, Hs, nc, Q, N),  # C
+    ]
+    x, dt, A, Bm, Cm = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in cells)
+    got = ssd_kernel.ssd_chunk_kernel(x, dt, A, Bm, Cm)
+    torch.cuda.synchronize()
+    want = ssd_ref.chunk_ref(x, dt, A, Bm, Cm)
+    err_ssd = 0.0
+    for name, a, b in zip(("Y_intra", "S_local", "a_tot"), got, want):
+        check(bool(torch.isfinite(a).all()), f"ssd_chunk {name}: non-finite output")
+        e = (a - b).abs().max().item()
+        print(f"[2 ssd_chunk] max|{name} - plain| = {e:.3e} (max|plain| "
+              f"{b.abs().max().item():.3f}; tolerance {TOL_SSD:.0e})")
+        err_ssd = max(err_ssd, e)
+    check(err_ssd <= TOL_SSD, "ssd_chunk disagrees with its plain version")
+    ms_ssd = cuda_ms(torch, lambda: ssd_kernel.ssd_chunk_kernel(x, dt, A, Bm, Cm), reps=50)
+    plain_ssd = cuda_ms(torch, lambda: ssd_ref.chunk_ref(x, dt, A, Bm, Cm), reps=10)
+    cells_n = Hs * nc
+    # per cell: x, dt, B, C read, Y, S, a_tot written (fp32); C B^T and Y
+    # over the causal triangle, S over the whole chunk
+    ssd_bytes = cells_n * 4 * (Q * P + Q + 2 * Q * N + Q * P + N * P + 1) + Hs * 4
+    ssd_flops = cells_n * (2.0 * (Q * (Q + 1) / 2) * (N + P) + 2.0 * Q * N * P)
+    b_ssd, by_ssd = bound_ms(ssd_bytes, ssd_flops)
+    print(f"[2 ssd_chunk] fp32 {tuple(x.shape)}: {ms_ssd:.4f} ms/call (plain "
+          f"{plain_ssd:.3f} ms), bound {b_ssd:.5f} ms by {by_ssd} on {card}")
+    return dict(
+        flash=dict(max_abs_err=err_flash, ms=ms_flash, plain_ms=plain_flash,
+                   bound_ms=b_flash, bound_by=by_flash, library_ms=lib_flash),
+        ssd=dict(max_abs_err=err_ssd, ms=ms_ssd, plain_ms=plain_ssd,
+                 bound_ms=b_ssd, bound_by=by_ssd, library_ms=None),
+    )
+
+
+def serve_main_path(torch, dev, card: str):
+    """Phase 5: Zamba2-2.7B at full width behind the ServingEngine. Returns
+    (flash launches, SSD launches, the config) of the counted run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash import flash_kernel
+    from repro_torch.kernels.ssd import ssd_kernel
+    from repro_torch.models import decode_step, init_decode_cache, init_params, prefill
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+
+    cfg = get_config("zamba2-2.7b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"[5 init] {cfg.name}: {cfg.param_count() / 1e9:.3f}e9 parameters "
+          f"({cfg.dtype}), {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, "
+          f"{time.perf_counter() - t0:.1f} s")
+    eng = ServingEngine(cfg, params, ServeConfig(batch=SERVE_BATCH, max_len=SERVE_MAX_LEN),
+                        device=dev)
+    rs = np.random.RandomState(0)
+    reqs = [Request(prompt=rs.randint(2, cfg.vocab_size, size=n).astype(np.int32),
+                    max_new_tokens=NEW_TOKENS) for n in PROMPT_LENS]
+    for r in reqs:
+        eng.admit(r)
+    periods = cfg.n_layers // cfg.hybrid_attn_every
+
+    def counts():
+        return flash_kernel.flash_attention.launches, ssd_kernel.ssd_chunk_kernel.launches
+
+    inject_ms, tick_ms, done = [], [], []
+    tick_launches = 0
+
+    def inject(r):
+        before = counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.inject([r])
+        torch.cuda.synchronize()
+        inject_ms.append((time.perf_counter() - t) * 1e3)
+        after = counts()
+        check(after[0] - before[0] == periods and after[1] - before[1] == cfg.n_layers,
+              f"prefill of {len(r.prompt)} tokens launched flash "
+              f"{after[0] - before[0]} and ssd_chunk {after[1] - before[1]} times")
+
+    flash_kernel.flash_attention.launches = 0
+    ssd_kernel.ssd_chunk_kernel.launches = 0
+    t_run = time.perf_counter()
+    queue = list(reqs)
+    while queue and eng.free_slots:
+        inject(queue.pop(0))
+    while len(done) < len(reqs):
+        check(len(tick_ms) < 10 * NEW_TOKENS * len(reqs), "the engine does not finish")
+        before = counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        done += eng.decode_tick()
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t) * 1e3)
+        tick_launches += sum(counts()) - sum(before)
+        while queue and eng.free_slots:
+            inject(queue.pop(0))
+    run_s = time.perf_counter() - t_run
+    launches_flash, launches_ssd = counts()
+
+    print(f"[5 serve] {len(reqs)} requests x {NEW_TOKENS} new tokens, batch {SERVE_BATCH}, "
+          f"max_len {SERVE_MAX_LEN}: {run_s:.2f} s wall, {len(tick_ms)} decode ticks")
+    for r, ms in zip(reqs, inject_ms):
+        print(f"[5 serve]   prompt {len(r.prompt):4d}: inject (prefill + slot insert) "
+              f"{ms:8.2f} ms; {r.finish_reason} after {len(r.output)} tokens: "
+              f"{r.output[:8]}...")
+    ticks = np.asarray(tick_ms)
+    print(f"[5 serve] decode tick (batch {SERVE_BATCH}, host clock): mean {ticks.mean():.2f} "
+          f"ms, median {np.median(ticks):.2f} ms, first {ticks[0]:.2f} ms, max "
+          f"{ticks.max():.2f} ms; launches flash {launches_flash}, ssd_chunk "
+          f"{launches_ssd}, during ticks {tick_launches}; on {card}")
+    check(len(done) == len(reqs) and all(r.done for r in reqs), "a request did not finish")
+    for r in reqs:
+        check(r.finish_reason in ("eos", "length"), f"finish reason {r.finish_reason}")
+        check(1 <= len(r.output) <= NEW_TOKENS, f"{len(r.output)} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in r.output),
+              f"token outside [0, {cfg.vocab_size}): {r.output}")
+        check(r.finish_reason == "eos" or len(r.output) == NEW_TOKENS, "short by length")
+    check(launches_flash == periods * len(reqs),
+          f"flash launched {launches_flash} times, expected {periods} x {len(reqs)}")
+    check(launches_ssd == cfg.n_layers * len(reqs),
+          f"ssd_chunk launched {launches_ssd} times, expected {cfg.n_layers} x {len(reqs)}")
+    check(tick_launches == 0, f"decode ticks launched the prefill kernels {tick_launches} times")
+
+    # where the device time of one prefill (the longest prompt) and of one
+    # decode step of the full batch goes, warm
+    toks = torch.from_numpy(reqs[0].prompt[None]).to(dev)
+    cache = init_decode_cache(cfg, SERVE_BATCH, SERVE_MAX_LEN, device=dev)
+    cache.position = torch.full((SERVE_BATCH,), 600, dtype=torch.int32, device=dev)
+    step_toks = torch.arange(2, 2 + SERVE_BATCH, device=dev)
+    for label, run in (
+        (f"prefill of {toks.shape[1]} tokens",
+         lambda: prefill(cfg, params, toks, extra_len=SERVE_MAX_LEN - toks.shape[1])),
+        (f"decode step of batch {SERVE_BATCH}", lambda: decode_step(cfg, params, step_toks, cache)),
+    ):
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        if not events:
+            print(f"[5 profile] {label}: the profiler saw no device time ({wall_ms:.1f} ms wall)")
+            continue
+        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+        print(f"[5 profile] warm {label}: {wall_ms:.1f} ms wall (profiler on), device "
+              f"busy {busy_ms:.2f} ms = {busy_ms / wall_ms:.1%} of wall, "
+              f"{sum(e.count for e in events)} profiler events with device time")
+        for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
+            dms = e.self_device_time_total / 1e3
+            print(f"[5 profile]   {dms:8.3f} ms {dms / busy_ms:6.1%}  x{e.count:<5d} {e.key[:80]}")
+        for name in ("flash_fwd_kernel", "ssd_chunk_kernel"):
+            dms = sum(e.self_device_time_total for e in events if name in e.key) / 1e3
+            print(f"[5 profile]   {name}: {dms:.3f} ms = {dms / busy_ms:.1%} of device time")
+    del cache
+    del eng, params
+    torch.cuda.empty_cache()
+    return launches_flash, launches_ssd, cfg
+
+
+def consistency(torch, dev, cfg) -> float:
+    """Phase 5b: in fp32, prefill of S tokens plus 3 decode steps tracks
+    the last logits of prefills over S+1, S+2 and S+3 tokens (the invariant
+    of tests/test_serve.py), holding the kernel prefill against the plain
+    decode path."""
+    import dataclasses
+
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = init_params(cfg32, seed=0, device=dev)
+    rs = np.random.RandomState(5)
+    toks = torch.from_numpy(rs.randint(2, cfg.vocab_size, size=(1, CONSIST_S + 3))).to(dev)
+    _, cache = prefill(cfg32, params, toks[:, :CONSIST_S], extra_len=8)
+    errs, scale = [], 0.0
+    for t in range(3):
+        out, cache = decode_step(cfg32, params, toks[:, CONSIST_S + t], cache)
+        want, _ = prefill(cfg32, params, toks[:, :CONSIST_S + t + 1], extra_len=8)
+        check(bool(torch.isfinite(out).all()), "decode logits not finite")
+        errs.append((out - want).abs().max().item())
+        scale = max(scale, want.abs().max().item())
+    print(f"[5b consistency] fp32 {cfg.name}, prompt {CONSIST_S}: max|decode - prefill| "
+          f"logits over 3 steps {', '.join(f'{e:.3e}' for e in errs)} (max|logit| "
+          f"{scale:.2f}; tolerance {TOL_CONSIST:.0e})")
+    check(max(errs) <= TOL_CONSIST, "prefill + decode disagrees with a longer prefill")
+    del params, cache
+    torch.cuda.empty_cache()
+    return max(errs)
 
 
 def main() -> int:
@@ -101,8 +384,9 @@ def main() -> int:
     from repro_torch.core import dual as dual_mod
     from repro_torch.core.sdca import coords_from_uniform, gather_rows, kappa_of
     from repro_torch.data.synthetic import mnist_like, synthetic
+    from repro_torch.kernels import flash, nvcc, sdca, ssd
     from repro_torch.kernels.sdca import (
-        build_all, ref, reset_launch_counts, sdca_block_kernel, sdca_round_kernel,
+        ref, reset_launch_counts, sdca_block_kernel, sdca_round_kernel,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -120,7 +404,7 @@ def main() -> int:
 
     # -- phase 1: build ----------------------------------------------------
     t0 = time.perf_counter()
-    seconds = build_all()
+    seconds = nvcc.build_all(sdca.SOURCES + flash.SOURCES + ssd.SOURCES)
     print(f"[1 build] {time.perf_counter() - t0:.2f} s wall; per source: "
           + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items()))
 
@@ -200,6 +484,7 @@ def main() -> int:
     print(f"[2 sdca_block] {ms_block:.4f} ms/call (plain {plain_block:.2f} ms), "
           f"bound {b_block:.5f} ms by {by_block} on {card}")
     del alpha, w, u, r_state, xb
+    lm = lm_kernel_checks(torch, dev, card)
 
     # -- phase 3: the main path at MNIST width -------------------------------
     cfg = dict(solver="pallas_round", loss="hinge", lam=1e-4, outer_iters=2,
@@ -289,6 +574,10 @@ def main() -> int:
           f"sdca_block launched {launches_block} times")
     check(round_in_block == 0, "the second path launched sdca_round")
 
+    # -- phase 5: the LM serving path; 5b: its fp32 consistency ----------------
+    launches_flash, launches_ssd, lm_cfg = serve_main_path(torch, dev, card)
+    consistency(torch, dev, lm_cfg)
+
     kernels = [
         dict(name="sdca_round", route="cuda",
              source="src/repro_torch/kernels/sdca/csrc/sdca_round.cu",
@@ -302,6 +591,14 @@ def main() -> int:
              launches=launches_block, max_abs_err=err_block, ms=ms_block,
              plain_ms=plain_block, bound_ms=b_block, bound_by=by_block,
              library_ms=None),
+        dict(name="flash_fwd", route="cuda",
+             source="src/repro_torch/kernels/flash/csrc/flash_fwd.cu",
+             replaces="src/repro/kernels/flash/flash_kernel.py:84",
+             launches=launches_flash, **lm["flash"]),
+        dict(name="ssd_chunk", route="cuda",
+             source="src/repro_torch/kernels/ssd/csrc/ssd_chunk.cu",
+             replaces="src/repro/kernels/ssd/ssd_kernel.py:70",
+             launches=launches_ssd, **lm["ssd"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -54,3 +54,28 @@ def from_reference(
         continued=False,
     )
     return est
+
+
+def lm_params_from_reference(cfg, params_np: Mapping, device="cuda") -> Dict:
+    """The port's LM param dict from the JAX package's ``init_params`` pytree
+    with its leaves as numpy arrays (``jax.tree.map(np.asarray, params)``):
+    the same keys and stacked layer axes, each leaf a tensor of the same
+    dtype on ``device``. ``cfg`` names the architecture the pytree is for."""
+    from .core.dmtrl import resolve_device
+    from .models.transformer import _require_hybrid
+
+    _require_hybrid(cfg)
+    device = resolve_device(device)
+
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: no numpy twin in torch
+            return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
+        return torch.from_numpy(np.array(a)).to(device)
+
+    def tree(node):
+        if isinstance(node, Mapping):
+            return {k: tree(v) for k, v in node.items()}
+        return leaf(node)
+
+    return tree(params_np)

@@ -1,0 +1,66 @@
+"""Hopper CUDA kernel for the flash-attention forward, bound with ctypes.
+
+``flash_attention`` — csrc/flash_fwd.cu: causal or sliding-window softmax
+attention over (B, H, S, HD) in one launch (one CTA per 64-row query
+block, head and batch); replaces the TPU kernel ``flash_attention`` of
+``repro/kernels/flash/flash_kernel.py`` (the source says how they differ).
+
+The source has a plain C interface and is compiled on first use by
+``repro_torch.kernels.nvcc``. The wrapper checks device, dtype, shape and
+contiguity, allocates the output, launches on PyTorch's current stream,
+raises if the launch returned a CUDA error, and only then adds one to its
+``launches`` count.
+"""
+from __future__ import annotations
+
+from pathlib import Path
+
+import torch
+
+from ..nvcc import FLOAT, INT, VP, check_tensor, launcher, raise_on
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (CSRC / "flash_fwd.cu",)
+_ARGTYPES = [VP] * 4 + [INT] * 7 + [FLOAT, INT, VP]
+DTYPES = (torch.float32, torch.bfloat16)
+MAX_HEAD_DIM = 128
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, H, S, HD)
+    k: torch.Tensor,  # (B, H, Sk, HD)
+    v: torch.Tensor,  # (B, H, Sk, HD)
+    causal: bool = True,
+    window: int = 0,
+) -> torch.Tensor:
+    """Attention output (B, H, S, HD) in q's dtype; fp32 math inside.
+
+    The kernel tiles by 64 rows and keys itself and masks the ragged edge,
+    so S and Sk need not be multiples of a block. HD must be a multiple of
+    16 up to 128. A causal call needs Sk >= S (every row keeps its
+    diagonal key, which lets the kernel skip fully masked key blocks)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"the flash kernel runs on CUDA tensors, got {q.device}")
+    B, H, S, HD = q.shape
+    Sk = k.shape[2]
+    if q.dtype not in DTYPES:
+        raise TypeError(f"kernel takes {DTYPES}, got {q.dtype}")
+    if HD % 16 or HD > MAX_HEAD_DIM:
+        raise ValueError(f"head dim must be a multiple of 16 up to {MAX_HEAD_DIM}, got {HD}")
+    if causal and Sk < S:
+        raise ValueError(f"a causal call needs Sk >= S, got Sk={Sk}, S={S}")
+    for name, t, shape in (("q", q, (B, H, S, HD)), ("k", k, (B, H, Sk, HD)),
+                           ("v", v, (B, H, Sk, HD))):
+        check_tensor(name, t, shape, q.dtype, q.device)
+    out = torch.empty_like(q)
+    err = launcher(SOURCES[0], _ARGTYPES)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, S, Sk, HD,
+        int(causal), int(window), 1.0 / HD**0.5, int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    raise_on(err, "flash_fwd")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

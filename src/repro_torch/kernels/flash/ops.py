@@ -1,0 +1,66 @@
+"""Entry points for the flash-attention kernel, by the tensors' device: a
+CPU tensor runs the plain version (``ref.attention_ref``), a CUDA tensor
+launches the Hopper kernel or raises.
+
+``flash_attention_bshd`` adapts the model layout (B, S, H, HD) to the
+kernel's (B, H, S, HD) and pads the sequence to the block multiples, as the
+JAX package's wrapper does.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .flash_kernel import flash_attention as flash_attention_kernel
+from .ref import attention_ref
+
+Tensor = torch.Tensor
+
+
+def flash_attention(
+    q: Tensor,  # (B, H, S, HD), S and Sk multiples of the blocks
+    k: Tensor,
+    v: Tensor,
+    causal: bool = True,
+    window: int = 0,
+    block_q: int = 128,
+    block_k: int = 128,
+) -> Tensor:
+    S, Sk = q.shape[2], k.shape[2]
+    bq, bk = min(block_q, S), min(block_k, Sk)
+    if S % bq or Sk % bk:
+        raise ValueError("pad seq to block multiples first")
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal, window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on CPU or CUDA tensors, got {q.device}")
+    return flash_attention_kernel(q, k, v, causal, window)
+
+
+def flash_attention_bshd(
+    q: Tensor,  # (B, S, H, HD): model layout
+    k: Tensor,
+    v: Tensor,
+    causal: bool = True,
+    window: int = 0,
+    block_q: int = 128,
+    block_k: int = 128,
+) -> Tensor:
+    S, Sk = q.shape[1], k.shape[1]
+    bq, bk = min(block_q, S), min(block_k, Sk)
+    pad_q, pad_k = (-S) % bq, (-Sk) % bk
+    qt = q.transpose(1, 2)
+    kt = k.transpose(1, 2)
+    vt = v.transpose(1, 2)
+    if pad_q:
+        qt = F.pad(qt, (0, 0, 0, pad_q))
+    if pad_k:
+        # padded keys sit at positions >= Sk: the causal mask hides them from
+        # every real query; non-causal padding would need an explicit mask
+        assert causal, "non-causal padding unsupported; pre-pad inputs"
+        kt = F.pad(kt, (0, 0, 0, pad_k))
+        vt = F.pad(vt, (0, 0, 0, pad_k))
+    out = flash_attention(
+        qt.contiguous(), kt.contiguous(), vt.contiguous(), causal, window, bq, bk
+    )
+    return out[:, :, :S].transpose(1, 2)

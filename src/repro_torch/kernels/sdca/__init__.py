@@ -1,7 +1,7 @@
 from . import ops, ref
 from .sdca_kernel import (
+    SOURCES,
     SUPPORTED_LOSSES,
-    build_all,
     reset_launch_counts,
     sdca_block_kernel,
     sdca_round_kernel,
@@ -10,8 +10,8 @@ from .sdca_kernel import (
 __all__ = [
     "ops",
     "ref",
+    "SOURCES",
     "SUPPORTED_LOSSES",
-    "build_all",
     "reset_launch_counts",
     "sdca_block_kernel",
     "sdca_round_kernel",

@@ -8,15 +8,8 @@ Two kernels, each the port of one TPU kernel of
 ``sdca_block_kernel`` — csrc/sdca_block.cu: the deltas of one H-block for
     all m tasks in one launch; replaces ``sdca_block_kernel``.
 
-Each ``.cu`` file has a plain C interface and is compiled on first use, on
-a machine with ``nvcc``, into ``build/`` at the repository root:
-
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/<name>-<hash>.so csrc/<name>.cu
-
-The file name carries a hash of the sources, so an edited kernel is rebuilt.
-``build_all()`` compiles both at once (one ``nvcc`` per source, started
-together). Nothing is built or loaded at import time.
+Each ``.cu`` file has a plain C interface and is compiled on first use by
+``repro_torch.kernels.nvcc`` (nvcc into ``build/``, bound with ctypes).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs, launches on PyTorch's current stream, raises if the launch returned
@@ -24,107 +17,27 @@ a CUDA error, and only then adds one to its ``launches`` count.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Tuple
 
 import torch
+
+from ..nvcc import INT, VP, check_tensor, launcher, raise_on
 
 SUPPORTED_LOSSES = ("hinge", "squared", "smoothed_hinge")
 SUPPORTED_BLOCKS = (16, 32, 64)
 _LOSS_IDS = {name: i for i, name in enumerate(SUPPORTED_LOSSES)}
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-_SOURCES = ("sdca_round", "sdca_block")
-_VP, _I = ctypes.c_void_p, ctypes.c_int
+SOURCES = (CSRC / "sdca_round.cu", CSRC / "sdca_block.cu")
 _ARGTYPES = {
-    "sdca_round": [_VP] * 9 + [_I] * 6 + [_VP],
-    "sdca_block": [_VP] * 8 + [_I] * 4 + [_VP],
+    "sdca_round": [VP] * 9 + [INT] * 6 + [VP],
+    "sdca_block": [VP] * 8 + [INT] * 4 + [VP],
 }
-_LIBS: Dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(found):
-        raise RuntimeError("nvcc not found: the SDCA kernels build on a CUDA machine")
-    return found
-
-
-def _lib_path(name: str) -> Path:
-    h = hashlib.sha256()
-    for src in sorted(CSRC.glob("*.cu*")):
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
-
-
-def build_all(names: Iterable[str] = _SOURCES) -> Dict[str, float]:
-    """Compile the named kernels that are not built yet, one ``nvcc`` per
-    source, all started together. Returns the seconds each build took (0
-    for a library already built); raises with nvcc's output on failure.
-    ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory, spills)
-    goes to ``build/<name>.log``."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    seconds = {}
-    for name in names:
-        out = _lib_path(name)
-        if out.exists():
-            seconds[name] = 0.0
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (
-            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT),
-            tmp, out, time.perf_counter(),
-        )
-    failed = []
-    for name, (proc, tmp, out, t0) in procs.items():
-        log, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
-        (BUILD_DIR / f"{name}.log").write_bytes(log)
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{log.decode(errors='replace')}")
-            continue
-        os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return seconds
-
-
-def _lib(name: str) -> ctypes.CDLL:
-    lib = _LIBS.get(name)
-    if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        _LIBS[name] = lib
-    return lib
-
-
-def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...], dtype, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+def _lib(name: str):
+    return launcher(CSRC / f"{name}.cu", _ARGTYPES[name])
 
 
 def _setup(loss: str, block: int, x: torch.Tensor):
@@ -134,11 +47,6 @@ def _setup(loss: str, block: int, x: torch.Tensor):
         raise ValueError(f"kernel supports {SUPPORTED_LOSSES}, got {loss!r}")
     if block not in SUPPORTED_BLOCKS:
         raise ValueError(f"kernel supports block sizes {SUPPORTED_BLOCKS}, got {block}")
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
 
 
 def sdca_round_kernel(
@@ -165,16 +73,16 @@ def sdca_round_kernel(
         ("u", u, (m, H), f32), ("n", n, (m,), torch.int32),
         ("kappa", kappa, (m,), f32),
     ):
-        _check(name, t, shape, dt, dev)
+        check_tensor(name, t, shape, dt, dev)
     dalpha = torch.zeros((m, n_max), dtype=f32, device=dev)
     r = torch.empty((m, d), dtype=f32, device=dev)
-    err = _lib("sdca_round").sdca_round_launch(
+    err = _lib("sdca_round")(
         x.data_ptr(), y.data_ptr(), alpha.data_ptr(), w.data_ptr(),
         u.data_ptr(), n.data_ptr(), kappa.data_ptr(), dalpha.data_ptr(),
         r.data_ptr(), m, n_max, d, H, block, _LOSS_IDS[loss],
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    _raise_on(err, "sdca_round")
+    raise_on(err, "sdca_round")
     sdca_round_kernel.launches += 1
     return dalpha, r
 
@@ -198,14 +106,14 @@ def sdca_block_kernel(
         ("at0", at0, (m, B), f32), ("y", y, (m, B), f32),
         ("cb", cb, (m, B), torch.int32), ("kappa", kappa, (m,), f32),
     ):
-        _check(name, t, shape, dt, dev)
+        check_tensor(name, t, shape, dt, dev)
     deltas = torch.empty((m, B), dtype=f32, device=dev)
-    err = _lib("sdca_block").sdca_block_launch(
+    err = _lib("sdca_block")(
         xb.data_ptr(), w.data_ptr(), r.data_ptr(), at0.data_ptr(),
         y.data_ptr(), cb.data_ptr(), kappa.data_ptr(), deltas.data_ptr(),
         m, B, d, _LOSS_IDS[loss], torch.cuda.current_stream(dev).cuda_stream,
     )
-    _raise_on(err, "sdca_block")
+    raise_on(err, "sdca_block")
     sdca_block_kernel.launches += 1
     return deltas
 

@@ -1,0 +1,182 @@
+"""Attention: GQA with RoPE, causal prefill through the flash-attention
+kernel, and KV-cache decode with per-row positions.
+
+Prefill runs ``kernels.flash.ops.flash_attention_bshd``: on CUDA tensors
+the Hopper kernel, on CPU tensors its plain version. Its mask is by index,
+which equals the JAX package's position mask (``chunked_attention``) for
+``positions = arange(S)``: the only positions a hybrid prefill has. Decode
+is plain torch, as it is in the JAX package.
+
+Not ported yet (later slices): pad positions (-1) of a bucketed prefill,
+cross-attention, and the ring buffer of local (sliding-window) layers.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..kernels.flash.ops import flash_attention_bshd
+from .common import apply_rope, dense_init, rms_norm
+
+Tensor = torch.Tensor
+
+NEG_INF = -1e30
+
+
+def init_attn_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict[str, Tensor]:
+    d, hd = cfg.d_model, cfg.head_dim
+    p = {
+        "wq": dense_init(gen, (d, cfg.n_heads * hd), dtype),
+        "wk": dense_init(gen, (d, cfg.n_kv_heads * hd), dtype),
+        "wv": dense_init(gen, (d, cfg.n_kv_heads * hd), dtype),
+        "wo": dense_init(gen, (cfg.n_heads * hd, d), dtype),
+    }
+    zeros = lambda n: torch.zeros((n,), dtype=dtype, device=gen.device)
+    if cfg.qkv_bias:
+        p["bq"] = zeros(cfg.n_heads * hd)
+        p["bk"] = zeros(cfg.n_kv_heads * hd)
+        p["bv"] = zeros(cfg.n_kv_heads * hd)
+    if cfg.qk_norm:
+        p["q_norm"] = zeros(hd)
+        p["k_norm"] = zeros(hd)
+    return p
+
+
+def _project_qkv(x: Tensor, p: Dict[str, Tensor], cfg: ModelConfig):
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, cfg.n_heads, hd)
+    k = k.reshape(B, S, cfg.n_kv_heads, hd)
+    v = v.reshape(B, S, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def _expand_kv(k: Tensor, n_heads: int) -> Tensor:
+    """(B, S, KV, hd) -> (B, S, H, hd) by repeating each kv head."""
+    rep = n_heads // k.shape[2]
+    return torch.repeat_interleave(k, rep, dim=2) if rep > 1 else k
+
+
+def _not_ported(what: str):
+    return NotImplementedError(f"{what} is not ported yet")
+
+
+def attention_train(
+    x: Tensor,
+    p: Dict[str, Tensor],
+    cfg: ModelConfig,
+    positions: Tensor,  # (S,) = arange(S)
+    is_local: bool = False,
+    causal: bool = True,
+    return_kv: bool = False,
+):
+    """Full-sequence attention for prefill. ``return_kv`` additionally
+    returns the post-RoPE (KV-head) k/v for the decode cache."""
+    B, S, _ = x.shape
+    if bool((positions < 0).any()):
+        raise _not_ported("attention over pad positions (-1)")
+    q, kkv, vkv = _project_qkv(x, p, cfg)
+    if cfg.rope_theta > 0:
+        q = apply_rope(q, positions[None, :], cfg.rope_theta)
+        kkv = apply_rope(kkv, positions[None, :], cfg.rope_theta)
+    k = _expand_kv(kkv, cfg.n_heads)
+    v = _expand_kv(vkv, cfg.n_heads)
+    window = cfg.window if (is_local and cfg.window) else 0
+    out = flash_attention_bshd(q, k, v, causal, window)
+    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    if return_kv:
+        return out, (kkv, vkv)
+    return out
+
+
+def cross_attention_train(*_args, **_kwargs):
+    raise _not_ported("cross-attention")
+
+
+def cache_from_kv(
+    cfg: ModelConfig,
+    k: Tensor,  # (B, S, KV, hd) post-rope
+    v: Tensor,
+    is_local: bool,
+    max_len: int,
+) -> Dict[str, Tensor]:
+    """Decode cache of one global layer from prefill k/v: slot == position."""
+    if is_local and cfg.window:
+        raise _not_ported("the local ring buffer")
+    B, S = k.shape[:2]
+    ck = k.new_zeros((B, max_len) + tuple(k.shape[2:]))
+    cv = v.new_zeros((B, max_len) + tuple(v.shape[2:]))
+    ck[:, :S] = k
+    cv[:, :S] = v
+    cpos = torch.full((B, max_len), -1, dtype=torch.int32, device=k.device)
+    cpos[:, :S] = torch.arange(S, dtype=torch.int32, device=k.device)
+    return {"k": ck, "v": cv, "pos": cpos}
+
+
+# ---------------------------------------------------------------------------
+# decode (one token) with KV cache
+# ---------------------------------------------------------------------------
+def init_kv_cache(
+    cfg: ModelConfig, batch: int, max_len: int, is_local: bool, dtype, device
+) -> Dict[str, Tensor]:
+    """Cache for one global attention layer."""
+    if is_local and cfg.window:
+        raise _not_ported("the local ring buffer")
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        # absolute position of each slot (for masking); -1 = empty
+        "pos": torch.full((batch, max_len), -1, dtype=torch.int32, device=device),
+    }
+
+
+def attention_decode(
+    x: Tensor,  # (B, 1, d) current token
+    cache: Dict[str, Tensor],
+    p: Dict[str, Tensor],
+    cfg: ModelConfig,
+    position: Tensor,  # scalar OR (B,) int — current absolute position(s)
+    is_local: bool,
+) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """One-token decode; ``position`` is a scalar or per-row ``(B,)``.
+    Writes land at ``slot == position`` per row, IN PLACE in ``cache``
+    (the JAX package returns updated copies); the same dict comes back."""
+    if is_local and cfg.window:
+        raise _not_ported("the local ring buffer")
+    B = x.shape[0]
+    hd = cfg.head_dim
+    q, k, v = _project_qkv(x, p, cfg)  # (B,1,H,hd), (B,1,KV,hd)
+    pos_v = torch.broadcast_to(position, (B,)).long()
+    if cfg.rope_theta > 0:
+        q = apply_rope(q, pos_v[:, None], cfg.rope_theta)
+        k = apply_rope(k, pos_v[:, None], cfg.rope_theta)
+
+    size = cache["k"].shape[1]
+    slot = torch.clamp(pos_v, max=size - 1)
+    rows = torch.arange(B, device=x.device)
+    cache["k"][rows, slot] = k[:, 0]
+    cache["v"][rows, slot] = v[:, 0]
+    cache["pos"][rows, slot] = pos_v.to(torch.int32)
+
+    kk = _expand_kv(cache["k"], cfg.n_heads).float()  # (B, size, H, hd)
+    vv = _expand_kv(cache["v"], cfg.n_heads).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) * (1.0 / math.sqrt(hd))
+    cpos = cache["pos"]
+    valid = (cpos >= 0) & (cpos <= pos_v[:, None])
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", w, vv)
+    out = out.to(x.dtype).reshape(B, 1, cfg.n_heads * hd)
+    return out @ p["wo"], cache

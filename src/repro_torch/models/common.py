@@ -1,0 +1,86 @@
+"""Shared model primitives: norms, activations, RoPE, init helpers.
+
+One card and no mesh: the JAX package's sharding hints (``maybe_shard``,
+``batch_axes``) have nothing to do here and are left out.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+Tensor = torch.Tensor
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "float16": torch.float16}[name]
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+def rms_norm(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * (1.0 + scale.float())).to(x.dtype)
+
+
+def gated_rms_norm(x: Tensor, gate: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
+    """Mamba2-style: RMSNorm(x * silu(gate))."""
+    return rms_norm(x * F.silu(gate.float()).to(x.dtype), scale, eps)
+
+
+# ---------------------------------------------------------------------------
+# activations
+# ---------------------------------------------------------------------------
+def activation(name: str):
+    if name == "squared_relu":
+        return lambda x: torch.square(F.relu(x))
+    if name == "gelu":
+        # jax.nn.gelu's default is the tanh approximation, not torch's
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "silu":
+        return F.silu
+    raise ValueError(f"unknown activation {name}")
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings
+# ---------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float, device=None) -> Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32, device=device) / half))
+
+
+def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
+    """x: (..., seq, n_heads, head_dim); positions: (..., seq) int."""
+    if theta <= 0.0:
+        return x
+    half = x.shape[-1] // 2
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    ang = positions[..., None].float() * freqs  # (..., seq, half)
+    cos = torch.cos(ang)[..., None, :]  # broadcast over heads
+    sin = torch.sin(ang)[..., None, :]
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# initializers: the JAX package's std rules, drawn from a torch.Generator
+# (the draws differ from jax.random's; tests carry JAX params across)
+# ---------------------------------------------------------------------------
+def dense_init(gen: torch.Generator, shape, dtype, scale: Optional[float] = None) -> Tensor:
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+    return (w.mul_(std)).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape, dtype) -> Tensor:
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+    return w.mul_(0.02).to(dtype)

@@ -12,7 +12,8 @@ from repro.core import dmtrl as jdmtrl
 from repro_torch.core import DMTRLConfig, fit
 from repro_torch.core import dual as dual_mod
 from repro_torch.data.synthetic import synthetic
-from repro_torch.kernels.sdca import ops, ref, sdca_kernel
+from repro_torch.kernels.nvcc import check_tensor
+from repro_torch.kernels.sdca import ops, ref
 
 SOLVERS = ("block_gram", "pallas_round")
 
@@ -127,7 +128,7 @@ def test_fit_feeds_kernels_their_contract(monkeypatch, small_cfg, port_problem, 
 
     def check_all(names, tensors, shapes, dtypes):
         for name, t, shape, dt in zip(names, tensors, shapes, dtypes):
-            sdca_kernel._check(name, t, shape, dt, t.device)
+            check_tensor(name, t, shape, dt, t.device)
 
     def fake_round(x, y, alpha, w, u, n, kappa, loss, block=64):
         m, n_max, d = x.shape

@@ -1,0 +1,108 @@
+"""The port's flash-attention kernel layer (repro_torch.kernels.flash).
+
+On the CPU: the wrappers route CPU tensors to the plain version and the
+kernel refuses them. On a CUDA card (marker ``gpu``; they skip here): the
+Hopper kernel against its plain version, fp32 at atol 1e-5 and bf16 at
+2e-2 (the JAX package's bars, tests/test_kernels.py). This module imports
+no JAX, so that the card's run, which has no JAX, can collect it:
+
+    PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_flash_kernel.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash import flash_kernel, ops, ref
+
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _qkv(seed, B, H, S, HD, dtype=torch.float32, device="cpu", Sk=None):
+    rs = np.random.RandomState(seed)
+    Sk = S if Sk is None else Sk
+    arrays = [rs.randn(B, H, n, HD).astype(np.float32) for n in (S, Sk, Sk)]
+    return [torch.from_numpy(a).to(device=device, dtype=dtype) for a in arrays]
+
+
+def test_ops_route_cpu_tensors_to_plain():
+    q, k, v = _qkv(0, 1, 2, 64, 16)
+    before = flash_kernel.flash_attention.launches
+    out = ops.flash_attention(q, k, v, True, 0, 32, 32)
+    assert torch.equal(out, ref.attention_ref(q, k, v, True, 0))
+    assert flash_kernel.flash_attention.launches == before
+
+
+def test_kernel_rejects_cpu_tensors():
+    q, k, v = _qkv(0, 1, 1, 16, 16)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_kernel.flash_attention(q, k, v)
+
+
+def test_bshd_refuses_non_causal_key_padding():
+    q, k, v = (t.transpose(1, 2) for t in _qkv(1, 1, 1, 40, 16))
+    with pytest.raises(AssertionError, match="non-causal"):
+        ops.flash_attention_bshd(q, k, v, causal=False, block_q=32, block_k=32)
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "B,H,S,HD,causal,window,dtype",
+    [
+        (1, 32, 512, 80, True, 0, torch.bfloat16),  # the Zamba2-2.7B prefill
+        (1, 32, 512, 80, True, 0, torch.float32),
+        (1, 32, 512, 80, True, 128, torch.float32),
+        (2, 3, 256, 64, True, 0, torch.float32),
+        (1, 2, 128, 32, True, 48, torch.float32),
+        (1, 1, 64, 16, True, 16, torch.float32),
+        (2, 2, 256, 64, False, 0, torch.float32),
+        (1, 4, 512, 128, True, 0, torch.float32),
+        (2, 2, 256, 64, True, 0, torch.bfloat16),
+        (1, 4, 17, 80, True, 0, torch.float32),  # ragged: S not a multiple of 64
+        (1, 4, 300, 80, True, 0, torch.bfloat16),
+        (1, 2, 129, 80, True, 100, torch.float32),
+    ],
+)
+def test_kernel_matches_plain(cuda, B, H, S, HD, causal, window, dtype):
+    q, k, v = _qkv(S * HD + H, B, H, S, HD, dtype, cuda)
+    before = flash_kernel.flash_attention.launches
+    out = flash_kernel.flash_attention(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert flash_kernel.flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    want = ref.attention_ref(q, k, v, causal, window)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_non_causal_cross_shapes(cuda):
+    """Sk != S without a causal mask (encoder-style); the ragged key tile
+    adds nothing."""
+    q, k, v = _qkv(7, 1, 2, 70, 64, torch.float32, cuda, Sk=100)
+    out = flash_kernel.flash_attention(q, k, v, causal=False)
+    torch.testing.assert_close(out, ref.attention_ref(q, k, v, False, 0), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_bshd_wrapper_with_padding_on_card(cuda):
+    q, k, v = (t.transpose(1, 2) for t in _qkv(3, 2, 2, 200, 64, torch.float32, cuda))
+    out = ops.flash_attention_bshd(q, k, v, causal=True, block_q=64, block_k=64)
+    want = ref.attention_ref(*(t.transpose(1, 2) for t in (q, k, v)), True, 0)
+    torch.testing.assert_close(out.transpose(1, 2), want, atol=2e-5, rtol=0)
+
+
+@pytest.mark.gpu
+def test_kernel_raises_on_unsupported_head_dim(cuda):
+    q, k, v = _qkv(0, 1, 1, 64, 72, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_kernel.flash_attention(q, k, v)

@@ -31,9 +31,17 @@ def _imported(path: Path):
 def test_port_has_modules():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     assert {"prng.py", "convert.py", "core/dmtrl.py", "core/estimator.py",
-            "kernels/sdca/ops.py", "kernels/sdca/sdca_kernel.py"} <= names
-    assert (PORT / "kernels/sdca/csrc/sdca_round.cu").exists()
-    assert (PORT / "kernels/sdca/csrc/sdca_block.cu").exists()
+            "kernels/nvcc.py",
+            "kernels/sdca/ops.py", "kernels/sdca/sdca_kernel.py",
+            "kernels/flash/ops.py", "kernels/flash/ref.py", "kernels/flash/flash_kernel.py",
+            "kernels/ssd/ops.py", "kernels/ssd/ref.py", "kernels/ssd/ssd_kernel.py",
+            "configs/base.py", "configs/zamba2_2_7b.py",
+            "models/common.py", "models/mlp.py", "models/attention.py",
+            "models/ssm.py", "models/transformer.py",
+            "serve/scheduler.py", "serve/engine.py"} <= names
+    for cu in ("sdca/csrc/sdca_round.cu", "sdca/csrc/sdca_block.cu",
+               "flash/csrc/flash_fwd.cu", "ssd/csrc/ssd_chunk.cu"):
+        assert (PORT / "kernels" / cu).exists(), cu
 
 
 @pytest.mark.parametrize("path", _files(), ids=lambda p: p.relative_to(REPO).as_posix())
@@ -50,7 +58,9 @@ def test_import_pulls_in_no_jax():
         "import sys\n"
         "import repro_torch, repro_torch.core, repro_torch.convert, repro_torch.prng\n"
         "import repro_torch.kernels.sdca, repro_torch.data.synthetic\n"
-        "import repro_torch.serve.scheduler\n"
+        "import repro_torch.serve.scheduler, repro_torch.serve.engine\n"
+        "import repro_torch.kernels.flash, repro_torch.kernels.ssd, repro_torch.models\n"
+        "import repro_torch.configs\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )

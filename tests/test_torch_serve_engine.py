@@ -1,0 +1,182 @@
+"""Port's LM ServingEngine against the JAX package's, on the CPU.
+
+The model test drives both engines over the reduced zamba2 (JAX params
+carried across) with batch 2 and three prompts of different lengths, so
+the third request enters a recycled slot: greedy token streams and finish
+reasons must be identical. The scripted tests drive the slot machinery
+through stubbed ``_prefill_one`` / ``_step_call`` hooks, as
+tests/test_serve_decode.py does (no model).
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.models import init_params as jax_init_params
+from repro.serve import Request as JaxRequest
+from repro.serve import ServeConfig as JaxServeConfig
+from repro.serve import ServingEngine as JaxServingEngine
+from repro_torch.configs import get_config
+from repro_torch.convert import lm_params_from_reference
+from repro_torch.serve import Request, ServeConfig, ServingEngine
+from repro_torch.serve.engine import _next_bucket
+
+ARCH = "zamba2-2_7b"
+
+
+def _stream(engine, make_request, prompts, budgets):
+    """Inject two requests, tick, inject the third into the first freed
+    slot; returns (output, finish_reason) per request."""
+    reqs = [make_request(prompt=p, max_new_tokens=b) for p, b in zip(prompts, budgets)]
+    for r in reqs:
+        engine.admit(r)
+    engine.inject(reqs[:2])
+    pending, done = [reqs[2]], []
+    while len(done) < len(reqs):
+        done += engine.decode_tick()
+        if pending and engine.free_slots:
+            engine.inject(pending)
+            pending = []
+    return [(r.output, r.finish_reason) for r in reqs]
+
+
+@pytest.mark.parametrize("eos_id", [1, None])
+def test_engine_matches_jax_engine(eos_id):
+    cfg, jcfg = get_config(ARCH).reduced(), jax_get_config(ARCH).reduced()
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(0))
+    params = lm_params_from_reference(cfg, jax.tree.map(np.asarray, jparams), device="cpu")
+    rs = np.random.RandomState(1)
+    prompts = [rs.randint(2, cfg.vocab_size, size=n).astype(np.int32) for n in (9, 21, 5)]
+    budgets = [6, 3, 5]
+    probe_eos = eos_id is None
+    if probe_eos:  # make the first request's second token its EOS
+        probe = JaxServingEngine(jcfg, jparams, JaxServeConfig(batch=1, max_len=48))
+        r = JaxRequest(prompt=prompts[0], max_new_tokens=2)
+        probe.run([r])
+        eos_id = r.output[1]
+    jax_out = _stream(
+        JaxServingEngine(jcfg, jparams, JaxServeConfig(batch=2, max_len=48, eos_id=eos_id)),
+        JaxRequest, prompts, budgets,
+    )
+    out = _stream(
+        ServingEngine(cfg, params, ServeConfig(batch=2, max_len=48, eos_id=eos_id), device="cpu"),
+        Request, prompts, budgets,
+    )
+    assert out == jax_out
+    assert all(reason in ("eos", "length") for _, reason in out)
+    if probe_eos:
+        assert out[0] == (out[0][0][:2], "eos")
+
+
+# ---------------------------------------------------------------------------
+# scripted slot engine (no model): token[t][slot] per decode boundary t
+# ---------------------------------------------------------------------------
+def _slot_scripted_engine(token_rows, batch=2, eos_id=1):
+    """ServingEngine whose hooks emit ``token_rows[t][slot]`` at global
+    decode boundary t (the clock does not reset on prefill)."""
+    eng = ServingEngine(
+        get_config(ARCH).reduced(), None,
+        ServeConfig(batch=batch, max_len=256, eos_id=eos_id, drain_every=1),
+        device="cpu",
+    )
+    script = np.asarray(token_rows, np.int32)  # (T, B)
+    vocab = int(script.max()) + 2
+    t = {"now": 0}
+
+    def logits_at(tt):
+        z = np.full((batch, vocab), -10.0, np.float32)
+        z[np.arange(batch), script[min(tt, script.shape[0] - 1)]] = 10.0
+        return torch.from_numpy(z)
+
+    def fake_prefill_one(r):
+        slot = eng._free[-1]
+        return logits_at(t["now"])[slot : slot + 1], torch.zeros(())
+
+    def fake_step(token, cache):
+        t["now"] += 1
+        return logits_at(t["now"]), cache
+
+    eng._prefill_one = fake_prefill_one
+    eng._step_call = fake_step
+    return eng
+
+
+def test_retry_resets_per_attempt_decode_state():
+    """A request evicted after a failed decode keeps no stale output: the
+    re-inject resets output/done/finish_reason, so the retry emits the
+    scripted stream exactly once (no double-append)."""
+    script = [[5, 6], [7, 8], [9, 2], [3, 4]]
+    eng = _slot_scripted_engine(script)
+    snap = eng.model_snapshot()
+    r = Request(prompt=np.array([4], np.int32), max_new_tokens=3)
+    eng.inject([r], snap)
+    eng.decode_tick()
+    assert r.output == [5, 7] and not r.done  # partial attempt drained
+    evicted = eng.evict_active()  # simulated tile failure
+    assert evicted == [r] and eng.free_slots == eng.batch
+    eng.inject([r], snap)  # retry: per-attempt state reset
+    while not r.done:
+        eng.decode_tick()
+    # the retry re-prefills at the current boundary (t=1) and streams fresh
+    assert r.output == [7, 9, 3]
+    assert len(r.output) == r.max_new_tokens and r.finish_reason == "length"
+
+
+def test_inject_overflow_and_blocking_run_guards():
+    script = [[5, 6], [7, 8]]
+    eng = _slot_scripted_engine(script)
+    snap = eng.model_snapshot()
+    reqs = [Request(prompt=np.array([4], np.int32), max_new_tokens=8) for _ in range(3)]
+    with pytest.raises(RuntimeError, match="free slots"):
+        eng.inject(reqs, snap)
+    eng.inject(reqs[:2], snap)
+    with pytest.raises(RuntimeError, match="in-flight"):
+        eng.run([Request(prompt=np.array([4], np.int32), max_new_tokens=1)])
+
+
+def test_slot_recycling_with_eos():
+    """Slot 1 turns over three requests (budget, EOS, EOS at prefill) while
+    slot 0 runs to its budget; every request finishes exactly once."""
+    script = [[5, 6], [7, 8], [9, 1], [2, 3]]
+    eng = _slot_scripted_engine(script)
+    r0, r1, r2, r3 = (Request(prompt=np.array([4], np.int32), max_new_tokens=n)
+                      for n in (3, 2, 2, 2))
+    eng.inject([r0, r1])
+    done = []
+    queue = [r2, r3]
+    while len(done) < 4:
+        done += eng.decode_tick()
+        while queue and eng.free_slots:
+            eng.inject([queue.pop(0)])
+    assert len({id(r) for r in done}) == 4
+    assert r0.output == [5, 7, 9] and r0.finish_reason == "length"
+    assert r1.output == [6, 8] and r1.finish_reason == "length"
+    assert r2.output == [8, 1] and r2.finish_reason == "eos"
+    assert r3.output == [1] and r3.finish_reason == "eos"
+    assert eng.free_slots == eng.batch and eng.active == 0
+
+
+def test_admission_and_config_guards():
+    cfg = get_config(ARCH).reduced()
+    eng = ServingEngine(cfg, None, ServeConfig(batch=1, max_len=16), device="cpu")
+    with pytest.raises(ValueError, match="exceeds max_len"):
+        eng.admit(Request(prompt=np.arange(10, dtype=np.int32), max_new_tokens=7))
+    with pytest.raises(ValueError, match="integer"):
+        eng.admit(Request(prompt=np.ones(3, np.float32), max_new_tokens=1))
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        ServingEngine(cfg, None, ServeConfig(temperature=0.7), device="cpu")
+    assert [_next_bucket(n, 16, 1023) for n in (1, 16, 17, 600, 1023)] == [16, 16, 32, 1023, 1023]
+
+
+def test_warmup_allocates_the_batch_state():
+    cfg = get_config(ARCH).reduced()
+    eng = ServingEngine(cfg, None, ServeConfig(batch=3, max_len=64, bucket_min=8), device="cpu")
+    assert eng.warmup() == [8, 16, 32]
+    cache = eng._cache
+    assert tuple(cache.position.shape) == (3,)
+    assert len(cache.layers) == cfg.n_layers and len(cache.shared) == 2
+    assert tuple(cache.shared[0]["k"].shape) == (3, 64, cfg.n_kv_heads, cfg.head_dim)
+    assert tuple(eng._token.shape) == (3,)
+    with pytest.raises(ValueError, match="no decode room"):
+        eng.warmup([64])
