@@ -10,8 +10,11 @@ Phases, each printing its own lines:
   2. kernels against their plain PyTorch versions on the card, at their
               paths' shapes: the SDCA kernels at 10 tasks x 12000 rows x 784
               features, B = 64, for the hinge, squared and smoothed-hinge
-              losses; flash attention at Zamba2-2.7B's (1, 32, 512, 80),
-              bf16 and fp32 causal and fp32 with a 128 window; the SSD chunk
+              losses (the round's two stages also timed apart, and at each
+              cluster size that fits); flash attention at Zamba2-2.7B's
+              (1, 32, 512, 80), causal, bf16 (tensor-core kernel) and fp32
+              (fp32 kernel), each with and without a 128 window, timed
+              beside scaled_dot_product_attention; the SSD chunk
               at Zamba2-2.7B's (1, 80, 8, 64, 64, 64), dt and A in the
               model's ranges;
   3. main path — DMTRLEstimator(solver="pallas_round") fits the paper's
@@ -33,7 +36,9 @@ Phases, each printing its own lines:
 It exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository. The line before the last is a JSON object with
 each kernel's numbers; the last line is {"ok": true, "device": {...}}.
-Float32 matmuls run in full float32 (TF32 off) throughout.
+Float32 matmuls run in full float32 (TF32 off) throughout. Kernel times are
+CUDA-event means over back-to-back calls queued behind a sleep on the
+stream, so they are device times, not the host's launch pace.
 """
 from __future__ import annotations
 
@@ -61,7 +66,7 @@ LOSSES = ("hinge", "squared", "smoothed_hinge")
 # fp32 results of the block-Gram kernels against the sequential plain
 # versions: the same arithmetic in another order. Measured on an H100 at
 # the shapes below: over one local epoch (12032 steps) the two orders drift
-# apart by up to 1.06e-4 on |r| ~ 20 (hinge), a 4.7x margin to TOL_ROUND;
+# apart by up to 7.6e-5 on |r| ~ 20 (hinge), a 6.6x margin to TOL_ROUND;
 # one block by up to 4.7e-5 (hinge), a 2.1x margin to TOL_BLOCK. The inputs
 # come from fixed seeds and both sides sum in a fixed order, so the drift
 # repeats from run to run, and a 2x margin only has to cover a change of
@@ -78,7 +83,11 @@ SSD_H, SSD_NC, SSD_Q, SSD_P, SSD_N = 80, 8, 64, 64, 64
 # flash attention and the SSD chunk against their plain versions. Flash:
 # the JAX package's bars (tests/test_kernels.py: fp32 1e-5, bf16 2e-2);
 # measured on an H100 at the shapes below, 1.13e-6 in fp32 (8.8x margin)
-# and 9.8e-4 in bf16 (one output rounding; 20x margin). The SSD chunk: the
+# and 1.56e-2 in bf16: one bf16 step (2^-6) of an output in [2, 4). The
+# bf16 kernel rounds P to bf16 (at most 2^-9 relative per weight), so its
+# fp32 output differs from the plain one's by well under a step, and the
+# two bf16 roundings differ by at most one step; max|plain| is 3.34 at
+# these inputs, under 4, where the step would double. The SSD chunk: the
 # JAX bar is 1e-5 at its test ranges, where |cumsum(dt A)| stays below
 # about 5. At Mamba2's ranges (A down to -16, dt up to about 0.3) it
 # reaches about -300 over a chunk, where fp32 values are 3e-5 apart, so
@@ -109,11 +118,15 @@ def check(cond: bool, msg: str) -> None:
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
-    """Mean device time of fn() over reps calls after one warm-up call."""
+    """Mean device time of fn() over reps calls after one warm-up call. The
+    stream first sleeps for about 50 ms, so the host queues the calls ahead
+    of the start event and a kernel shorter than its own launch overhead is
+    timed back to back on the device, not at the host's pace."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # cycles
     start.record()
     for _ in range(reps):
         fn()
@@ -146,6 +159,7 @@ def lm_kernel_checks(torch, dev, card: str) -> dict:
     err_flash = 0.0
     for label, dtype, window, tol in (
         ("bf16", torch.bfloat16, 0, TOL_FLASH_BF16),
+        (f"bf16 window {ATTN_WINDOW}", torch.bfloat16, ATTN_WINDOW, TOL_FLASH_BF16),
         ("fp32", torch.float32, 0, TOL_FLASH_F32),
         (f"fp32 window {ATTN_WINDOW}", torch.float32, ATTN_WINDOW, TOL_FLASH_F32),
     ):
@@ -329,7 +343,9 @@ def serve_main_path(torch, dev, card: str):
         for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
             dms = e.self_device_time_total / 1e3
             print(f"[5 profile]   {dms:8.3f} ms {dms / busy_ms:6.1%}  x{e.count:<5d} {e.key[:80]}")
-        for name in ("flash_fwd_kernel", "ssd_chunk_kernel"):
+        copies = sum(e.count for e in prof.key_averages() if e.key == "aten::copy_")
+        print(f"[5 profile]   aten::copy_ calls: {copies}")
+        for name in ("flash_fwd", "ssd_chunk_kernel"):
             dms = sum(e.self_device_time_total for e in events if name in e.key) / 1e3
             print(f"[5 profile]   {name}: {dms:.3f} ms = {dms / busy_ms:.1%} of device time")
     del cache
@@ -386,7 +402,7 @@ def main() -> int:
     from repro_torch.data.synthetic import mnist_like, synthetic
     from repro_torch.kernels import flash, nvcc, sdca, ssd
     from repro_torch.kernels.sdca import (
-        ref, reset_launch_counts, sdca_block_kernel, sdca_round_kernel,
+        ref, reset_launch_counts, sdca_block_kernel, sdca_kernel, sdca_round_kernel,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -444,7 +460,31 @@ def main() -> int:
         if loss == "hinge":
             r_state = r_p
     ms_round = cuda_ms(torch, lambda: sdca_round_kernel(
-        x, y, alpha, w, u, n, kappa, "hinge", block=BLOCK), reps=5)
+        x, y, alpha, w, u, n, kappa, "hinge", block=BLOCK), reps=20)
+    # the two stages apart (stage 2 on the Gram blocks stage 1 left), and
+    # the round at each cluster size that fits d (the measurement behind
+    # the default CLUSTER)
+    scratch = torch.empty(M * (H // BLOCK) * (BLOCK * BLOCK + 4 * BLOCK), device=dev)
+    da_s, r_s = torch.zeros_like(alpha), torch.zeros_like(w)
+    stage_ms = [cuda_ms(torch, lambda st=st: sdca_kernel.sdca_round_stage(
+        st, x, y, alpha, w, u, n, kappa, "hinge", scratch, da_s, r_s, block=BLOCK), reps=20)
+        for st in (1, 2)]
+    del scratch, da_s, r_s
+    cluster_ms = {c: cuda_ms(torch, lambda c=c: sdca_round_kernel(
+        x, y, alpha, w, u, n, kappa, "hinge", block=BLOCK, cluster=c), reps=20)
+        for c in sdca_kernel.SUPPORTED_CLUSTERS
+        if sdca_kernel.chain_smem_bytes(BLOCK, D, c) <= sdca_kernel.MAX_SMEM_BYTES}
+    sm_clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0]
+    # latency floor of the chain: H dependent steps (delta_of, a shuffle, an
+    # FMA) at 60-100 cycles each at the SM's top clock
+    floor_ms = [H * cyc / (float(sm_clock) * 1e6) * 1e3 for cyc in (60, 100)]
+    print(f"[2 sdca_round] stage 1 (Gram, q) {stage_ms[0]:.4f} ms, stage 2 (chains, cluster "
+          f"{sdca_kernel.CLUSTER}) {stage_ms[1]:.4f} ms; round by cluster size: "
+          + ", ".join(f"C={c} {t:.4f} ms" for c, t in cluster_ms.items())
+          + f"; chain floor {floor_ms[0]:.3f}-{floor_ms[1]:.3f} ms ({H} steps x 60-100 "
+          f"cycles at {sm_clock} MHz)")
     plain_round = cuda_ms(torch, lambda: ref.sdca_round_ref(
         x, y, alpha, w, u, n, kappa, "hinge"), reps=1)
     coords = coords_from_uniform(u, n)
@@ -455,7 +495,7 @@ def main() -> int:
     # of the Gram the recursion reads (G[k, j] for j <= k)
     flops_round = 2.0 * M * (H // BLOCK) * (GRAM_TRI + 3 * BLOCK) * D
     b_round, by_round = bound_ms(rows_bytes + io_bytes, flops_round)
-    print(f"[2 sdca_round] {ms_round:.3f} ms/call (plain {plain_round:.1f} ms), "
+    print(f"[2 sdca_round] {ms_round:.4f} ms/call (plain {plain_round:.1f} ms), "
           f"bound {b_round:.4f} ms by {by_round} ({uniq} distinct rows, "
           f"{flops_round / 1e9:.2f} GFLOP) on {card}")
 

@@ -2,62 +2,108 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash/flash_kernel.py
 // (`flash_attention`, `_kernel`): softmax(q k^T * scale + mask) v over
-// (B, H, S, HD) tensors, bf16 or fp32 in, fp32 math, q's dtype out.
+// (B, H, S, HD) views, bf16 or fp32 in, fp32 softmax, q's dtype out. Each
+// tensor comes with its own batch, head and row strides (elements; the
+// head dim is contiguous), so the model's (B, S, H, HD) layout is read and
+// written in place, without transposes or copies.
 //
-// Design. One CTA of 256 threads per (64-row q block, head, batch). The
-// TPU kernel walks the kv blocks as the innermost, sequential grid axis and
-// carries the online-softmax state (m, l, acc) in VMEM scratch between grid
-// steps; here a loop inside the CTA walks them, and the state never leaves
-// the SM: m and l in shared memory, acc (64 x HD) in registers, four rows
-// by HD/16 columns per thread. Each kv step stages K (transposed) and V as
-// fp32 in shared memory, forms the 64 x 64 score tile, updates m and l one
-// warp per row, and accumulates p v.
+// Two kernels, one per dtype:
+//   * bf16: flash_fwd_bf16_kernel, on the tensor cores (FlashAttention-2
+//     form). A CTA of 4 warps per (64-row q block, head, batch); each warp
+//     owns 16 q rows and keeps them as mma A fragments in registers for the
+//     whole kv loop. K and V tiles of 64 keys stay bf16 in shared memory in
+//     a ring of STAGES tiles filled by cp.async, STAGES - 1 tiles ahead of
+//     the one in use; rows are padded to HD + 8 elements, an odd number of
+//     16-byte units, so the 8 rows an ldmatrix phase reads fall in 8
+//     distinct bank groups for every HD. S = Q K^T is HD/16 k-steps x 8
+//     n-tiles of mma.sync.m16n8k16 (bf16 in, fp32 accumulate) fed by
+//     ldmatrix; the online softmax stays in registers (row max and sum over
+//     the 4-lane quad that shares a row; m and the partial l per row per
+//     thread; exp2 on the MUFU unit); P is rounded to bf16 and reused in
+//     place as the A operand of P V (the m16n8 accumulators of two adjacent
+//     n-tiles are the k16 A layout), 4 k-steps x HD/8 n-tiles with V
+//     through ldmatrix.trans. The TPU kernel multiplies P by V in fp32;
+//     rounding P to bf16 is what PyTorch's fused attention does, and stays
+//     inside the bf16 bar (2e-2). The grid is (H, q blocks, B) with the q
+//     block index reversed, so the heaviest causal blocks of every head are
+//     dispatched first.
+//   * fp32: flash_fwd_kernel, fp32 FMAs from shared memory (256 threads,
+//     K transposed and V staged as fp32, the score tile in shared memory).
+//     Its 1e-5 bar cannot be met with bf16 operands, so fp32 calls keep it.
 //
 // The masks and the sentinel are the TPU kernel's: a masked score is
 // NEG_INF = -1e30 (finite, so a row whose first blocks are all masked
 // takes exp(0) = 1 there and is rescaled by exp(-1e30 - m) = 0 once a real
 // key arrives, exactly as on the TPU), and the output divides by
-// max(l, 1e-30). The TPU kernel runs fully masked kv blocks; this one
-// starts at the first block the window reaches and stops at the last block
-// the causal mask reaches. For a causal call with Sk >= S every row keeps
-// its diagonal key, so the skipped blocks would add exp(-1e30 - m) = 0 and
-// the result is the same. Keys past Sk (the ragged last tile) score -inf
-// and are zero-filled, so they add nothing to l or acc.
+// max(l, 1e-30). The bf16 kernel works in the log2 domain (scores times
+// scale * log2(e), exp2) with the same sentinel, which gives the same
+// zeros and ones. The TPU kernel runs fully masked kv blocks; these start
+// at the first block the window reaches and stop at the last block the
+// causal mask reaches. For a causal call with Sk >= S every row keeps its
+// diagonal key, so the skipped blocks would add exp(-1e30 - m) = 0 and the
+// result is the same. Masks are evaluated only on blocks that cross the
+// diagonal, the window's edge or the ragged end. Keys past Sk (the ragged
+// last tile) score -inf and their rows are zero-filled, so they add
+// nothing to l or acc.
 //
 // Bound. At the prefill shape (B=1, H=32, S=512, HD=80, causal) the work
 // is 4*H*HD*S(S+1)/2 = 1.35 GFLOP and the bytes are q, k, v, o once each
 // (10.5 MB in bf16); on an H100 the bytes bound it (3.1 us at 3.35 TB/s
-// against 1.4 us at 989 TFLOP/s). This first version does its products
-// with fp32 FMAs from shared memory, not with the tensor cores, so it is
-// bound by those FMAs: wgmma with TMA-fed tiles is later work.
+// against 1.4 us at 989 TFLOP/s). mma.sync at even 60 % of the bf16 rate
+// does the products in about 2.3 us, under the byte bound, so it does not
+// set the pace; wgmma's 128-byte swizzled tiles fit HD = 80 badly. What
+// does set it, measured on an H100 at that shape (about 6x the bound), is
+// latency: the heaviest q block walks its eight kv tiles in sequence with
+// one or two warps per SM sub-partition to hide each step's latency.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int BQ = 64;            // query rows per CTA
 constexpr int BK = 64;            // keys per kv step
-constexpr int THREADS = 256;      // 16 x 16 thread grid over (rows, cols)
+constexpr int THREADS = 256;      // fp32 kernel: 16 x 16 thread grid over (rows, cols)
 constexpr int MAX_J = 8;          // HD / 16 columns per thread: HD <= 128
 constexpr int KT_STRIDE = BK + 1; // padded rows of the transposed K tile
 constexpr int S_STRIDE = BK + 1;  // padded rows of the score tile
+constexpr int BF16_THREADS = 128;  // bf16 kernel: 4 warps x 16 q rows
+// bf16 kernel: K/V tiles in the cp.async ring. Two measured as fast as three
+// or four at the prefill shape and faster on larger grids, where the smaller
+// ring lets three CTAs share an SM.
+constexpr int STAGES = 2;
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// element strides of one (B, H, rows, HD) view; the head dim is contiguous
+struct Strides {
+  long long qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;
+};
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+
+// causal and window block range of the q block of `rows` rows at q0
+__device__ __forceinline__ void kv_range(int q0, int rows, int Sk, int causal, int window,
+                                         int& kb_begin, int& kb_end) {
+  const int nk = (Sk + BK - 1) / BK;
+  kb_begin = 0;
+  kb_end = nk;
+  if (causal) {
+    kb_end = min(nk, (q0 + rows - 1) / BK + 1);
+    if (window > 0) kb_begin = max(0, q0 - window + 1) / BK;
+  }
 }
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int H, int S, int Sk, int HD, int causal, int window,
-    float scale) {
+    T* __restrict__ o, int S, int Sk, int HD, int causal, int window,
+    float scale, Strides st) {
   extern __shared__ float smem[];
   float* Qs = smem;                 // [BQ][HD]
   float* Kt = Qs + BQ * HD;         // [HD][KT_STRIDE]
@@ -70,16 +116,16 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int warp = tid / 32, lane = tid % 32;
   const int q0 = blockIdx.x * BQ;
-  const size_t bh = (size_t)blockIdx.z * H + blockIdx.y;
-  const T* qg = q + bh * S * HD;
-  const T* kg = k + bh * Sk * HD;
-  const T* vg = v + bh * Sk * HD;
-  T* og = o + bh * S * HD;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const T* qg = q + b * st.qb + h * st.qh;
+  const T* kg = k + b * st.kb + h * st.kh;
+  const T* vg = v + b * st.vb + h * st.vh;
+  T* og = o + b * st.ob + h * st.oh;
   const int nj = HD / 16;
 
   for (int idx = tid; idx < BQ * HD; idx += THREADS) {
-    const int r = idx / HD;
-    Qs[idx] = (q0 + r < S) ? to_f(qg[(size_t)q0 * HD + idx]) : 0.f;
+    const int r = idx / HD, d = idx - r * HD;
+    Qs[idx] = (q0 + r < S) ? to_f(qg[(q0 + r) * st.qs + d]) : 0.f;
   }
   for (int r = tid; r < BQ; r += THREADS) {
     m_s[r] = NEG_INF;
@@ -92,12 +138,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
 #pragma unroll
     for (int j = 0; j < MAX_J; ++j) acc[i][j] = 0.f;
 
-  const int nk = (Sk + BK - 1) / BK;
-  int kb_begin = 0, kb_end = nk;
-  if (causal) {
-    kb_end = min(nk, (q0 + BQ - 1) / BK + 1);
-    if (window > 0) kb_begin = max(0, q0 - window + 1) / BK;
-  }
+  int kb_begin, kb_end;
+  kv_range(q0, BQ, Sk, causal, window, kb_begin, kb_end);
 
   for (int kb = kb_begin; kb < kb_end; ++kb) {
     const int k0 = kb * BK;
@@ -105,9 +147,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     for (int idx = tid; idx < BK * HD; idx += THREADS) {
       const int c = idx / HD, d = idx - c * HD;
       const bool in = k0 + c < Sk;
-      const size_t g = (size_t)k0 * HD + idx;
-      Kt[d * KT_STRIDE + c] = in ? to_f(kg[g]) : 0.f;
-      Vs[idx] = in ? to_f(vg[g]) : 0.f;
+      Kt[d * KT_STRIDE + c] = in ? to_f(kg[(k0 + c) * st.ks + d]) : 0.f;
+      Vs[idx] = in ? to_f(vg[(k0 + c) * st.vs + d]) : 0.f;
     }
     __syncthreads();
 
@@ -200,37 +241,330 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     const float denom = fmaxf(l_s[r], 1e-30f);
 #pragma unroll
     for (int j = 0; j < MAX_J; ++j)
-      if (j < nj) og[(size_t)(q0 + r) * HD + tx + 16 * j] = from_f<T>(acc[i][j] / denom);
+      if (j < nj) og[(q0 + r) * st.os + tx + 16 * j] = from_f<T>(acc[i][j] / denom);
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int S, int Sk, int HD, int causal, int window, float scale,
-           cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; src_bytes = 0 zero-fills
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's commit groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 2^x on the MUFU unit (about 2 ulp; the scores end in bf16 products)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// c (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Copy rows [row0, row0 + 64) of a (rows, HD) view with row stride rs into
+// a [64][HD + 8] shared tile; rows at or past n_rows are zero-filled. Each
+// thread moves HD/16 chunks of 16 bytes at fixed places in the tile; the
+// offsets within the tile are 32-bit, because 64-bit address math on every
+// chunk measured slower (the loads' issue is on each kv step's path).
+template <int HD>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          long long rs, int row0, int n_rows) {
+  constexpr int LD = HD + 8, CH = HD / 8, PER = 64 * CH / BF16_THREADS;
+  const __nv_bfloat16* base = src + row0 * rs;
+  const int rs32 = static_cast<int>(rs);
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int c = threadIdx.x + i * BF16_THREADS;
+    const int r = c / CH, ch = c - r * CH;
+    const bool in = row0 + r < n_rows;
+    cp_async16(dst + r * LD + ch * 8, base + (in ? r * rs32 + ch * 8 : 0), in ? 16 : 0);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(BF16_THREADS) flash_fwd_bf16_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int S, int Sk,
+    int causal, int window, float scale, Strides st) {
+  constexpr int LD = HD + 8;  // shared row stride (elements)
+  constexpr int KS = HD / 16; // k-steps of Q K^T
+  constexpr int NT = HD / 8;  // n-tiles of P V
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][LD]
+  __nv_bfloat16* Ks = Qs + BQ * LD;                                 // [STAGES][64][LD]
+  __nv_bfloat16* Vs = Ks + STAGES * BK * LD;                        // [STAGES][64][LD]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tig = lane & 3;  // mma row group, thread in group
+  // grid (H, q blocks, B): the block scheduler walks x fastest, so the
+  // heaviest causal q blocks of every head are dispatched first
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const __nv_bfloat16* qg = q + b * st.qb + h * st.qh;
+  const __nv_bfloat16* kg = k + b * st.kb + h * st.kh;
+  const __nv_bfloat16* vg = v + b * st.vb + h * st.vh;
+  __nv_bfloat16* og = o + b * st.ob + h * st.oh;
+  const float sl2 = scale * LOG2E;
+
+  int kb_begin, kb_end;
+  kv_range(q0, BQ, Sk, causal, window, kb_begin, kb_end);
+  const int n_kv = kb_end - kb_begin;
+
+  // a ring of STAGES K/V tiles: tiles 0 .. STAGES-2 now, then one more per
+  // step, STAGES-1 ahead of the one in use (one commit group per tile)
+  load_tile<HD>(Qs, qg, st.qs, q0, S);
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < n_kv) {
+      load_tile<HD>(Ks + i * BK * LD, kg, st.ks, (kb_begin + i) * BK, Sk);
+      load_tile<HD>(Vs + i * BK * LD, vg, st.vs, (kb_begin + i) * BK, Sk);
+    }
+    cp_async_commit();
+  }
+
+  uint32_t qf[KS][4];
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
+  const int row_a = q0 + warp * 16 + g;  // this thread's rows: row_a, row_a + 8
+
+  for (int it = 0; it < n_kv; ++it) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // tile it landed; everyone is done with tile it - 1's slot
+    if (it + STAGES - 1 < n_kv) {
+      const int slot = (it + STAGES - 1) % STAGES, kb = kb_begin + it + STAGES - 1;
+      load_tile<HD>(Ks + slot * BK * LD, kg, st.ks, kb * BK, Sk);
+      load_tile<HD>(Vs + slot * BK * LD, vg, st.vs, kb * BK, Sk);
+    }
+    cp_async_commit();
+    const __nv_bfloat16* Kb = Ks + (it % STAGES) * BK * LD;
+    const __nv_bfloat16* Vb = Vs + (it % STAGES) * BK * LD;
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                                kk * 16 + (lane >> 4) * 8);
+    }
+
+    // S = Q K^T: 16 rows x 64 keys per warp
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bk[4];
+        ldmatrix_x4(bk, Kb + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
+                            ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+      }
+
+    // scale (log2 domain) and mask where the block needs it
+    const int k0 = (kb_begin + it) * BK;
+    const bool masked = (causal && k0 + BK - 1 > q0) ||
+                        (window > 0 && k0 <= q0 + BQ - 1 - window) || k0 + BK > Sk;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float val = s[j][e] * sl2;
+        if (masked) {
+          const int qp = row_a + (e >> 1) * 8, kp = k0 + j * 8 + tig * 2 + (e & 1);
+          bool keep = true;
+          if (causal) keep = keep && kp <= qp;
+          if (window > 0) keep = keep && kp > qp - window;
+          if (!keep) val = NEG_INF;
+          if (kp >= Sk) val = -INFINITY;
+        }
+        s[j][e] = val;
+      }
+
+    // online softmax on the thread's two rows; a row lives on one quad
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_r[i], mx);
+      const float corr = exp2_approx(m_r[i] - m_new);
+      m_r[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 2 * i; e < 2 * i + 2; ++e) {
+          const float p = exp2_approx(s[j][e] - m_new);
+          s[j][e] = p;
+          sum += p;
+        }
+      l_r[i] = l_r[i] * corr + sum;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        acc[j][2 * i] *= corr;
+        acc[j][2 * i + 1] *= corr;
+      }
+    }
+
+    // acc += P V, P rounded to bf16 in the A layout
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t pa[4] = {
+          pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, Vb + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                                  np * 16 + (lane >> 4) * 8);
+        mma_bf16(acc[2 * np], pa, bv[0], bv[1]);
+        mma_bf16(acc[2 * np + 1], pa, bv[2], bv[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_r[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int row = row_a + 8 * i;
+    if (row >= S) continue;
+    const float denom = fmaxf(l, 1e-30f);
+    __nv_bfloat16* orow = og + row * st.os + tig * 2;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      *reinterpret_cast<uint32_t*>(orow + j * 8) =
+          pack_bf16(acc[j][2 * i] / denom, acc[j][2 * i + 1] / denom);
+  }
+}
+
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int S,
+               int Sk, int HD, int causal, int window, float scale, const Strides& st,
+               cudaStream_t stream) {
   const size_t smem =
       (size_t)(BQ * HD + HD * KT_STRIDE + BK * HD + BQ * S_STRIDE + 3 * BQ) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, S, Sk, HD, causal, window, scale);
+  flash_fwd_kernel<float><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, Sk, HD, causal, window,
+      scale, st);
+  return cudaGetLastError();
+}
+
+template <int HD>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H, int S,
+                int Sk, int causal, int window, float scale, const Strides& st,
+                cudaStream_t stream) {
+  const size_t smem = (size_t)(BQ + 2 * STAGES * BK) * (HD + 8) * sizeof(__nv_bfloat16);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // all of the SM's unified memory as shared memory, so two or three CTAs
+  // fit on an SM (the default split may leave room for one)
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<HD>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(H, (S + BQ - 1) / BQ, B);
+  flash_fwd_bf16_kernel<HD><<<grid, BF16_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, Sk, causal,
+      window, scale, st);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, o: (B, H, S, HD); k, v: (B, H, Sk, HD); all of one dtype, row-major.
-// Returns the launch's cudaError_t (0 on success).
+// q, o: (B, H, S, HD) views; k, v: (B, H, Sk, HD) views; all of one dtype,
+// the head dim contiguous. strides: 12 element strides, (batch, head, row)
+// of q, k, v and o in that order; for bf16 each must be a multiple of 8 and
+// each base 16-byte aligned (cp.async moves 16 bytes). Returns the launch's
+// cudaError_t (0 on success).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
                                 int B, int H, int S, int Sk, int HD, int causal,
-                                int window, float scale, int is_bf16, void* stream) {
+                                int window, float scale, int is_bf16,
+                                const long long* strides, void* stream) {
   if (HD <= 0 || HD % 16 != 0 || HD > 16 * MAX_J || S <= 0 || Sk <= 0)
     return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(q, k, v, o, B, H, S, Sk, HD, causal, window, scale, st);
-  return launch<float>(q, k, v, o, B, H, S, Sk, HD, causal, window, scale, st);
+  const Strides st{strides[0], strides[1], strides[2], strides[3], strides[4],  strides[5],
+                   strides[6], strides[7], strides[8], strides[9], strides[10], strides[11]};
+  cudaStream_t sm = static_cast<cudaStream_t>(stream);
+  if (!is_bf16) return launch_f32(q, k, v, o, B, H, S, Sk, HD, causal, window, scale, st, sm);
+  for (int i = 0; i < 12; ++i)
+    if (strides[i] % 8 != 0) return cudaErrorInvalidValue;
+  for (int i = 2; i < 12; i += 3)  // 64 rows of offsets within a tile fit 32 bits
+    if (strides[i] > INT_MAX / 64) return cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16 != 0)
+    return cudaErrorInvalidValue;
+#define FLASH_BF16_CASE(D) \
+  case D:                  \
+    return launch_bf16<D>(q, k, v, o, B, H, S, Sk, causal, window, scale, st, sm);
+  switch (HD) {
+    FLASH_BF16_CASE(16)
+    FLASH_BF16_CASE(32)
+    FLASH_BF16_CASE(48)
+    FLASH_BF16_CASE(64)
+    FLASH_BF16_CASE(80)
+    FLASH_BF16_CASE(96)
+    FLASH_BF16_CASE(112)
+    FLASH_BF16_CASE(128)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef FLASH_BF16_CASE
 }

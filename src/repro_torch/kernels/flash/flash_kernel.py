@@ -1,27 +1,33 @@
 """Hopper CUDA kernel for the flash-attention forward, bound with ctypes.
 
 ``flash_attention`` — csrc/flash_fwd.cu: causal or sliding-window softmax
-attention over (B, H, S, HD) in one launch (one CTA per 64-row query
+attention over (B, H, S, HD) views in one launch (one CTA per 64-row query
 block, head and batch); replaces the TPU kernel ``flash_attention`` of
 ``repro/kernels/flash/flash_kernel.py`` (the source says how they differ).
+bf16 calls run the tensor-core kernel (``mma.sync``, bf16 P V), fp32 calls
+the fp32-FMA kernel. The tensors may be strided views (the model's
+(B, S, H, HD) layout transposed, for one): only the head dim must be
+contiguous; for bf16 every other stride must be a multiple of 8 elements
+and each base 16-byte aligned. The output has q's layout.
 
 The source has a plain C interface and is compiled on first use by
 ``repro_torch.kernels.nvcc``. The wrapper checks device, dtype, shape and
-contiguity, allocates the output, launches on PyTorch's current stream,
+layout, allocates the output, launches on PyTorch's current stream,
 raises if the launch returned a CUDA error, and only then adds one to its
 ``launches`` count.
 """
 from __future__ import annotations
 
+import ctypes
 from pathlib import Path
 
 import torch
 
-from ..nvcc import FLOAT, INT, VP, check_tensor, launcher, raise_on
+from ..nvcc import FLOAT, INT, VP, launcher, raise_on
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "flash_fwd.cu",)
-_ARGTYPES = [VP] * 4 + [INT] * 7 + [FLOAT, INT, VP]
+_ARGTYPES = [VP] * 4 + [INT] * 7 + [FLOAT, INT, VP, VP]
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 128
 
@@ -51,12 +57,14 @@ def flash_attention(
         raise ValueError(f"a causal call needs Sk >= S, got Sk={Sk}, S={S}")
     for name, t, shape in (("q", q, (B, H, S, HD)), ("k", k, (B, H, Sk, HD)),
                            ("v", v, (B, H, Sk, HD))):
-        check_tensor(name, t, shape, q.dtype, q.device)
-    out = torch.empty_like(q)
+        _check_view(name, t, shape, q.dtype, q.device)
+    out = torch.empty_like(q)  # q's layout: (B, S, H, HD) memory stays so
+    strides = (ctypes.c_longlong * 12)(
+        *(s for t in (q, k, v, out) for s in t.stride()[:3]))
     err = launcher(SOURCES[0], _ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, S, Sk, HD,
         int(causal), int(window), 1.0 / HD**0.5, int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        strides, torch.cuda.current_stream(q.device).cuda_stream,
     )
     raise_on(err, "flash_fwd")
     flash_attention.launches += 1
@@ -64,3 +72,20 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+
+
+def _check_view(name: str, t: torch.Tensor, shape, dtype, device) -> None:
+    """Raise unless ``t`` is a view the kernel reads in place: the device,
+    dtype and shape, a contiguous head dim and, for bf16, strides of whole
+    16-byte units from a 16-byte aligned base (cp.async moves 16 bytes)."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if t.stride(3) != 1:
+        raise ValueError(f"{name} must have a contiguous head dim, strides {t.stride()}")
+    if dtype == torch.bfloat16 and (any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16):
+        raise ValueError(f"bf16 {name} needs strides in multiples of 8 elements and a "
+                         f"16-byte aligned base, got strides {t.stride()}")

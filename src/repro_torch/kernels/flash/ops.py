@@ -3,8 +3,11 @@ CPU tensor runs the plain version (``ref.attention_ref``), a CUDA tensor
 launches the Hopper kernel or raises.
 
 ``flash_attention_bshd`` adapts the model layout (B, S, H, HD) to the
-kernel's (B, H, S, HD) and pads the sequence to the block multiples, as the
-JAX package's wrapper does.
+kernel's (B, H, S, HD). On CPU tensors it pads the sequence to the block
+multiples and makes the transposed copies, as the JAX package's wrapper
+does. On CUDA tensors it hands the kernel transposed views of the model's
+tensors as they are (the kernel takes strides and masks the ragged edge
+itself) and returns the output in the model layout: no pad, no copy.
 """
 from __future__ import annotations
 
@@ -46,6 +49,11 @@ def flash_attention_bshd(
     block_q: int = 128,
     block_k: int = 128,
 ) -> Tensor:
+    if q.device.type == "cuda":
+        out = flash_attention_kernel(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal, window
+        )
+        return out.transpose(1, 2)
     S, Sk = q.shape[1], k.shape[1]
     bq, bk = min(block_q, S), min(block_k, Sk)
     pad_q, pad_k = (-S) % bq, (-Sk) % bk

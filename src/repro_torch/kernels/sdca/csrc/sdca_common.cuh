@@ -1,11 +1,12 @@
-// Shared pieces of the two Hopper SDCA kernels (sdca_round.cu,
-// sdca_block.cu): the closed-form coordinate deltas, the block-Gram
-// accumulation over d-tiles, and the single-warp B-step recursion.
+// Shared pieces of the two Hopper SDCA kernels: the closed-form coordinate
+// deltas and a warp sum (sdca_round.cu and sdca_block.cu), and, for
+// sdca_block.cu, the block-Gram accumulation over d-tiles and the
+// single-warp, left-looking B-step recursion.
 //
-// Both kernels stage what the recursion reads (alpha~ at block start, the
-// labels, the coordinate ids) in shared memory first, so the B sequential
-// steps touch no device memory; a coordinate drawn twice in a block finds
-// its earlier deltas through the equality mask cb == cb[k].
+// The block kernel stages what the recursion reads (alpha~ at block start,
+// the labels, the coordinate ids) in shared memory first, so the B
+// sequential steps touch no device memory; a coordinate drawn twice in a
+// block finds its earlier deltas through the equality mask cb == cb[k].
 //
 // Arithmetic is float32 throughout, as in the TPU kernels
 // (repro/kernels/sdca/sdca_kernel.py). Sums run in another order than on

@@ -1,133 +1,519 @@
-// One fused local SDCA round for every task in ONE launch (the
-// `pallas_round` solver backend).
+// One fused local SDCA round for every task in ONE call (the
+// `pallas_round` solver backend), as two kernels over the whole card.
 //
 // Replaces the TPU kernel `sdca_round_kernel` / `_round_kernel` of
 // repro/kernels/sdca/sdca_kernel.py. The TPU version stages the task's
-// whole (n_max, d) block in VMEM; at MNIST width that block is 37.6 MB,
-// far above the 227 KB of shared memory a Hopper block can use. So here:
-//   * one CTA per task (the JAX vmap over tasks), 256 threads;
-//   * X stays in global memory; each H-block gathers its B sampled rows in
-//     d-tiles of 64 columns (block_gram), then reads them once more for
-//     r += X_b^T deltas (those rows are then still in L2);
-//   * w and the running correction r live in shared memory for the whole
-//     round, next to the B x B Gram and the deltas;
-//   * one warp runs the B-step recursion (warp reductions for G[k] . deltas
-//     and for the earlier deltas of a coordinate drawn twice in the block),
-//     then the first slot of each drawn coordinate is the single writer of
-//     its dalpha entry;
-//   * coordinates are drawn on the device from the round's uniforms with
-//     the fp32 product and truncation of sample_coords.
-// What bounds it on this card: the B sequential recursion steps per block
-// (latency, one warp) and the gathered-row bytes (2 B d 4 per block), with
-// one SM per task busy. Tensor cores are not used: the contractions are
-// fp32 and the B x B x d Gram per block is small.
+// whole (n_max, d) block in VMEM and walks the H/B blocks in order. At
+// MNIST width that block is 37.6 MB, far above a Hopper block's 227 KB, and
+// one CTA per task would leave 122 of 132 SMs idle. But q = X_b w and
+// G = X_b X_b^T depend only on w and on the block's coordinates, which the
+// round's uniforms fix up front, so they are computed for every block of
+// every task at once; only xr = X_b r, the B-step recursion and alpha~
+// carried across blocks are sequential. Hence:
+//
+//   Stage 1, gram_kernel, grid (blocks, m), 256 threads: draws the block's
+//   coordinates (fp32 product and truncation of sample_coords), gathers its
+//   B rows in d-tiles of 32 columns (stored transposed, the next tile's
+//   loads in flight while this one is used), and writes G (full B x B,
+//   bit-exactly symmetric), q, and the rows' labels, alphas and ids to a
+//   scratch the wrapper allocates. fp32 FMAs: TF32 would break the 2e-5 bar.
+//
+//   Stage 2, chain_kernel, one thread-block cluster of C CTAs per task
+//   (cudaLaunchKernelEx with a cluster dimension). CTA `rank` owns a slab
+//   of dcp columns of r and of every block's gathered rows, kept in shared
+//   memory: the rows are loaded once per block and serve both xr and the
+//   r update. Per block:
+//     1. partial xr over the CTA's columns;
+//     2. cluster.sync (release/acquire at cluster scope);
+//     3. warp 0 of every CTA sums the C partials in rank order and reads
+//        rank 0's alpha~ (alpha[j] + dalpha[j] at block start) through
+//        distributed shared memory, then runs the same recursion on the
+//        same inputs: the recursion is replicated, not broadcast, so a
+//        block needs one cluster barrier. Rank 0's warp 0 then scatters
+//        into dalpha: the first row of each coordinate writes dalpha at
+//        block start plus every delta of the block drawn there, summed in
+//        draw order, so each entry has a single writer. Meanwhile warps
+//        1-7 prefetch the next block's rows and scratch with cp.async into
+//        the other buffer;
+//     4. rank 0 gathers the next block's alpha~ (its loads in flight during
+//        the r update), and every CTA adds X_b^T deltas to its columns of r.
+//   The partials and alpha~ are double-buffered by block parity, so one
+//   cluster barrier per block orders every exchange.
+//
+// The recursion is right-looking: lane i keeps, for its rows, the running
+// xr_i + sum_{j<k} G[i][j] delta_j and the sum of earlier deltas drawn at
+// the same coordinate. At step k every lane evaluates the closed-form delta
+// of its own row, one shuffle broadcasts row k's, and every lane adds
+// G[k][i] delta_k and (cb_i == cb_k) delta_k to its rows (G is symmetric,
+// so the row read is a conflict-free column read). That replaces the two
+// warp reductions per step of the left-looking form (sdca_common.cuh,
+// which K2 keeps). The steps are unrolled and branch-free, the loss is a
+// template parameter, and the delta's divisor (kappa G[k][k] plus the
+// loss's constant, known at block start) is inverted per row before the
+// chain, so no division sits on it (a rounding of about one ulp against
+// the quotient).
+//
+// Cluster size: C = 4 by default, chosen by measurement (chip_smoke.py
+// phase 2 times C = 4 and 8 at MNIST width). C = 2 does not fit d = 784 in
+// shared memory. A round with more blocks than the scratch holds runs in
+// groups of blocks, stage 1 then stage 2 per group, with the same result.
+//
+// What bounds it on this card: stage 1 is fp32 FMA work (the full Gram
+// blocks, 12.1 GFLOP at MNIST width, twice the triangle the recursion
+// reads) and the gathered rows; stage 2 is a dependent chain
+// of H steps per task (a closed-form delta, a shuffle, an FMA), plus per
+// block a cluster barrier, the partial xr and the r update.
+#include <cooperative_groups.h>
+
 #include "sdca_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace sdca {
 
+constexpr int kGramTile = 32;  // d-columns of the gathered rows per stage-1 tile
+
+// floats of one block's scratch: G (B x B), q, labels, alphas, coordinate ids
+template <int B>
+__host__ __device__ constexpr int scratch_floats() {
+  return B * B + 4 * B;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Element e of a stage-1 tile (B rows x kGramTile columns): each quarter
+// warp reads 8 consecutive columns of 4 rows, so the global loads fill
+// 32-byte sectors and the transposed shared stores hit 32 distinct banks.
+__device__ __forceinline__ void gram_elem(int e, int& k, int& c) {
+  static_assert(kGramTile == 32, "the mapping takes 4 groups of 8 columns");
+  c = (e & 7) | (((e >> 5) & 3) << 3);
+  k = ((e >> 3) & 3) | ((e >> 7) << 2);
+}
+
+// this thread's elements of the tile at column d0 into registers
+template <int B>
+__device__ __forceinline__ void load_gram_tile(float (&pre)[B * kGramTile / kThreads],
+                                               const float* __restrict__ x,
+                                               const int64_t* rowoff, int d0, int d) {
+#pragma unroll
+  for (int i = 0; i < B * kGramTile / kThreads; ++i) {
+    int k, c;
+    gram_elem(threadIdx.x + i * kThreads, k, c);
+    pre[i] = d0 + c < d ? x[rowoff[k] + d0 + c] : 0.f;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// stage 1: G, q and the block's metadata for every (block, task)
+// ---------------------------------------------------------------------------
 template <int B>
 __global__ void __launch_bounds__(kThreads)
-round_kernel(const float* __restrict__ x,      // (m, n_max, d)
-             const float* __restrict__ y,      // (m, n_max)
-             const float* __restrict__ alpha,  // (m, n_max)
-             const float* __restrict__ w,      // (m, d)
-             const float* __restrict__ u,      // (m, H)
-             const int* __restrict__ n,        // (m,)
-             const float* __restrict__ kappa,  // (m,)
-             float* __restrict__ dalpha,       // (m, n_max), zero on entry
-             float* __restrict__ r_out,        // (m, d)
-             int n_max, int d, int H, int loss) {
-  __shared__ BlockSmem<B> s;
-  extern __shared__ float dyn[];
-  float* w_s = dyn;      // (d,)
-  float* r_s = dyn + d;  // (d,)
+gram_kernel(const float* __restrict__ x,      // (m, n_max, d)
+            const float* __restrict__ y,      // (m, n_max)
+            const float* __restrict__ alpha,  // (m, n_max)
+            const float* __restrict__ w,      // (m, d)
+            const float* __restrict__ u,      // (m, H)
+            const int* __restrict__ n,        // (m,)
+            float* __restrict__ scratch,      // (m, nbg, scratch_floats<B>)
+            int n_max, int d, int H, int b_begin, int nbg) {
+  constexpr int KT = kGramTile;
+  constexpr int LDT = B + 4;               // xsT row stride: float4 aligned
+  constexpr int TG = B / 4;                // Gram threads: TG x TG, 4 x 4 each
+  constexpr int PER = B * KT / kThreads;   // tile elements loaded per thread
+  constexpr int QP = kThreads / B;         // q partial sums per row
+  __shared__ __align__(16) float xsT[KT][LDT];
+  __shared__ int64_t rowoff[B];
+  __shared__ float qpart[QP][B];
+  extern __shared__ float w_s[];           // (ceil(d / KT) * KT,) zero-padded
 
-  const int t = blockIdx.x, tid = threadIdx.x;
-  const float* xt = x + (int64_t)t * n_max * d;
-  const float* yt = y + (int64_t)t * n_max;
-  const float* at = alpha + (int64_t)t * n_max;
-  float* dat = dalpha + (int64_t)t * n_max;
-  const float* ut = u + (int64_t)t * H;
+  const int bi = blockIdx.x, t = blockIdx.y, tid = threadIdx.x;
   const int nt = n[t];
-  const float kap = kappa[t];
-
-  for (int c = tid; c < d; c += kThreads) {
-    w_s[c] = w[(int64_t)t * d + c];
-    r_s[c] = 0.f;
+  float* blk = scratch + ((int64_t)t * nbg + bi) * scratch_floats<B>();
+  if (tid < B) {
+    const int j = min((int)__fmul_rn(u[(int64_t)t * H + (b_begin + bi) * B + tid], (float)nt),
+                      nt - 1);
+    rowoff[tid] = ((int64_t)t * n_max + j) * d;
+    blk[B * B + B + tid] = y[(int64_t)t * n_max + j];
+    blk[B * B + 2 * B + tid] = alpha[(int64_t)t * n_max + j];
+    reinterpret_cast<int*>(blk)[B * B + 3 * B + tid] = j;
   }
+  const int n_tiles = (d + KT - 1) / KT;
+  for (int c = tid; c < n_tiles * KT; c += kThreads)
+    w_s[c] = c < d ? w[(int64_t)t * d + c] : 0.f;
+  __syncthreads();
 
-  for (int b0 = 0; b0 < H; b0 += B) {
-    if (tid < B) {
-      const int j = min((int)__fmul_rn(ut[b0 + tid], (float)nt), nt - 1);
-      s.cb[tid] = j;
-      s.rowoff[tid] = (int64_t)j * d;
-      s.at0[tid] = at[j] + dat[j];
-      s.yb[tid] = yt[j];
+  float pre[PER];
+  load_gram_tile<B>(pre, x, rowoff, 0, d);
+  const int ti = tid / TG, tj = tid % TG;
+  const bool gram_thread = tid < TG * TG;
+  float g[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) g[a][b] = 0.f;
+  const int qk = tid % B, qp = tid / B;
+  float qacc = 0.f;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    __syncthreads();  // the previous tile is consumed
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      int k, c;
+      gram_elem(threadIdx.x + i * kThreads, k, c);
+      xsT[c][k] = pre[i];
     }
     __syncthreads();
-    block_gram<B>(xt, w_s, r_s, d, s);
-    if (tid < 32) block_recursion<B>(s, kap, loss);
-    __syncthreads();
-
-    // scatter: the first slot of each coordinate adds all of the block's
-    // deltas for it in draw order, so duplicates accumulate and every
-    // dalpha entry has a single writer
-    if (tid < B) {
-      const int j = s.cb[tid];
-      bool first = true;
-      for (int k = 0; k < tid; ++k) first = first && s.cb[k] != j;
-      if (first) {
-        float v = dat[j];
-        for (int k = tid; k < B; ++k)
-          if (s.cb[k] == j) v += s.deltas[k];
-        dat[j] = v;
+    if (tile + 1 < n_tiles)  // in flight during the FMAs
+      load_gram_tile<B>(pre, x, rowoff, (tile + 1) * KT, d);
+    if (gram_thread) {
+#pragma unroll 8
+      for (int c = 0; c < KT; ++c) {
+        const float4 a4 = *reinterpret_cast<const float4*>(&xsT[c][4 * ti]);
+        const float4 b4 = *reinterpret_cast<const float4*>(&xsT[c][4 * tj]);
+        const float av[4] = {a4.x, a4.y, a4.z, a4.w}, bv[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) g[a][b] = fmaf(av[a], bv[b], g[a][b]);
       }
     }
-    // r += X_b^T deltas (the block's rows are still in L2)
-    for (int c = tid; c < d; c += kThreads) {
-      float acc = 0.f;
-#pragma unroll 16
-      for (int k = 0; k < B; ++k) acc = fmaf(xt[s.rowoff[k] + c], s.deltas[k], acc);
-      r_s[c] += acc;
+#pragma unroll
+    for (int cc = 0; cc < KT / QP; ++cc) {
+      const int c = qp * (KT / QP) + cc;
+      qacc = fmaf(xsT[c][qk], w_s[tile * KT + c], qacc);
     }
-    __syncthreads();
   }
-  for (int c = tid; c < d; c += kThreads) r_out[(int64_t)t * d + c] = r_s[c];
+  qpart[qp][qk] = qacc;
+  if (gram_thread) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+      *reinterpret_cast<float4*>(&blk[(4 * ti + a) * B + 4 * tj]) =
+          make_float4(g[a][0], g[a][1], g[a][2], g[a][3]);
+  }
+  __syncthreads();
+  if (tid < B) {
+    float s = 0.f;
+#pragma unroll
+    for (int p = 0; p < QP; ++p) s += qpart[p][tid];
+    blk[B * B + tid] = s;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// stage 2: the chain, one cluster per task
+// ---------------------------------------------------------------------------
+// delta_of (sdca_common.cuh) with its divisor's reciprocal taken per row
+// before the chain (a_k is known at block start): the division leaves the
+// dependent chain, at a rounding of about one ulp against the quotient
+template <int LOSS>
+__device__ __forceinline__ float recip_of(float a) {
+  if (LOSS == kHinge) return 1.f / fmaxf(a, kEps);
+  if (LOSS == kSquared) return 1.f / (1.f + a);
+  return 1.f / (kGamma + a);
+}
+template <int LOSS>
+__device__ __forceinline__ float delta_of_recip(float atilde, float c, float inv, float y) {
+  if (LOSS == kHinge) return y * clip01(y * (atilde + (y - c) * inv)) - atilde;
+  if (LOSS == kSquared) return (y - c - atilde) * inv;
+  const float anew_u = atilde + (y - c - kGamma * atilde) * inv;
+  return y * clip01(y * anew_u) - atilde;
 }
 
 template <int B>
-cudaError_t launch(const float* x, const float* y, const float* alpha,
-                   const float* w, const float* u, const int* n,
-                   const float* kappa, float* dalpha, float* r, int m,
-                   int n_max, int d, int H, int loss, cudaStream_t stream) {
-  const size_t dyn = 2 * (size_t)d * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      round_kernel<B>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+struct ChainSmem {
+  // float offsets into the dynamic shared memory of one CTA
+  int rows, blk, r, xr, at0, dstart, deltas, cbn, total;
+  __host__ __device__ ChainSmem(int dcp) {
+    rows = 0;                                    // [2][B][dcp] gathered rows
+    blk = rows + 2 * B * dcp;                    // [2][scratch_floats<B>]
+    r = blk + 2 * scratch_floats<B>();           // [dcp] this CTA's r
+    xr = r + dcp;                                // [2][B] partial xr
+    at0 = xr + 2 * B;                            // [2][B] alpha~ (rank 0)
+    dstart = at0 + 2 * B;                        // [2][B] dalpha at block start (rank 0)
+    deltas = dstart + 2 * B;                     // [B]
+    cbn = deltas + B;                            // [B] next block's ids
+    total = cbn + B;
+  }
+};
+
+// warps 1-7: the rows (this CTA's columns) and scratch of block bi into
+// buffer buf, with cp.async; one commit group per thread
+template <int B>
+__device__ void prefetch_block(const float* __restrict__ x, const float* __restrict__ scratch,
+                               float* dyn, const ChainSmem<B>& L, int t, int bi, int buf,
+                               int n_max, int d, int nbg, int c0, int dc, int dcp, bool vec) {
+  constexpr int SF = scratch_floats<B>();
+  constexpr int NP = kThreads - 32;  // prefetching threads
+  const int p = threadIdx.x - 32;
+  const float* src = scratch + ((int64_t)t * nbg + bi) * SF;
+  int* cbn = reinterpret_cast<int*>(dyn + L.cbn);
+  if (p < B) cbn[p] = reinterpret_cast<const int*>(src)[B * B + 3 * B + p];
+  float* blk = dyn + L.blk + buf * SF;
+  for (int e = p; e < SF / 4; e += NP) cp_async16(blk + 4 * e, src + 4 * e);
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NP) : "memory");  // cbn is written
+  float* rows = dyn + L.rows + buf * B * dcp;
+  const float* xt = x + (int64_t)t * n_max * d + c0;
+  if (vec) {
+    const int nq = dc / 4;
+    for (int e = p; e < B * nq; e += NP) {
+      const int k = e / nq, c = 4 * (e - k * nq);
+      cp_async16(rows + k * dcp + c, xt + (int64_t)cbn[k] * d + c);
+    }
+  } else {
+    for (int e = p; e < B * dc; e += NP) {
+      const int k = e / dc, c = e - k * dc;
+      cp_async4(rows + k * dcp + c, xt + (int64_t)cbn[k] * d + c);
+    }
+  }
+  cp_async_commit();
+}
+
+// rank 0, thread k < B: alpha~ = alpha[j] + dalpha[j] of row k of block bi
+// (coordinate ids in cbn, alphas from the scratch) into buffer buf, and
+// dalpha[j] itself, which the block's scatter adds to
+template <int B>
+__device__ __forceinline__ void alpha_tilde(float* dyn, const ChainSmem<B>& L,
+                                            const float* __restrict__ scratch,
+                                            const float* dat, const int* cbn, int t, int bi,
+                                            int nbg, int buf) {
+  const int k = threadIdx.x;
+  const float dst = dat[cbn[k]];
+  const float al = scratch[((int64_t)t * nbg + bi) * scratch_floats<B>() + B * B + 2 * B + k];
+  dyn[L.at0 + buf * B + k] = al + dst;
+  dyn[L.dstart + buf * B + k] = dst;
+}
+
+template <int B, int LOSS>
+__global__ void __launch_bounds__(kThreads)
+chain_kernel(const float* __restrict__ x,        // (m, n_max, d)
+             const float* __restrict__ scratch,  // (m, nbg, scratch_floats<B>)
+             const float* __restrict__ kappa,    // (m,)
+             float* __restrict__ dalpha,         // (m, n_max)
+             float* __restrict__ r_out,          // (m, d): r in, r out
+             int n_max, int d, int nbg, int dcp, int vec) {
+  constexpr int SF = scratch_floats<B>();
+  constexpr int NR = (B + 31) / 32;  // recursion rows per lane
+  constexpr int RPW = B / 8;         // xr rows per warp
+  extern __shared__ __align__(16) float dyn[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), C = (int)cluster.num_blocks();
+  const ChainSmem<B> L(dcp);
+  const int t = blockIdx.y, tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int c0 = rank * dcp, dc = max(0, min(dcp, d - c0));
+  const float kap = kappa[t];
+  float* r_s = dyn + L.r;
+  float* deltas = dyn + L.deltas;
+  float* dat = dalpha + (int64_t)t * n_max;
+
+  for (int c = tid; c < dc; c += kThreads) r_s[c] = r_out[(int64_t)t * d + c0 + c];
+  if (warp != 0)
+    prefetch_block<B>(x, scratch, dyn, L, t, 0, 0, n_max, d, nbg, c0, dc, dcp, vec);
+  cp_async_wait_all();
+  __syncthreads();
+  if (rank == 0 && tid < B)  // alpha~ of the first block (the cluster barrier orders it)
+    alpha_tilde<B>(dyn, L, scratch, dat, reinterpret_cast<const int*>(dyn + L.cbn), t, 0, nbg, 0);
+
+  for (int bi = 0; bi < nbg; ++bi) {
+    const int buf = bi & 1;
+    const float* rows = dyn + L.rows + buf * B * dcp;
+    const float* blk = dyn + L.blk + buf * SF;
+    const float* G = blk;
+    const int* cb = reinterpret_cast<const int*>(blk + B * B + 3 * B);
+
+    // 1. partial xr over this CTA's columns: warp w owns rows w + 8i
+    {
+      float acc[RPW];
+#pragma unroll
+      for (int i = 0; i < RPW; ++i) acc[i] = 0.f;
+      for (int c = lane; c < dc; c += 32) {
+        const float rv = r_s[c];
+#pragma unroll
+        for (int i = 0; i < RPW; ++i) acc[i] = fmaf(rows[(warp + 8 * i) * dcp + c], rv, acc[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < RPW; ++i) {
+        const float s = warp_sum(acc[i]);
+        if (lane == 0) dyn[L.xr + buf * B + warp + 8 * i] = s;
+      }
+    }
+    cluster.sync();
+
+    if (warp == 0) {
+      // 3. the recursion, on every CTA of the cluster
+      float acc[NR], dup[NR], qv[NR], at[NR], yv[NR], av[NR], mine[NR];
+      int cbv[NR];
+      bool first[NR];  // no earlier row of the block drew the same coordinate
+      const float* at0 = cluster.map_shared_rank(dyn + L.at0, 0) + buf * B;
+#pragma unroll
+      for (int s = 0; s < NR; ++s) {
+        const int i = min(lane + 32 * s, B - 1);
+        float xr = 0.f;
+        for (int qr = 0; qr < C; ++qr) xr += cluster.map_shared_rank(dyn + L.xr, qr)[buf * B + i];
+        acc[s] = xr;
+        dup[s] = 0.f;
+        qv[s] = blk[B * B + i];
+        yv[s] = blk[B * B + B + i];
+        at[s] = at0[i];
+        av[s] = recip_of<LOSS>(kap * G[i * B + i]);
+        cbv[s] = cb[i];
+        first[s] = lane + 32 * s < B;
+        mine[s] = 0.f;
+      }
+      // fully unrolled, so the G row loads run ahead of the chain; every lane
+      // evaluates delta_of for its own row and the owner's value is taken,
+      // so no step branches
+#pragma unroll
+      for (int s = 0; s < NR; ++s)
+#pragma unroll
+        for (int kk = 0; kk < 32 && 32 * s + kk < B; ++kk) {
+          const int k = 32 * s + kk;
+          const float dl = delta_of_recip<LOSS>(at[s] + dup[s], qv[s] + kap * acc[s], av[s], yv[s]);
+          const float dk = __shfl_sync(0xffffffffu, dl, kk);
+          if (lane == kk) mine[s] = dk;
+          const int ck = cb[k];
+          const float* Gk = G + k * B;
+#pragma unroll
+          for (int s2 = 0; s2 < NR; ++s2) {
+            const int i = min(lane + 32 * s2, B - 1);
+            acc[s2] = fmaf(Gk[i], dk, acc[s2]);
+            if (cbv[s2] == ck) {
+              dup[s2] += dk;
+              if (k < lane + 32 * s2) first[s2] = false;
+            }
+          }
+        }
+#pragma unroll
+      for (int s = 0; s < NR; ++s)
+        if (lane + 32 * s < B) deltas[lane + 32 * s] = mine[s];
+      // 4a. rank 0 scatters: the first row of each coordinate writes dalpha
+      // at block start plus every delta of the block drawn there, summed in
+      // draw order (dup now holds all of them)
+      if (rank == 0) {
+#pragma unroll
+        for (int s = 0; s < NR; ++s)
+          if (first[s]) dat[cbv[s]] = dyn[L.dstart + buf * B + lane + 32 * s] + dup[s];
+      }
+    } else if (bi + 1 < nbg) {
+      prefetch_block<B>(x, scratch, dyn, L, t, bi + 1, buf ^ 1, n_max, d, nbg, c0, dc, dcp, vec);
+    }
+    __syncthreads();
+
+    // alpha~ of the next block, after this block's scatter; its loads are in
+    // flight during the r update
+    if (rank == 0 && tid < B && bi + 1 < nbg)
+      alpha_tilde<B>(dyn, L, scratch, dat, reinterpret_cast<const int*>(dyn + L.cbn), t,
+                     bi + 1, nbg, buf ^ 1);
+    // 4b. r += X_b^T deltas over this CTA's columns
+    for (int c = tid; c < dc; c += kThreads) {
+      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+#pragma unroll 4
+      for (int k = 0; k < B; k += 4) {
+        a0 = fmaf(rows[k * dcp + c], deltas[k], a0);
+        a1 = fmaf(rows[(k + 1) * dcp + c], deltas[k + 1], a1);
+        a2 = fmaf(rows[(k + 2) * dcp + c], deltas[k + 2], a2);
+        a3 = fmaf(rows[(k + 3) * dcp + c], deltas[k + 3], a3);
+      }
+      r_s[c] += (a0 + a1) + (a2 + a3);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  for (int c = tid; c < dc; c += kThreads) r_out[(int64_t)t * d + c0 + c] = r_s[c];
+  cluster.sync();  // no CTA leaves while another may read its shared memory
+}
+
+// columns of d per CTA of a cluster of C: a multiple of 4, so 16-byte copies
+// stay aligned
+inline int slab(int d, int C) { return ((d + C - 1) / C + 3) / 4 * 4; }
+
+template <int B>
+cudaError_t launch(const float* x, const float* y, const float* alpha, const float* w,
+                   const float* u, const int* n, const float* kappa, float* dalpha,
+                   float* r, float* scratch, int m, int n_max, int d, int H,
+                   int group, int C, int loss, int stages, cudaStream_t stream) {
+  const int nb = H / B;
+  const int dcp = slab(d, C);
+  const size_t chain_smem = (size_t)ChainSmem<B>(dcp).total * sizeof(float);
+  const size_t gram_smem = (size_t)((d + kGramTile - 1) / kGramTile * kGramTile) * sizeof(float);
+  if (chain_smem > 232448 || gram_smem > 232448) return cudaErrorInvalidValue;
+  auto chain = loss == kHinge     ? chain_kernel<B, kHinge>
+               : loss == kSquared ? chain_kernel<B, kSquared>
+                                  : chain_kernel<B, kSmoothedHinge>;
+  cudaError_t err =
+      cudaFuncSetAttribute(chain, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)chain_smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(gram_kernel<B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)gram_smem);
   if (err != cudaSuccess) return err;
-  round_kernel<B><<<m, kThreads, dyn, stream>>>(x, y, alpha, w, u, n, kappa,
-                                                dalpha, r, n_max, d, H, loss);
-  return cudaGetLastError();
+  const int vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  for (int b0 = 0; b0 < nb; b0 += group) {
+    const int nbg = nb - b0 < group ? nb - b0 : group;
+    if (stages & 1) {
+      gram_kernel<B><<<dim3(nbg, m), kThreads, gram_smem, stream>>>(
+          x, y, alpha, w, u, n, scratch, n_max, d, H, b0, nbg);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+    if (stages & 2) {
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(C, m);
+      cfg.blockDim = dim3(kThreads);
+      cfg.dynamicSmemBytes = chain_smem;
+      cfg.stream = stream;
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = C;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      err = cudaLaunchKernelEx(&cfg, chain, x, (const float*)scratch, kappa, dalpha, r, n_max,
+                               d, nbg, dcp, vec);
+      if (err != cudaSuccess) return err;
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+  }
+  return cudaSuccess;
 }
 
 }  // namespace sdca
 
-// Plain C entry point for ctypes. Returns a cudaError_t (0 = launched).
-extern "C" int sdca_round_launch(const void* x, const void* y,
-                                 const void* alpha, const void* w,
-                                 const void* u, const void* n,
-                                 const void* kappa, void* dalpha, void* r,
-                                 int m, int n_max, int d, int H, int block,
-                                 int loss, void* stream) {
+// Plain C entry point for ctypes. dalpha and r are zero on entry; scratch
+// holds m * group * (B*B + 4B) floats; the round runs in groups of `group`
+// blocks. stages: 1 = stage 1 only, 2 = stage 2 only, 3 = the round (the
+// single stages exist to time them apart). Returns a cudaError_t (0 =
+// launched).
+extern "C" int sdca_round_launch(const void* x, const void* y, const void* alpha,
+                                 const void* w, const void* u, const void* n,
+                                 const void* kappa, void* dalpha, void* r, void* scratch,
+                                 int m, int n_max, int d, int H, int block, int loss,
+                                 int group, int cluster, int stages, void* stream) {
   using namespace sdca;
-  if (H % block != 0 || loss < kHinge || loss > kSmoothedHinge)
+  if (H % block != 0 || loss < kHinge || loss > kSmoothedHinge || group < 1 ||
+      (cluster != 2 && cluster != 4 && cluster != 8))
     return (int)cudaErrorInvalidValue;
-#define SDCA_ROUND_CASE(BB)                                                  \
-  case BB:                                                                   \
-    return (int)launch<BB>((const float*)x, (const float*)y,                \
-                           (const float*)alpha, (const float*)w,            \
-                           (const float*)u, (const int*)n,                  \
-                           (const float*)kappa, (float*)dalpha, (float*)r,  \
-                           m, n_max, d, H, loss, (cudaStream_t)stream);
+#define SDCA_ROUND_CASE(BB)                                                               \
+  case BB:                                                                                \
+    return (int)launch<BB>((const float*)x, (const float*)y, (const float*)alpha,        \
+                           (const float*)w, (const float*)u, (const int*)n,              \
+                           (const float*)kappa, (float*)dalpha, (float*)r,               \
+                           (float*)scratch, m, n_max, d, H, group, cluster, loss, stages, \
+                           (cudaStream_t)stream);
   switch (block) {
     SDCA_ROUND_CASE(16)
     SDCA_ROUND_CASE(32)

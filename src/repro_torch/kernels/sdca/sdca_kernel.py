@@ -4,7 +4,9 @@ Two kernels, each the port of one TPU kernel of
 ``repro/kernels/sdca/sdca_kernel.py`` (the sources say how they differ):
 
 ``sdca_round_kernel`` — csrc/sdca_round.cu: one fused local round for all
-    m tasks in ONE launch (one CTA per task); replaces ``sdca_round_kernel``.
+    m tasks in ONE call: stage 1 forms every block's Gram and q over the
+    whole card, stage 2 runs each task's chain of blocks on a cluster of
+    CTAs; replaces ``sdca_round_kernel``.
 ``sdca_block_kernel`` — csrc/sdca_block.cu: the deltas of one H-block for
     all m tasks in one launch; replaces ``sdca_block_kernel``.
 
@@ -26,12 +28,18 @@ from ..nvcc import INT, VP, check_tensor, launcher, raise_on
 
 SUPPORTED_LOSSES = ("hinge", "squared", "smoothed_hinge")
 SUPPORTED_BLOCKS = (16, 32, 64)
+SUPPORTED_CLUSTERS = (2, 4, 8)
+CLUSTER = 4  # CTAs per task in stage 2 (chosen by measurement, see the source)
+# scratch of stage 1 (every block's Gram, q and metadata); a round with more
+# blocks than this holds runs in groups of blocks
+SCRATCH_CAP_BYTES = 256 << 20
+MAX_SMEM_BYTES = 232448  # shared memory one Hopper CTA can use
 _LOSS_IDS = {name: i for i, name in enumerate(SUPPORTED_LOSSES)}
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "sdca_round.cu", CSRC / "sdca_block.cu")
 _ARGTYPES = {
-    "sdca_round": [VP] * 9 + [INT] * 6 + [VP],
+    "sdca_round": [VP] * 10 + [INT] * 9 + [VP],
     "sdca_block": [VP] * 8 + [INT] * 4 + [VP],
 }
 
@@ -49,6 +57,55 @@ def _setup(loss: str, block: int, x: torch.Tensor):
         raise ValueError(f"kernel supports block sizes {SUPPORTED_BLOCKS}, got {block}")
 
 
+def _scratch_floats(block: int) -> int:
+    return block * block + 4 * block  # G, q, labels, alphas, coordinate ids
+
+
+def chain_smem_bytes(block: int, d: int, cluster: int) -> int:
+    """Shared memory of one stage-2 CTA (the layout of ``ChainSmem`` in
+    csrc/sdca_round.cu): two buffers of the block's rows over the CTA's
+    column slab and of its scratch, the slab of r, and per-block vectors."""
+    slab = (-(-d // cluster) + 3) // 4 * 4
+    return 4 * (2 * block * slab + 2 * _scratch_floats(block) + slab + 8 * block)
+
+
+def _round_checks(x, y, alpha, w, u, n, kappa, loss, block, cluster):
+    """Validate a round's inputs; return (m, n_max, d, H)."""
+    _setup(loss, block, x)
+    m, n_max, d = x.shape
+    H = u.shape[1]
+    if H % block:
+        raise ValueError(f"H={H} must be a multiple of block={block}")
+    if cluster not in SUPPORTED_CLUSTERS:
+        raise ValueError(f"kernel supports clusters of {SUPPORTED_CLUSTERS}, got {cluster}")
+    smem = chain_smem_bytes(block, d, cluster)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"d={d} does not fit a cluster of {cluster} CTAs at block={block}: "
+                         f"{smem} bytes of shared memory a CTA")
+    f32, dev = torch.float32, x.device
+    for name, t, shape, dt in (
+        ("x", x, (m, n_max, d), f32), ("y", y, (m, n_max), f32),
+        ("alpha", alpha, (m, n_max), f32), ("w", w, (m, d), f32),
+        ("u", u, (m, H), f32), ("n", n, (m,), torch.int32),
+        ("kappa", kappa, (m,), f32),
+    ):
+        check_tensor(name, t, shape, dt, dev)
+    return m, n_max, d, H
+
+
+def _launch_round(x, y, alpha, w, u, n, kappa, loss, block, cluster, scratch, group,
+                  dalpha, r, stages):
+    m, n_max, d = x.shape
+    err = _lib("sdca_round")(
+        x.data_ptr(), y.data_ptr(), alpha.data_ptr(), w.data_ptr(),
+        u.data_ptr(), n.data_ptr(), kappa.data_ptr(), dalpha.data_ptr(),
+        r.data_ptr(), scratch.data_ptr(), m, n_max, d, u.shape[1], block,
+        _LOSS_IDS[loss], group, cluster, stages,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    raise_on(err, "sdca_round")
+
+
 def sdca_round_kernel(
     x: torch.Tensor,  # (m, n_max, d) float32
     y: torch.Tensor,  # (m, n_max)
@@ -59,32 +116,45 @@ def sdca_round_kernel(
     kappa: torch.Tensor,  # (m,) rho * sigma_ii / (lambda * n_i)
     loss: str,
     block: int = 64,
+    cluster: int = CLUSTER,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One fused local round for every task: (dalpha (m, n_max), r (m, d))."""
-    _setup(loss, block, x)
-    m, n_max, d = x.shape
-    H = u.shape[1]
-    if H % block:
-        raise ValueError(f"H={H} must be a multiple of block={block}")
+    """One fused local round for every task: (dalpha (m, n_max), r (m, d)).
+    ``cluster`` is the number of CTAs that share a task's chain (stage 2)."""
+    m, n_max, d, H = _round_checks(x, y, alpha, w, u, n, kappa, loss, block, cluster)
     f32, dev = torch.float32, x.device
-    for name, t, shape, dt in (
-        ("x", x, (m, n_max, d), f32), ("y", y, (m, n_max), f32),
-        ("alpha", alpha, (m, n_max), f32), ("w", w, (m, d), f32),
-        ("u", u, (m, H), f32), ("n", n, (m,), torch.int32),
-        ("kappa", kappa, (m,), f32),
-    ):
-        check_tensor(name, t, shape, dt, dev)
+    n_blocks = H // block
+    group = max(1, min(n_blocks, SCRATCH_CAP_BYTES // (4 * m * _scratch_floats(block))))
+    scratch = torch.empty((m * group * _scratch_floats(block),), dtype=f32, device=dev)
     dalpha = torch.zeros((m, n_max), dtype=f32, device=dev)
-    r = torch.empty((m, d), dtype=f32, device=dev)
-    err = _lib("sdca_round")(
-        x.data_ptr(), y.data_ptr(), alpha.data_ptr(), w.data_ptr(),
-        u.data_ptr(), n.data_ptr(), kappa.data_ptr(), dalpha.data_ptr(),
-        r.data_ptr(), m, n_max, d, H, block, _LOSS_IDS[loss],
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    raise_on(err, "sdca_round")
+    r = torch.zeros((m, d), dtype=f32, device=dev)
+    _launch_round(x, y, alpha, w, u, n, kappa, loss, block, cluster, scratch, group,
+                  dalpha, r, stages=3)
     sdca_round_kernel.launches += 1
     return dalpha, r
+
+
+def sdca_round_stage(
+    stage: int, x, y, alpha, w, u, n, kappa, loss: str,
+    scratch: torch.Tensor,  # (m * H/block * (block^2 + 4 block),) float32
+    dalpha: torch.Tensor,  # (m, n_max), updated in place by stage 2
+    r: torch.Tensor,  # (m, d), updated in place by stage 2
+    block: int = 64,
+    cluster: int = CLUSTER,
+) -> None:
+    """Launch one stage of the round alone on the caller's buffers, to time
+    the two apart: stage 1 writes every block's Gram, q and metadata into
+    ``scratch``; stage 2 reads them and runs the chains into ``dalpha`` and
+    ``r``. Not counted in ``sdca_round_kernel.launches``."""
+    m, n_max, d, H = _round_checks(x, y, alpha, w, u, n, kappa, loss, block, cluster)
+    if stage not in (1, 2):
+        raise ValueError(f"stage must be 1 or 2, got {stage}")
+    n_blocks = H // block
+    check_tensor("scratch", scratch, (m * n_blocks * _scratch_floats(block),),
+                 torch.float32, x.device)
+    check_tensor("dalpha", dalpha, (m, n_max), torch.float32, x.device)
+    check_tensor("r", r, (m, d), torch.float32, x.device)
+    _launch_round(x, y, alpha, w, u, n, kappa, loss, block, cluster, scratch,
+                  max(1, n_blocks), dalpha, r, stages=stage)
 
 
 def sdca_block_kernel(

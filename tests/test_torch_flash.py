@@ -5,7 +5,13 @@ interpret mode, as tests/test_kernels.py runs it) and through the port's
 ``ops.flash_attention``, which runs the kernel's plain version on CPU
 tensors. Bars: fp32 1e-5 for the kernel and 2e-5 for the padded (B, S, H,
 HD) wrapper, those of tests/test_kernels.py.
+
+Also a plain emulation of the card's bf16 kernel (64-key blocks, online
+softmax in the log2 domain, P rounded to bf16 before P V) against the JAX
+kernel on bf16 inputs, at the bf16 bar 2e-2.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -55,3 +61,51 @@ def test_flash_bshd_with_padding_matches_jax(S, block):
     )
     want = jax_bshd(*map(jnp.asarray, (q, k, v)), causal=True, block_q=block, block_k=block)
     np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=2e-5)
+
+
+def _bf16_kernel_emulation(q, k, v, causal, window, block=64):
+    """What flash_fwd_bf16_kernel computes, in plain torch: scores in fp32
+    from bf16 operands, times scale * log2(e); the -1e30 sentinel; per 64-key
+    block the running max, exp2, the fp32 sum, and P rounded to bf16 before
+    P V with fp32 accumulation; acc / max(l, 1e-30) rounded to bf16."""
+    S, HD = q.shape[2], q.shape[3]
+    Sk = k.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (
+        (1.0 / math.sqrt(HD)) * math.log2(math.e))
+    qpos = torch.arange(S)[:, None]
+    kpos = torch.arange(Sk)[None, :]
+    keep = torch.ones((S, Sk), dtype=torch.bool)
+    if causal:
+        keep &= kpos <= qpos
+    if window > 0:
+        keep &= kpos > qpos - window
+    s = torch.where(keep, s, torch.full_like(s, -1e30))
+    m = torch.full(s.shape[:3], -1e30)
+    l = torch.zeros(s.shape[:3])
+    acc = torch.zeros(q.shape)
+    for k0 in range(0, Sk, block):
+        sb = s[..., k0:k0 + block]
+        m_new = torch.maximum(m, sb.amax(-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(sb - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        pv = torch.einsum("bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(),
+                          v[:, :, k0:k0 + block].float())
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("window", [0, 100])
+def test_bf16_kernel_rounding_matches_jax(window):
+    """Rounding P to bf16 before P V (the card's bf16 kernel) against the
+    JAX kernel, which multiplies P by V in fp32: within the bf16 bar at the
+    Zamba2 head dim 80 and a ragged S of 300 (padded for the JAX kernel)."""
+    B, S, H, HD = 1, 300, 2, 80
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(S + window, (B, H, S, HD)))
+    out = _bf16_kernel_emulation(q, k, v, True, window)
+    to_jax = lambda t: jnp.asarray(t.float().numpy(), jnp.bfloat16).transpose(0, 2, 1, 3)
+    want = jax_bshd(to_jax(q), to_jax(k), to_jax(v), causal=True, window=window,
+                    block_q=64, block_k=64)
+    want = np.asarray(want.astype(jnp.float32)).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(out.float().numpy(), want, atol=2e-2, rtol=2e-2)

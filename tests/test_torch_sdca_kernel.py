@@ -5,6 +5,10 @@ On the CPU: the port's plain versions behind ``ops.sdca_round`` /
 in interpret mode for the kernel losses) at the shapes of
 tests/test_solver_backends.py, atol 2e-5 (that file's bar).
 
+Also on the CPU: a plain emulation of the round kernel's staged algorithm
+(every block's Gram and q first, then the right-looking chain with alpha~
+carried across blocks) against the JAX ``sdca_round_kernel``, atol 2e-5.
+
 On a CUDA card (marker ``gpu``; they skip here): each Hopper kernel against
 its plain version. This module imports no JAX at top level so that the
 card's run, which has no JAX, can collect it:
@@ -16,7 +20,8 @@ import pytest
 import torch
 
 from repro_torch import prng
-from repro_torch.core.sdca import gather_rows
+from repro_torch.core.losses import get_loss
+from repro_torch.core.sdca import coords_from_uniform, gather_rows
 from repro_torch.kernels.sdca import ops, ref, sdca_kernel
 
 KERNEL_LOSSES = ("hinge", "squared", "smoothed_hinge")
@@ -55,6 +60,63 @@ def test_sdca_round_plain_matches_jax(loss, n, d, H, block):
             jnp.asarray(x[t]), jnp.asarray(y[t]), jnp.asarray(alpha[t]),
             jnp.asarray(w[t]), jnp.asarray(u[t]), jnp.int32(n_i[t]),
             jnp.float32(kappa[t]), loss, block=block,
+        )
+        np.testing.assert_allclose(da[t].numpy(), np.asarray(da_j), atol=ATOL)
+        np.testing.assert_allclose(r[t].numpy(), np.asarray(r_j), atol=ATOL)
+
+
+def _staged_round(x, y, alpha, w, u, n_i, kappa, loss, block):
+    """The round kernel's algorithm in plain torch: stage 1 forms G and q of
+    every block from the drawn coordinates at once; stage 2 walks the
+    blocks in order, alpha~ = alpha + dalpha at block start, and runs the
+    right-looking recursion (each delta pushed into the running c and
+    duplicate sums of the later rows)."""
+    delta_fn = get_loss(loss).sdca_delta
+    m, n_max, d = x.shape
+    H = u.shape[1]
+    cs = coords_from_uniform(u, n_i).view(m, H // block, block)
+    tasks = torch.arange(m)[:, None]
+    xb = gather_rows(x, cs.reshape(m, H)).view(m, H // block, block, d)
+    G = xb @ xb.transpose(-1, -2)  # stage 1: (m, blocks, B, B)
+    q = (xb @ w[:, None, :, None])[..., 0]  # (m, blocks, B)
+    dalpha = torch.zeros((m, n_max))
+    r = torch.zeros((m, d))
+    for b in range(H // block):
+        cb = cs[:, b]
+        acc = (xb[:, b] @ r[:, :, None])[..., 0]  # xr, then + sum G delta
+        at0 = alpha.gather(1, cb) + dalpha.gather(1, cb)
+        yb = y.gather(1, cb)
+        dup = torch.zeros((m, block))
+        deltas = torch.zeros((m, block))
+        for k in range(block):
+            dk = delta_fn(at0[:, k] + dup[:, k], q[:, b, k] + kappa * acc[:, k],
+                          kappa * G[:, b, k, k], yb[:, k])
+            deltas[:, k] = dk
+            acc = acc + G[:, b, k] * dk[:, None]
+            dup = dup + torch.where(cb == cb[:, k:k + 1], dk[:, None], 0.0)
+        for k in range(block):  # duplicates accumulate in draw order
+            dalpha[tasks[:, 0], cb[:, k]] += deltas[:, k]
+        r = r + (xb[:, b].transpose(1, 2) @ deltas[:, :, None])[..., 0]
+    return dalpha, r
+
+
+@pytest.mark.parametrize("loss", KERNEL_LOSSES)
+@pytest.mark.parametrize("n,d,H,block", SHAPES)
+def test_staged_round_matches_jax(loss, n, d, H, block):
+    """The two numerical choices of the round kernel (Gram and q of all
+    blocks up front, right-looking recursion) hold the JAX kernel's bar;
+    H > n, so coordinates repeat within and across blocks."""
+    import jax.numpy as jnp
+    from repro.kernels.sdca import sdca_kernel as jkernel
+
+    m = 2
+    x, y, alpha, w, u, n_i, kappa = _problem(n * d + 7, m, n, d, H)
+    da, r = _staged_round(*_t(x, y, alpha, w, u, n_i, kappa), loss, block)
+    for t in range(m):
+        da_j, r_j = jkernel.sdca_round_kernel(
+            jnp.asarray(x[t]), jnp.asarray(y[t]), jnp.asarray(alpha[t]),
+            jnp.asarray(w[t]), jnp.asarray(u[t]), jnp.int32(n_i[t]),
+            jnp.float32(kappa[t]), loss, block=block, interpret=True,
         )
         np.testing.assert_allclose(da[t].numpy(), np.asarray(da_j), atol=ATOL)
         np.testing.assert_allclose(r[t].numpy(), np.asarray(r_j), atol=ATOL)
@@ -155,6 +217,84 @@ def test_round_kernel_matches_plain(cuda, loss, n, d, H, block):
     da_p, r_p = ref.sdca_round_ref(x, y, alpha, w, u, n_i, kappa, loss)
     torch.testing.assert_close(da, da_p, atol=ATOL, rtol=0)
     torch.testing.assert_close(r, r_p, atol=ATOL, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", sdca_kernel.SUPPORTED_CLUSTERS)
+@pytest.mark.parametrize("m", [1, 13])
+@pytest.mark.parametrize("n,d,H,block", SHAPES + [(120, 100, 512, 64)])
+def test_round_kernel_every_cluster(cuda, cluster, m, n, d, H, block):
+    """Every cluster size, one task and many, d not a multiple of 4 C
+    (33, 17), H > n (coordinates repeat within and across blocks)."""
+    x, y, alpha, w, u, n_i, kappa = _t(*_problem(n + d + m, m, n, d, H), device=cuda)
+    before = sdca_kernel.sdca_round_kernel.launches
+    da, r = sdca_kernel.sdca_round_kernel(x, y, alpha, w, u, n_i, kappa, "hinge",
+                                          block=block, cluster=cluster)
+    torch.cuda.synchronize()
+    assert sdca_kernel.sdca_round_kernel.launches == before + 1
+    da_p, r_p = ref.sdca_round_ref(x, y, alpha, w, u, n_i, kappa, "hinge")
+    torch.testing.assert_close(da, da_p, atol=ATOL, rtol=0)
+    torch.testing.assert_close(r, r_p, atol=ATOL, rtol=0)
+
+
+@pytest.mark.gpu
+def test_round_kernel_in_scratch_groups(cuda, monkeypatch):
+    """A scratch smaller than the round's blocks runs it in groups of
+    blocks (stage 1 then stage 2 per group) with the same result."""
+    x, y, alpha, w, u, n_i, kappa = _t(*_problem(11, 3, 70, 33, 96 * 4), device=cuda)
+    whole = sdca_kernel.sdca_round_kernel(x, y, alpha, w, u, n_i, kappa, "squared", block=32)
+    per_block = 4 * 3 * (32 * 32 + 4 * 32)
+    monkeypatch.setattr(sdca_kernel, "SCRATCH_CAP_BYTES", 5 * per_block)  # 12 blocks: 5, 5, 2
+    before = sdca_kernel.sdca_round_kernel.launches
+    grouped = sdca_kernel.sdca_round_kernel(x, y, alpha, w, u, n_i, kappa, "squared", block=32)
+    torch.cuda.synchronize()
+    assert sdca_kernel.sdca_round_kernel.launches == before + 1
+    for a, b in zip(whole, grouped):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_round_kernel_at_mnist_width(cuda):
+    """Two tasks at the MNIST width (12000 rows x 784, one local epoch of
+    H = 12032): 188 blocks of 64 chained through a cluster. The sequential
+    plain version sums in another order over 12032 steps, so the bar is
+    chip_smoke.py's TOL_ROUND (5e-4), not the 2e-5 of the test shapes."""
+    x, y, alpha, w, u, n_i, kappa = _t(*_problem(2, 2, 12000, 784, 12032), device=cuda)
+    n_i = torch.full((2,), 12000, dtype=torch.int32, device=cuda)
+    before = sdca_kernel.sdca_round_kernel.launches
+    da, r = ops.sdca_round(x, y, alpha, w, u, n_i, kappa, "hinge", block=64)
+    torch.cuda.synchronize()
+    assert sdca_kernel.sdca_round_kernel.launches == before + 1
+    da_p, r_p = ref.sdca_round_ref(x, y, alpha, w, u, n_i, kappa, "hinge")
+    torch.testing.assert_close(da, da_p, atol=5e-4, rtol=0)
+    torch.testing.assert_close(r, r_p, atol=5e-4, rtol=0)
+
+
+@pytest.mark.gpu
+def test_round_stages_apart_equal_the_round(cuda):
+    """Stage 1 then stage 2 launched apart (the timing path) give the
+    round's result and do not count as launches of it."""
+    m, n, d, H, block = 3, 300, 784, 256, 64
+    x, y, alpha, w, u, n_i, kappa = _t(*_problem(5, m, n, d, H), device=cuda)
+    da, r = sdca_kernel.sdca_round_kernel(x, y, alpha, w, u, n_i, kappa, "hinge", block=block)
+    before = sdca_kernel.sdca_round_kernel.launches
+    scratch = torch.empty(m * (H // block) * (block * block + 4 * block), device=cuda)
+    da2, r2 = torch.zeros_like(da), torch.zeros_like(r)
+    for stage in (1, 2):
+        sdca_kernel.sdca_round_stage(stage, x, y, alpha, w, u, n_i, kappa, "hinge",
+                                     scratch, da2, r2, block=block)
+    torch.cuda.synchronize()
+    assert sdca_kernel.sdca_round_kernel.launches == before
+    assert torch.equal(da, da2) and torch.equal(r, r2)
+
+
+@pytest.mark.gpu
+def test_round_kernel_refuses_what_does_not_fit(cuda):
+    x, y, alpha, w, u, n_i, kappa = _t(*_problem(1, 1, 40, 784, 64), device=cuda)
+    with pytest.raises(ValueError, match="does not fit"):
+        sdca_kernel.sdca_round_kernel(x, y, alpha, w, u, n_i, kappa, "hinge", cluster=2)
+    with pytest.raises(ValueError, match="clusters"):
+        sdca_kernel.sdca_round_kernel(x, y, alpha, w, u, n_i, kappa, "hinge", cluster=3)
 
 
 @pytest.mark.gpu
