@@ -8,15 +8,20 @@ Phases, each printing its own lines:
               attention, SSD chunk) from src/repro_torch/kernels/*/csrc with
               nvcc for sm_90a (one nvcc per source, started together);
   2. kernels against their plain PyTorch versions on the card, at their
-              paths' shapes: the SDCA kernels at 10 tasks x 12000 rows x 784
+              paths' shapes: the SDCA round at 10 tasks x 12000 rows x 784
               features, B = 64, for the hinge, squared and smoothed-hinge
-              losses (the round's two stages also timed apart, and at each
-              cluster size that fits); flash attention at Zamba2-2.7B's
-              (1, 32, 512, 80), causal, bf16 (tensor-core kernel) and fp32
-              (fp32 kernel), each with and without a 128 window, timed
-              beside scaled_dot_product_attention; the SSD chunk
-              at Zamba2-2.7B's (1, 80, 8, 64, 64, 64), dt and A in the
-              model's ranges;
+              losses (its two stages also timed apart, and at each cluster
+              size that fits); the SDCA block at that width and at
+              Synthetic-1's (16 tasks, d = 100), there also with duplicate
+              coordinates, timed at every cluster size beside its chain
+              floor; flash attention at Zamba2-2.7B's (1, 32, 512, 80),
+              causal, bf16 (tensor-core kernel) and fp32 (fp32 kernel), each
+              with and without a 128 window, timed beside
+              scaled_dot_product_attention; the SSD chunk with dt and A in
+              the model's ranges, per head in the chunked layout (1, 80, 8,
+              64, 64, 64) and in Zamba2's own layout (bf16 views of the conv
+              output, one B/C group), plus a ragged 17-step chunk and
+              Q = N = P = 128 in fp32 and bf16;
   3. main path — DMTRLEstimator(solver="pallas_round") fits the paper's
               MNIST-width problem (mnist_like, scale 1.0) on the card, then
               scores and predicts; the fused round kernel must carry every
@@ -54,10 +59,11 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the tensor cores,
-# dense bf16 on the tensor cores and HBM3 bandwidth; used for each kernel's
-# bound
+# dense bf16 and TF32 on the tensor cores and HBM3 bandwidth; used for each
+# kernel's bound
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 
 M, N_MAX, D, BLOCK = 10, 12000, 784, 64
@@ -149,6 +155,7 @@ def lm_kernel_checks(torch, dev, card: str) -> dict:
 
     from repro_torch.kernels.flash import flash_kernel
     from repro_torch.kernels.flash import ref as flash_ref
+    from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd import ref as ssd_ref
     from repro_torch.kernels.ssd import ssd_kernel
 
@@ -188,35 +195,85 @@ def lm_kernel_checks(torch, dev, card: str) -> dict:
     Hs, nc, Q, P, N = SSD_H, SSD_NC, SSD_Q, SSD_P, SSD_N
     dt0 = np.exp(np.linspace(np.log(1e-3), np.log(1e-1), Hs))
     dt_bias = dt0 + np.log(-np.expm1(-dt0))
+    A = -torch.linspace(1.0, 16.0, Hs, device=dev)  # A = -exp(A_log) at init
+
+    def ssd_check(label, got, want):
+        err = 0.0
+        for name, a, b in zip(("Y_intra", "S_local", "a_tot"), got, want):
+            check(bool(torch.isfinite(a).all()), f"ssd_chunk {label} {name}: non-finite output")
+            e = (a - b).abs().max().item()
+            print(f"[2 ssd_chunk {label}] max|{name} - plain| = {e:.3e} (max|plain| "
+                  f"{b.abs().max().item():.3f}; tolerance {TOL_SSD:.0e})")
+            err = max(err, e)
+        check(err <= TOL_SSD, f"ssd_chunk {label} disagrees with its plain version")
+        return err
+
+    # (a) per-head inputs in the JAX kernel's chunked layout, through
+    # ops.ssd_chunk: strided views into the kernel, no copies
     cells = [
         rs.randn(1, Hs, nc, Q, P),  # x
         np.logaddexp(0.0, rs.randn(1, Hs, nc, Q) + dt_bias[None, :, None, None]),  # dt
-        -np.linspace(1.0, 16.0, Hs),  # A = -exp(A_log) at init
         0.3 * rs.randn(1, Hs, nc, Q, N),  # B
         0.3 * rs.randn(1, Hs, nc, Q, N),  # C
     ]
-    x, dt, A, Bm, Cm = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in cells)
-    got = ssd_kernel.ssd_chunk_kernel(x, dt, A, Bm, Cm)
+    x, dt, Bm, Cm = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in cells)
+    got = ssd_ops.ssd_chunk(x, dt, A, Bm, Cm)
     torch.cuda.synchronize()
-    want = ssd_ref.chunk_ref(x, dt, A, Bm, Cm)
-    err_ssd = 0.0
-    for name, a, b in zip(("Y_intra", "S_local", "a_tot"), got, want):
-        check(bool(torch.isfinite(a).all()), f"ssd_chunk {name}: non-finite output")
-        e = (a - b).abs().max().item()
-        print(f"[2 ssd_chunk] max|{name} - plain| = {e:.3e} (max|plain| "
-              f"{b.abs().max().item():.3f}; tolerance {TOL_SSD:.0e})")
-        err_ssd = max(err_ssd, e)
-    check(err_ssd <= TOL_SSD, "ssd_chunk disagrees with its plain version")
-    ms_ssd = cuda_ms(torch, lambda: ssd_kernel.ssd_chunk_kernel(x, dt, A, Bm, Cm), reps=50)
-    plain_ssd = cuda_ms(torch, lambda: ssd_ref.chunk_ref(x, dt, A, Bm, Cm), reps=10)
+    err_ssd = ssd_check("per head fp32", got, ssd_ref.chunk_ref(x, dt, A, Bm, Cm))
+    ms_head = cuda_ms(torch, lambda: ssd_ops.ssd_chunk(x, dt, A, Bm, Cm), reps=50)
     cells_n = Hs * nc
     # per cell: x, dt, B, C read, Y, S, a_tot written (fp32); C B^T and Y
-    # over the causal triangle, S over the whole chunk
-    ssd_bytes = cells_n * 4 * (Q * P + Q + 2 * Q * N + Q * P + N * P + 1) + Hs * 4
-    ssd_flops = cells_n * (2.0 * (Q * (Q + 1) / 2) * (N + P) + 2.0 * Q * N * P)
-    b_ssd, by_ssd = bound_ms(ssd_bytes, ssd_flops)
-    print(f"[2 ssd_chunk] fp32 {tuple(x.shape)}: {ms_ssd:.4f} ms/call (plain "
-          f"{plain_ssd:.3f} ms), bound {b_ssd:.5f} ms by {by_ssd} on {card}")
+    # over the causal triangle, S over the whole chunk; three TF32 passes
+    tri = Q * (Q + 1) / 2
+    b_head, by_head = bound_ms(
+        cells_n * 4 * (Q * P + Q + 2 * Q * N + Q * P + N * P + 1) + Hs * 4,
+        3 * cells_n * (2.0 * tri * (N + P) + 2.0 * Q * N * P), PEAK_TF32_FLOPS)
+    print(f"[2 ssd_chunk] per head fp32 {tuple(x.shape)}: {ms_head:.4f} ms/call, bound "
+          f"{b_head:.5f} ms by {by_head} on {card}")
+    del x, dt, Bm, Cm, got
+
+    # (b) Zamba2's own layout: x, B, C as bf16 views of the conv output
+    # (B, L, H P + 2 G N) with one group, dt (B, L, H) fp32, as
+    # ops.ssd_forward passes them
+    def seq_inputs(L, H, G, P_, N_, dtype, seed):
+        r = np.random.RandomState(seed)
+        xbc = np.concatenate([r.randn(1, L, H * P_), 0.3 * r.randn(1, L, 2 * G * N_)], -1)
+        xbc = torch.from_numpy(xbc.astype(np.float32)).to(device=dev, dtype=dtype)
+        db = dt_bias[np.arange(H) % Hs]
+        dtv = np.logaddexp(0.0, r.randn(1, L, H) + db).astype(np.float32)
+        return (xbc[..., : H * P_].reshape(1, L, H, P_), torch.from_numpy(dtv).to(dev),
+                -torch.linspace(1.0, 16.0, H, device=dev), xbc[..., H * P_: H * P_ + G * N_].reshape(1, L, G, N_),
+                xbc[..., H * P_ + G * N_:].reshape(1, L, G, N_))
+
+    L = nc * Q
+    zin = seq_inputs(L, Hs, 1, P, N, torch.bfloat16, 2)
+    got = ssd_kernel.ssd_chunk_kernel(*zin, chunk=Q)
+    torch.cuda.synchronize()
+    err_ssd = max(err_ssd, ssd_check("Zamba2 layout bf16 G=1", got,
+                                     ssd_ref.chunk_seq_ref(*zin, Q)))
+    for label, (L_, H_, G_, P_, N_, Q_, dtype) in (
+        ("ragged Q=17", (17, Hs, 1, P, N, 64, torch.bfloat16)),
+        ("N=P=128 fp32", (256, 8, 1, 128, 128, 128, torch.float32)),
+        ("N=P=128 bf16", (256, 8, 1, 128, 128, 128, torch.bfloat16)),
+    ):
+        inp = seq_inputs(L_, H_, G_, P_, N_, dtype, 3)
+        got = ssd_kernel.ssd_chunk_kernel(*inp, chunk=Q_)
+        torch.cuda.synchronize()
+        err_ssd = max(err_ssd, ssd_check(label, got, ssd_ref.chunk_seq_ref(*inp, Q_)))
+    del got, inp
+    ms_ssd = cuda_ms(torch, lambda: ssd_kernel.ssd_chunk_kernel(*zin, chunk=Q), reps=50)
+    plain_ssd = cuda_ms(torch, lambda: ssd_ref.chunk_seq_ref(*zin, Q), reps=10)
+    # x, B, C (bf16, B and C once for the group) and dt read; Y, S, a_tot
+    # written (fp32); C B^T once per chunk, Y and S per head, three passes
+    # (the kernel forms C B^T per head: the bound counts the work needed)
+    ssd_bytes = (L * Hs * P * 2 + L * 2 * N * 2 + L * Hs * 4
+                 + 4 * (L * Hs * P + nc * Hs * N * P + nc * Hs) + Hs * 4)
+    ssd_flops = 3 * (nc * 2.0 * tri * N + cells_n * (2.0 * tri * P + 2.0 * Q * N * P))
+    b_ssd, by_ssd = bound_ms(ssd_bytes, ssd_flops, PEAK_TF32_FLOPS)
+    print(f"[2 ssd_chunk] Zamba2 layout bf16 (1, {L}, {Hs}, {P}), G=1: {ms_ssd:.4f} ms/call "
+          f"(plain {plain_ssd:.3f} ms), bound {b_ssd:.5f} ms by {by_ssd} "
+          f"({ssd_bytes / 1e6:.2f} MB, {ssd_flops / 1e9:.2f} GFLOP TF32) on {card}")
+    del zin
     return dict(
         flash=dict(max_abs_err=err_flash, ms=ms_flash, plain_ms=plain_flash,
                    bound_ms=b_flash, bound_by=by_flash, library_ms=lib_flash),
@@ -343,8 +400,9 @@ def serve_main_path(torch, dev, card: str):
         for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
             dms = e.self_device_time_total / 1e3
             print(f"[5 profile]   {dms:8.3f} ms {dms / busy_ms:6.1%}  x{e.count:<5d} {e.key[:80]}")
-        copies = sum(e.count for e in prof.key_averages() if e.key == "aten::copy_")
-        print(f"[5 profile]   aten::copy_ calls: {copies}")
+        copy_ev = [e for e in prof.key_averages() if e.key == "aten::copy_"]
+        print(f"[5 profile]   aten::copy_ calls: {sum(e.count for e in copy_ev)}, device "
+              f"{sum(e.device_time_total for e in copy_ev) / 1e3:.3f} ms")
         for name in ("flash_fwd", "ssd_chunk_kernel"):
             dms = sum(e.self_device_time_total for e in events if name in e.key) / 1e3
             print(f"[5 profile]   {name}: {dms:.3f} ms = {dms / busy_ms:.1%} of device time")
@@ -499,31 +557,69 @@ def main() -> int:
           f"bound {b_round:.4f} ms by {by_round} ({uniq} distinct rows, "
           f"{flops_round / 1e9:.2f} GFLOP) on {card}")
 
-    cb = coords[:, :BLOCK].contiguous()
-    xb = gather_rows(x, cb).contiguous()
-    at0 = torch.gather(alpha, 1, cb).contiguous()
-    yb = torch.gather(y, 1, cb).contiguous()
-    cb32 = cb.to(torch.int32)
+    # K2 at the MNIST width (the first block of the round above) and at
+    # Synthetic-1's shape (m = 16, d = 100: the second path's, phase 4),
+    # there once with the draws of a round and once with duplicates forced
+    syn = synthetic(1, seed=0)
+    sx, sy = syn.train.x.to(dev), syn.train.y.to(dev)
+    m4, n4, d4 = sx.shape
+    rs4 = np.random.RandomState(4)
+    s_alpha = torch.from_numpy(0.5 * rs4.rand(m4, n4).astype(np.float32)).to(dev) * sy
+    s_w = torch.from_numpy(0.05 * rs4.randn(m4, d4).astype(np.float32)).to(dev)
+    s_r = torch.from_numpy(0.1 * rs4.randn(m4, d4).astype(np.float32)).to(dev)
+    s_kappa = kappa_of(1.0, 1e-3, syn.train.n.to(dev), torch.full((m4,), 1.0 / m4, device=dev))
+    s_cb = torch.from_numpy(np.stack([rs4.randint(0, int(syn.train.n[t]), size=BLOCK)
+                                      for t in range(m4)])).to(dev)
+    s_cb_dup = s_cb.clone()
+    s_cb_dup[:, 5] = s_cb_dup[:, 0]
+    s_cb_dup[:, BLOCK - 1] = s_cb_dup[:, 0]
+
+    def block_inputs(x_, alpha_, y_, w_, r_, cb_, kappa_):
+        cb_ = cb_.contiguous()
+        return (gather_rows(x_, cb_).contiguous(), w_, r_, torch.gather(alpha_, 1, cb_),
+                torch.gather(y_, 1, cb_), cb_.to(torch.int32), kappa_), cb_
+
+    shapes = {
+        "MNIST": block_inputs(x, alpha, y, w, r_state, coords[:, :BLOCK], kappa),
+        "Synthetic-1": block_inputs(sx, s_alpha, sy, s_w, s_r, s_cb, s_kappa),
+        "Synthetic-1 duplicates": block_inputs(sx, s_alpha, sy, s_w, s_r, s_cb_dup, s_kappa),
+    }
     err_block = 0.0
-    for loss in LOSSES:
-        d_k = sdca_block_kernel(xb, w, r_state, at0, yb, cb32, kappa, loss)
-        torch.cuda.synchronize()
-        d_p = ref.sdca_block_ref(xb, w, r_state, at0, yb, cb, kappa, loss)
-        e = (d_k - d_p).abs().max().item()
-        print(f"[2 sdca_block {loss}] max|deltas - plain| = {e:.3e} "
-              f"(tolerance {TOL_BLOCK:.0e})")
-        check(e <= TOL_BLOCK, f"sdca_block {loss} disagrees with its plain version")
-        err_block = max(err_block, e)
-    ms_block = cuda_ms(torch, lambda: sdca_block_kernel(
-        xb, w, r_state, at0, yb, cb32, kappa, "hinge"), reps=50)
-    plain_block = cuda_ms(torch, lambda: ref.sdca_block_ref(
-        xb, w, r_state, at0, yb, cb, kappa, "hinge"), reps=5)
-    block_bytes = M * BLOCK * D * 4 + 2 * M * D * 4 + 4 * M * BLOCK * 4 + M * 4
-    flops_block = 2.0 * M * (GRAM_TRI + 2 * BLOCK) * D  # q, xr, Gram triangle
-    b_block, by_block = bound_ms(block_bytes, flops_block)
-    print(f"[2 sdca_block] {ms_block:.4f} ms/call (plain {plain_block:.2f} ms), "
-          f"bound {b_block:.5f} ms by {by_block} on {card}")
-    del alpha, w, u, r_state, xb
+    for label, (args, cb_) in shapes.items():
+        for loss in LOSSES:
+            d_k = sdca_block_kernel(*args, loss)
+            torch.cuda.synchronize()
+            d_p = ref.sdca_block_ref(*args[:5], cb_, args[6], loss)
+            e = (d_k - d_p).abs().max().item()
+            print(f"[2 sdca_block {label} {loss}] max|deltas - plain| = {e:.3e} "
+                  f"(tolerance {TOL_BLOCK:.0e})")
+            check(bool(torch.isfinite(d_k).all()), f"sdca_block {label} {loss}: non-finite")
+            check(e <= TOL_BLOCK, f"sdca_block {label} {loss} disagrees with its plain version")
+            err_block = max(err_block, e)
+    # latency floor of the recursion: BLOCK dependent steps at 60-100 cycles
+    floor_block = [BLOCK * cyc / (float(sm_clock) * 1e6) * 1e3 for cyc in (60, 100)]
+    block_times = {}
+    for label in ("MNIST", "Synthetic-1"):
+        args, cb_ = shapes[label]
+        mm, _, dd = args[0].shape
+        by_c = {c: cuda_ms(torch, lambda c=c: sdca_block_kernel(*args, "hinge", cluster=c),
+                           reps=50) for c in sdca_kernel.SUPPORTED_BLOCK_CLUSTERS}
+        ms_b = cuda_ms(torch, lambda: sdca_block_kernel(*args, "hinge"), reps=50)
+        plain_b = cuda_ms(torch, lambda: ref.sdca_block_ref(*args[:5], cb_, args[6], "hinge"),
+                          reps=5)
+        nbytes = mm * BLOCK * dd * 4 + 2 * mm * dd * 4 + 4 * mm * BLOCK * 4 + mm * 4
+        flops = 2.0 * mm * (GRAM_TRI + 2 * BLOCK) * dd  # q, xr, Gram triangle
+        b_b, by_b = bound_ms(nbytes, flops)
+        block_times[label] = (ms_b, plain_b, b_b, by_b)
+        print(f"[2 sdca_block {label}] (m={mm}, d={dd}, B={BLOCK}): {ms_b:.4f} ms/call at "
+              f"cluster {sdca_kernel.block_cluster(dd)} (plain {plain_b:.2f} ms); by cluster: "
+              + ", ".join(f"C={c} {t:.4f} ms" for c, t in by_c.items())
+              + f"; bound {b_b:.5f} ms by {by_b}; chain floor {floor_block[0] * 1e3:.2f}-"
+              f"{floor_block[1] * 1e3:.2f} us ({BLOCK} steps x 60-100 cycles at {sm_clock} "
+              f"MHz) on {card}")
+    ms_block, plain_block, b_block, by_block = block_times["Synthetic-1"]
+    del shapes, sx, sy, s_alpha, s_w, s_r
+    del alpha, w, u, r_state
     lm = lm_kernel_checks(torch, dev, card)
 
     # -- phase 3: the main path at MNIST width -------------------------------
@@ -584,7 +680,6 @@ def main() -> int:
                   f"ms/round  x{e.count / n_rounds:g}  {e.key[:90]}")
 
     # -- phase 4: the per-block kernel on Synthetic-1 --------------------------
-    syn = synthetic(1, seed=0)
     cfg4 = dict(loss="hinge", lam=1e-3, outer_iters=2, rounds=5, local_iters=0,
                 block_size=BLOCK)
     fits = {}

@@ -101,14 +101,17 @@ def raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
 
 
-def check_tensor(name: str, t, shape, dtype, device) -> None:
-    """Raise unless ``t`` has the device, dtype, shape and row-major layout
-    a kernel takes."""
+def check_tensor(name: str, t, shape, dtype, device, layout: str = "dense") -> None:
+    """Raise unless ``t`` has the device, dtype and shape a kernel takes, and
+    its layout: "dense" (row-major), "rows" (the last dimension contiguous,
+    for a kernel that takes the other strides) or "any" (every stride)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
+    if layout == "dense" and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if layout == "rows" and t.stride(-1) != 1:
+        raise ValueError(f"{name}'s last dimension must be contiguous")

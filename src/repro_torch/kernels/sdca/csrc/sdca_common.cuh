@@ -1,12 +1,18 @@
-// Shared pieces of the two Hopper SDCA kernels: the closed-form coordinate
-// deltas and a warp sum (sdca_round.cu and sdca_block.cu), and, for
-// sdca_block.cu, the block-Gram accumulation over d-tiles and the
-// single-warp, left-looking B-step recursion.
+// Shared pieces of the two Hopper SDCA kernels (sdca_round.cu and
+// sdca_block.cu): the closed-form coordinate deltas with their divisor
+// inverted off the chain, the cp.async helpers, a warp sum, and the
+// right-looking B-step recursion both kernels run on one warp.
 //
-// The block kernel stages what the recursion reads (alpha~ at block start,
-// the labels, the coordinate ids) in shared memory first, so the B
-// sequential steps touch no device memory; a coordinate drawn twice in a
-// block finds its earlier deltas through the equality mask cb == cb[k].
+// The recursion is right-looking: lane i keeps, for its rows, the running
+// xr_i + sum_{j<k} G[i][j] delta_j and the sum of earlier deltas drawn at
+// the same coordinate. At step k every lane evaluates the closed-form delta
+// of its own row, one shuffle broadcasts row k's, and every lane adds
+// G[k][i] delta_k and (cb_i == cb_k) delta_k to its rows (G is symmetric,
+// so the row read is a conflict-free column read). The steps are unrolled
+// and branch-free, the loss is a template parameter, and the delta's
+// divisor (kappa G[k][k] plus the loss's constant, known at block start) is
+// inverted per row before the chain, so no division sits on it (a rounding
+// of about one ulp against the quotient).
 //
 // Arithmetic is float32 throughout, as in the TPU kernels
 // (repro/kernels/sdca/sdca_kernel.py). Sums run in another order than on
@@ -18,8 +24,7 @@
 
 namespace sdca {
 
-constexpr int kThreads = 256;  // 16 x 16 threads tile the B x B Gram
-constexpr int kTile = 64;      // d-columns of the gathered rows staged at once
+constexpr int kThreads = 256;
 constexpr float kEps = 1e-12f;
 constexpr float kGamma = 0.5f;  // smoothed-hinge knee (core/losses.py)
 
@@ -29,86 +34,43 @@ __device__ __forceinline__ float clip01(float v) {
   return fminf(fmaxf(v, 0.f), 1.f);
 }
 
+// The divisor of the closed-form delta, inverted: a = kappa G[k][k]
+template <int LOSS>
+__device__ __forceinline__ float recip_of(float a) {
+  if (LOSS == kHinge) return 1.f / fmaxf(a, kEps);
+  if (LOSS == kSquared) return 1.f / (1.f + a);
+  return 1.f / (kGamma + a);
+}
+
 // argmax over delta of -l*(-(atilde + delta)) - c delta - a/2 delta^2
-// (repro/kernels/sdca/sdca_kernel.py:56-76).
-__device__ __forceinline__ float delta_of(int loss, float atilde, float c,
-                                          float a, float y) {
-  if (loss == kHinge) {
-    a = fmaxf(a, kEps);
-    return y * clip01(y * (atilde + (y - c) / a)) - atilde;
-  }
-  if (loss == kSquared) return (y - c - atilde) / (1.f + a);
-  const float anew_u = atilde + (y - c - kGamma * atilde) / (kGamma + a);
+// (repro/kernels/sdca/sdca_kernel.py:56-76), with inv = recip_of(a)
+template <int LOSS>
+__device__ __forceinline__ float delta_of_recip(float atilde, float c, float inv, float y) {
+  if (LOSS == kHinge) return y * clip01(y * (atilde + (y - c) * inv)) - atilde;
+  if (LOSS == kSquared) return (y - c - atilde) * inv;
+  const float anew_u = atilde + (y - c - kGamma * atilde) * inv;
   return y * clip01(y * anew_u) - atilde;
 }
 
-// Shared memory of one block of B gathered rows.
-template <int B>
-struct BlockSmem {
-  float xs[B][kTile + 1];  // one d-tile of the rows (+1: no bank conflicts)
-  float ws[kTile], rs[kTile];  // the same tile of w and r
-  float G[B][B];
-  float q[B], xr[B], deltas[B];
-  float at0[B], yb[B];  // alpha~ at block start and label of row k
-  int64_t rowoff[B];    // element offset of row k from the data base pointer
-  int cb[B];            // coordinate id of row k
-};
-
-// q = X_b w, xr = X_b r and G = X_b X_b^T for the B rows at s.rowoff,
-// accumulated over d in tiles of kTile columns. Thread (ti, tj) of the
-// 16 x 16 grid owns G[ti + 16 a][tj + 16 b] for a, b < B/16, so each tile
-// column costs it 2 B/16 shared loads for (B/16)^2 FMAs.
-template <int B>
-__device__ void block_gram(const float* __restrict__ x, const float* w,
-                           const float* r, int d, BlockSmem<B>& s) {
-  constexpr int RT = B / 16;
-  const int tid = threadIdx.x;
-  const int ti = tid / 16, tj = tid % 16;
-  float g[RT][RT];
-#pragma unroll
-  for (int a = 0; a < RT; ++a)
-#pragma unroll
-    for (int b = 0; b < RT; ++b) g[a][b] = 0.f;
-  float acc = 0.f;  // q[tid] for tid < B, xr[tid - B] for B <= tid < 2B
-
-  for (int d0 = 0; d0 < d; d0 += kTile) {
-#pragma unroll
-    for (int i = 0; i < B * kTile / kThreads; ++i) {  // loads all in flight
-      const int e = tid + i * kThreads;
-      const int k = e / kTile, c = e % kTile;
-      s.xs[k][c] = d0 + c < d ? x[s.rowoff[k] + d0 + c] : 0.f;
-    }
-    if (tid < kTile) {
-      s.ws[tid] = d0 + tid < d ? w[d0 + tid] : 0.f;
-      s.rs[tid] = d0 + tid < d ? r[d0 + tid] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      float xa[RT], xb[RT];
-#pragma unroll
-      for (int a = 0; a < RT; ++a) xa[a] = s.xs[ti + 16 * a][c];
-#pragma unroll
-      for (int b = 0; b < RT; ++b) xb[b] = s.xs[tj + 16 * b][c];
-#pragma unroll
-      for (int a = 0; a < RT; ++a)
-#pragma unroll
-        for (int b = 0; b < RT; ++b) g[a][b] = fmaf(xa[a], xb[b], g[a][b]);
-    }
-    if (tid < 2 * B) {
-      const int k = tid % B;
-      const float* v = tid < B ? s.ws : s.rs;
-      for (int c = 0; c < kTile; ++c) acc = fmaf(s.xs[k][c], v[c], acc);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int a = 0; a < RT; ++a)
-#pragma unroll
-    for (int b = 0; b < RT; ++b) s.G[ti + 16 * a][tj + 16 * b] = g[a][b];
-  if (tid < B) s.q[tid] = acc;
-  else if (tid < 2 * B) s.xr[tid - B] = acc;
-  __syncthreads();
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_one() {  // all but the newest group
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -117,29 +79,59 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// deltas[k] for k = 0..B-1 in order, on the Gram block in shared memory:
-//   c_k = q_k + kappa (xr_k + G[k, :k] . deltas[:k]),  a_k = kappa G[k, k],
-//   alpha~_k = at0_k + sum of deltas[:k] drawn at the same coordinate.
-// Run by warp 0 alone; lane 0 is the single writer of deltas.
+// The rows one lane of the recursion warp owns: i = lane + 32 s (lanes
+// past B repeat row B-1 and write nothing).
 template <int B>
-__device__ void block_recursion(BlockSmem<B>& s, float kappa, int loss) {
-  const int lane = threadIdx.x;
-  for (int k = 0; k < B; ++k) {
-    const int ck = s.cb[k];
-    float part = 0.f, dup = 0.f;
-    for (int j = lane; j < k; j += 32) {  // deltas[k:] are not yet set
-      part = fmaf(s.G[k][j], s.deltas[j], part);
-      if (s.cb[j] == ck) dup += s.deltas[j];
-    }
-    part = warp_sum(part);
-    dup = warp_sum(dup);
-    if (lane == 0) {
-      const float c = s.q[k] + kappa * (s.xr[k] + part);
-      const float a = kappa * s.G[k][k];
-      s.deltas[k] = delta_of(loss, s.at0[k] + dup, c, a, s.yb[k]);
-    }
-    __syncwarp();
+struct ChainRows {
+  static constexpr int NR = (B + 31) / 32;
+  float acc[NR];    // in: xr_i; then xr_i + sum_{j<k} G[i][j] delta_j
+  float q[NR];      // q_i
+  float at[NR];     // alpha~_i at block start
+  float y[NR];      // label of row i
+  float inv[NR];    // recip_of(kappa G[i][i])
+  int cb[NR];       // coordinate of row i
+  float dup[NR];    // out: the block's deltas drawn at row i's coordinate
+  float delta[NR];  // out: delta_i
+  bool first[NR];   // out: no earlier row of the block drew row i's coordinate
+};
+
+// The B steps on warp-wide rows r: c_k = q_k + kappa acc_k, alpha~_k = at_k
+// + dup_k, delta_k = delta_of_recip(...). G is the block's B x B Gram and
+// cb its coordinates, both in shared memory. Fully unrolled, so the G row
+// loads run ahead of the chain; every lane evaluates the delta of its own
+// row and the owner's value is taken, so no step branches.
+template <int B, int LOSS>
+__device__ __forceinline__ void right_looking(ChainRows<B>& r, const float* G, const int* cb,
+                                              float kap) {
+  constexpr int NR = ChainRows<B>::NR;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int s = 0; s < NR; ++s) {
+    r.dup[s] = 0.f;
+    r.delta[s] = 0.f;
+    r.first[s] = lane + 32 * s < B;
   }
+#pragma unroll
+  for (int s = 0; s < NR; ++s)
+#pragma unroll
+    for (int kk = 0; kk < 32 && 32 * s + kk < B; ++kk) {
+      const int k = 32 * s + kk;
+      const float dl =
+          delta_of_recip<LOSS>(r.at[s] + r.dup[s], r.q[s] + kap * r.acc[s], r.inv[s], r.y[s]);
+      const float dk = __shfl_sync(0xffffffffu, dl, kk);
+      if (lane == kk) r.delta[s] = dk;
+      const int ck = cb[k];
+      const float* Gk = G + k * B;
+#pragma unroll
+      for (int s2 = 0; s2 < NR; ++s2) {
+        const int i = min(lane + 32 * s2, B - 1);
+        r.acc[s2] = fmaf(Gk[i], dk, r.acc[s2]);
+        if (r.cb[s2] == ck) {
+          r.dup[s2] += dk;
+          if (k < lane + 32 * s2) r.first[s2] = false;
+        }
+      }
+    }
 }
 
 }  // namespace sdca

@@ -40,18 +40,10 @@
 //   The partials and alpha~ are double-buffered by block parity, so one
 //   cluster barrier per block orders every exchange.
 //
-// The recursion is right-looking: lane i keeps, for its rows, the running
-// xr_i + sum_{j<k} G[i][j] delta_j and the sum of earlier deltas drawn at
-// the same coordinate. At step k every lane evaluates the closed-form delta
-// of its own row, one shuffle broadcasts row k's, and every lane adds
-// G[k][i] delta_k and (cb_i == cb_k) delta_k to its rows (G is symmetric,
-// so the row read is a conflict-free column read). That replaces the two
-// warp reductions per step of the left-looking form (sdca_common.cuh,
-// which K2 keeps). The steps are unrolled and branch-free, the loss is a
-// template parameter, and the delta's divisor (kappa G[k][k] plus the
-// loss's constant, known at block start) is inverted per row before the
-// chain, so no division sits on it (a rounding of about one ulp against
-// the quotient).
+// The recursion is the right-looking one of sdca_common.cuh (shared with
+// the block kernel): one closed-form delta per lane, one shuffle and one
+// FMA per step, unrolled and branch-free, the divisor inverted before the
+// chain; its running duplicate sums double as the scatter's totals.
 //
 // Cluster size: C = 4 by default, chosen by measurement (chip_smoke.py
 // phase 2 times C = 4 and 8 at MNIST width). C = 2 does not fit d = 784 in
@@ -77,24 +69,6 @@ constexpr int kGramTile = 32;  // d-columns of the gathered rows per stage-1 til
 template <int B>
 __host__ __device__ constexpr int scratch_floats() {
   return B * B + 4 * B;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Element e of a stage-1 tile (B rows x kGramTile columns): each quarter
@@ -218,23 +192,6 @@ gram_kernel(const float* __restrict__ x,      // (m, n_max, d)
 // ---------------------------------------------------------------------------
 // stage 2: the chain, one cluster per task
 // ---------------------------------------------------------------------------
-// delta_of (sdca_common.cuh) with its divisor's reciprocal taken per row
-// before the chain (a_k is known at block start): the division leaves the
-// dependent chain, at a rounding of about one ulp against the quotient
-template <int LOSS>
-__device__ __forceinline__ float recip_of(float a) {
-  if (LOSS == kHinge) return 1.f / fmaxf(a, kEps);
-  if (LOSS == kSquared) return 1.f / (1.f + a);
-  return 1.f / (kGamma + a);
-}
-template <int LOSS>
-__device__ __forceinline__ float delta_of_recip(float atilde, float c, float inv, float y) {
-  if (LOSS == kHinge) return y * clip01(y * (atilde + (y - c) * inv)) - atilde;
-  if (LOSS == kSquared) return (y - c - atilde) * inv;
-  const float anew_u = atilde + (y - c - kGamma * atilde) * inv;
-  return y * clip01(y * anew_u) - atilde;
-}
-
 template <int B>
 struct ChainSmem {
   // float offsets into the dynamic shared memory of one CTA
@@ -308,7 +265,7 @@ chain_kernel(const float* __restrict__ x,        // (m, n_max, d)
              float* __restrict__ r_out,          // (m, d): r in, r out
              int n_max, int d, int nbg, int dcp, int vec) {
   constexpr int SF = scratch_floats<B>();
-  constexpr int NR = (B + 31) / 32;  // recursion rows per lane
+  constexpr int NR = ChainRows<B>::NR;  // recursion rows per lane
   constexpr int RPW = B / 8;         // xr rows per warp
   extern __shared__ __align__(16) float dyn[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -356,58 +313,31 @@ chain_kernel(const float* __restrict__ x,        // (m, n_max, d)
 
     if (warp == 0) {
       // 3. the recursion, on every CTA of the cluster
-      float acc[NR], dup[NR], qv[NR], at[NR], yv[NR], av[NR], mine[NR];
-      int cbv[NR];
-      bool first[NR];  // no earlier row of the block drew the same coordinate
+      ChainRows<B> rr;
       const float* at0 = cluster.map_shared_rank(dyn + L.at0, 0) + buf * B;
 #pragma unroll
       for (int s = 0; s < NR; ++s) {
         const int i = min(lane + 32 * s, B - 1);
         float xr = 0.f;
         for (int qr = 0; qr < C; ++qr) xr += cluster.map_shared_rank(dyn + L.xr, qr)[buf * B + i];
-        acc[s] = xr;
-        dup[s] = 0.f;
-        qv[s] = blk[B * B + i];
-        yv[s] = blk[B * B + B + i];
-        at[s] = at0[i];
-        av[s] = recip_of<LOSS>(kap * G[i * B + i]);
-        cbv[s] = cb[i];
-        first[s] = lane + 32 * s < B;
-        mine[s] = 0.f;
+        rr.acc[s] = xr;
+        rr.q[s] = blk[B * B + i];
+        rr.y[s] = blk[B * B + B + i];
+        rr.at[s] = at0[i];
+        rr.inv[s] = recip_of<LOSS>(kap * G[i * B + i]);
+        rr.cb[s] = cb[i];
       }
-      // fully unrolled, so the G row loads run ahead of the chain; every lane
-      // evaluates delta_of for its own row and the owner's value is taken,
-      // so no step branches
+      right_looking<B, LOSS>(rr, G, cb, kap);
 #pragma unroll
       for (int s = 0; s < NR; ++s)
-#pragma unroll
-        for (int kk = 0; kk < 32 && 32 * s + kk < B; ++kk) {
-          const int k = 32 * s + kk;
-          const float dl = delta_of_recip<LOSS>(at[s] + dup[s], qv[s] + kap * acc[s], av[s], yv[s]);
-          const float dk = __shfl_sync(0xffffffffu, dl, kk);
-          if (lane == kk) mine[s] = dk;
-          const int ck = cb[k];
-          const float* Gk = G + k * B;
-#pragma unroll
-          for (int s2 = 0; s2 < NR; ++s2) {
-            const int i = min(lane + 32 * s2, B - 1);
-            acc[s2] = fmaf(Gk[i], dk, acc[s2]);
-            if (cbv[s2] == ck) {
-              dup[s2] += dk;
-              if (k < lane + 32 * s2) first[s2] = false;
-            }
-          }
-        }
-#pragma unroll
-      for (int s = 0; s < NR; ++s)
-        if (lane + 32 * s < B) deltas[lane + 32 * s] = mine[s];
+        if (lane + 32 * s < B) deltas[lane + 32 * s] = rr.delta[s];
       // 4a. rank 0 scatters: the first row of each coordinate writes dalpha
       // at block start plus every delta of the block drawn there, summed in
       // draw order (dup now holds all of them)
       if (rank == 0) {
 #pragma unroll
         for (int s = 0; s < NR; ++s)
-          if (first[s]) dat[cbv[s]] = dyn[L.dstart + buf * B + lane + 32 * s] + dup[s];
+          if (rr.first[s]) dat[rr.cb[s]] = dyn[L.dstart + buf * B + lane + 32 * s] + rr.dup[s];
       }
     } else if (bi + 1 < nbg) {
       prefetch_block<B>(x, scratch, dyn, L, t, bi + 1, buf ^ 1, n_max, d, nbg, c0, dc, dcp, vec);

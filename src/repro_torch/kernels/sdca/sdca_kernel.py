@@ -8,7 +8,8 @@ Two kernels, each the port of one TPU kernel of
     whole card, stage 2 runs each task's chain of blocks on a cluster of
     CTAs; replaces ``sdca_round_kernel``.
 ``sdca_block_kernel`` — csrc/sdca_block.cu: the deltas of one H-block for
-    all m tasks in one launch; replaces ``sdca_block_kernel``.
+    all m tasks in one launch, a cluster of CTAs per task splitting d;
+    replaces ``sdca_block_kernel``.
 
 Each ``.cu`` file has a plain C interface and is compiled on first use by
 ``repro_torch.kernels.nvcc`` (nvcc into ``build/``, bound with ctypes).
@@ -20,7 +21,7 @@ a CUDA error, and only then adds one to its ``launches`` count.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -30,6 +31,12 @@ SUPPORTED_LOSSES = ("hinge", "squared", "smoothed_hinge")
 SUPPORTED_BLOCKS = (16, 32, 64)
 SUPPORTED_CLUSTERS = (2, 4, 8)
 CLUSTER = 4  # CTAs per task in stage 2 (chosen by measurement, see the source)
+# the block kernel's cluster sizes, and the narrowest column slab its
+# default cluster gives one CTA (chosen by measurement, chip_smoke.py phase
+# 2: at d = 100 four CTAs of 25 columns beat one, two and eight; at d = 784
+# eight of 98 beat fewer)
+SUPPORTED_BLOCK_CLUSTERS = (1, 2, 4, 8)
+BLOCK_SLAB_MIN_COLS = 24
 # scratch of stage 1 (every block's Gram, q and metadata); a round with more
 # blocks than this holds runs in groups of blocks
 SCRATCH_CAP_BYTES = 256 << 20
@@ -40,7 +47,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "sdca_round.cu", CSRC / "sdca_block.cu")
 _ARGTYPES = {
     "sdca_round": [VP] * 10 + [INT] * 9 + [VP],
-    "sdca_block": [VP] * 8 + [INT] * 4 + [VP],
+    "sdca_block": [VP] * 8 + [INT] * 5 + [VP],
 }
 
 
@@ -166,10 +173,15 @@ def sdca_block_kernel(
     cb: torch.Tensor,  # (m, B) int32 coordinate ids
     kappa: torch.Tensor,  # (m,)
     loss: str,
+    cluster: Optional[int] = None,
 ) -> torch.Tensor:
-    """Deltas (m, B) of one H-block for every task."""
+    """Deltas (m, B) of one H-block for every task. ``cluster``: CTAs per
+    task, each taking a slab of d (default: ``block_cluster(d)``)."""
     m, B, d = xb.shape
     _setup(loss, B, xb)
+    cluster = block_cluster(d) if cluster is None else cluster
+    if cluster not in SUPPORTED_BLOCK_CLUSTERS:
+        raise ValueError(f"kernel supports clusters of {SUPPORTED_BLOCK_CLUSTERS}, got {cluster}")
     f32, dev = torch.float32, xb.device
     for name, t, shape, dt in (
         ("xb", xb, (m, B, d), f32), ("w", w, (m, d), f32), ("r", r, (m, d), f32),
@@ -181,11 +193,19 @@ def sdca_block_kernel(
     err = _lib("sdca_block")(
         xb.data_ptr(), w.data_ptr(), r.data_ptr(), at0.data_ptr(),
         y.data_ptr(), cb.data_ptr(), kappa.data_ptr(), deltas.data_ptr(),
-        m, B, d, _LOSS_IDS[loss], torch.cuda.current_stream(dev).cuda_stream,
+        m, B, d, _LOSS_IDS[loss], cluster, torch.cuda.current_stream(dev).cuda_stream,
     )
     raise_on(err, "sdca_block")
     sdca_block_kernel.launches += 1
     return deltas
+
+
+def block_cluster(d: int) -> int:
+    """The block kernel's default cluster: the most CTAs per task whose
+    column slabs still hold ``BLOCK_SLAB_MIN_COLS`` columns (one CTA below
+    that width)."""
+    fits = [c for c in SUPPORTED_BLOCK_CLUSTERS if -(-d // c) >= BLOCK_SLAB_MIN_COLS]
+    return max(fits, default=1)
 
 
 sdca_round_kernel.launches = 0

@@ -2,13 +2,17 @@
 
 ``naive_recurrence``: the literal s_t = a_t s_{t-1} + u_t (x) B_t
 recurrence, the ground truth for the chunk kernel and ``models.ssm``.
-``chunk_ref``: exactly what the chunk kernel computes per cell.
+``chunk_ref``: the chunk-local function per (batch, head, chunk) cell, in
+the JAX kernel's chunked layout. ``chunk_seq_ref``: the same in the Hopper
+kernel's layout (sequence-major inputs, B and C per group), what the
+kernel computes.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 Tensor = torch.Tensor
 
@@ -55,3 +59,33 @@ def chunk_ref(
     S = torch.einsum("bhcqn,bhcqp->bhcnp", Bm * decay_end[..., None], u)
     a_tot = torch.exp(cum[..., -1])
     return Y, S, a_tot
+
+
+def chunk_seq_ref(
+    x: Tensor,  # (B, L, H, P)
+    dt: Tensor,  # (B, L, H)
+    A: Tensor,  # (H,)
+    Bm: Tensor,  # (B, L, G, N), G divides H
+    Cm: Tensor,
+    chunk: int,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """(Y_intra (B,L,H,P), S_local (B,nc,H,N,P), a_tot (B,nc,H)) in fp32 over
+    chunks of Q = min(chunk, L); the last chunk is zero-padded."""
+    B_, L, H, P = x.shape
+    G = Bm.shape[2]
+    Q = min(chunk, L)
+    nc = -(-L // Q)
+    pad = nc * Q - L
+
+    def to_chunks(a, heads):  # (B, L, heads, ...) -> (B, H, nc, Q, ...)
+        a = F.pad(a.float(), (0, 0) * (a.dim() - 2) + (0, pad))
+        if heads != H:
+            a = torch.repeat_interleave(a, H // heads, dim=2)
+        return a.reshape((B_, nc, Q) + tuple(a.shape[2:])).movedim(3, 1)
+
+    Y, S, a_tot = chunk_ref(
+        to_chunks(x, H), to_chunks(dt[..., None], H)[..., 0], A.float(),
+        to_chunks(Bm, G), to_chunks(Cm, G),
+    )
+    Y = Y.movedim(1, 3).reshape(B_, nc * Q, H, P)[:, :L]
+    return Y, S.transpose(1, 2), a_tot.transpose(1, 2)

@@ -76,14 +76,6 @@ def _causal_conv(xbc: Tensor, w: Tensor, b: Tensor) -> Tensor:
     return F.silu(out + b)
 
 
-def _broadcast_groups(bc: Tensor, cfg: ModelConfig) -> Tensor:
-    """(B, L, G, N) -> (B, L, H, N)."""
-    h, g = cfg.ssm_heads, cfg.ssm_groups
-    if g == h:
-        return bc
-    return torch.repeat_interleave(bc, h // g, dim=2)
-
-
 def ssd_chunked(
     x: Tensor,  # (B, L, H, P) fp32
     dt: Tensor,  # (B, L, H)    fp32 (post-softplus)
@@ -144,15 +136,16 @@ def ssm_block_train(
 
     z, xbc, dt_raw = _project(x, p, cfg)
     xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
-    xs = xbc[..., :di].float().reshape(B, L, h, P)
-    Bm = xbc[..., di : di + g * n].float().reshape(B, L, g, n)
-    Cm = xbc[..., di + g * n :].float().reshape(B, L, g, n)
-    Bm, Cm = _broadcast_groups(Bm, cfg), _broadcast_groups(Cm, cfg)
+    # views of xbc in the model's dtype, B and C per group: the chunk kernel
+    # reads them in place and widens them to fp32 itself
+    xs = xbc[..., :di].reshape(B, L, h, P)
+    Bm = xbc[..., di : di + g * n].reshape(B, L, g, n)
+    Cm = xbc[..., di + g * n :].reshape(B, L, g, n)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
 
     Y, state = ssd_forward(xs, dt, A, Bm, Cm, cfg.ssm_chunk)
-    Y = Y + xs * p["D"][None, None, :, None]
+    Y = Y + xs * p["D"][None, None, :, None]  # fp32: D is fp32
     y = Y.reshape(B, L, di).to(x.dtype)
     y = gated_rms_norm(y, z, p["norm"], cfg.norm_eps)
     out = y @ p["out_proj"]

@@ -7,7 +7,10 @@ tests/test_solver_backends.py, atol 2e-5 (that file's bar).
 
 Also on the CPU: a plain emulation of the round kernel's staged algorithm
 (every block's Gram and q first, then the right-looking chain with alpha~
-carried across blocks) against the JAX ``sdca_round_kernel``, atol 2e-5.
+carried across blocks) against the JAX ``sdca_round_kernel``, atol 2e-5;
+and a float32 emulation of the block kernel's (Gram, q and xr summed over
+column slabs in rank order, the right-looking recursion with each row's
+divisor inverted first) against the JAX ``sdca_block_kernel``, atol 2e-5.
 
 On a CUDA card (marker ``gpu``; they skip here): each Hopper kernel against
 its plain version. This module imports no JAX at top level so that the
@@ -153,6 +156,83 @@ def test_sdca_block_plain_matches_jax(loss, n, d, H, block, dup):
             jnp.float32(kappa[t]), loss,
         )
         np.testing.assert_allclose(deltas[t].numpy(), np.asarray(d_j), atol=ATOL)
+
+
+def _delta_recip(loss, atilde, c, inv, y):
+    """sdca_common.cuh's delta_of_recip: the closed-form delta with the
+    divisor's reciprocal taken before the chain."""
+    if loss == "hinge":
+        return y * torch.clamp(y * (atilde + (y - c) * inv), 0.0, 1.0) - atilde
+    if loss == "squared":
+        return (y - c - atilde) * inv
+    anew_u = atilde + (y - c - 0.5 * atilde) * inv
+    return y * torch.clamp(y * anew_u, 0.0, 1.0) - atilde
+
+
+def _recip(loss, a):
+    if loss == "hinge":
+        return 1.0 / torch.clamp(a, min=1e-12)
+    return 1.0 / ((1.0 if loss == "squared" else 0.5) + a)
+
+
+def _cluster_block(xb, w, r, at0, yb, cb, kappa, loss, cluster):
+    """The block kernel's algorithm in float32: each of ``cluster`` column
+    slabs (multiples of 4 columns) forms partial G, q and xr, summed in rank
+    order; then the right-looking recursion (each delta pushed into the
+    running c and duplicate sums of the later rows)."""
+    m, B, d = xb.shape
+    dcp = (-(-d // cluster) + 3) // 4 * 4
+    G = torch.zeros((m, B, B))
+    q = torch.zeros((m, B))
+    xr = torch.zeros((m, B))
+    for rank in range(cluster):
+        sl = slice(rank * dcp, min(d, (rank + 1) * dcp))
+        xs = xb[..., sl]
+        G = G + xs @ xs.transpose(1, 2)
+        q = q + (xs @ w[:, sl, None])[..., 0]
+        xr = xr + (xs @ r[:, sl, None])[..., 0]
+    acc = xr.clone()
+    dup = torch.zeros((m, B))
+    inv = _recip(loss, kappa[:, None] * torch.diagonal(G, dim1=1, dim2=2))
+    deltas = torch.zeros((m, B))
+    for k in range(B):
+        dk = _delta_recip(loss, at0[:, k] + dup[:, k], q[:, k] + kappa * acc[:, k],
+                          inv[:, k], yb[:, k])
+        deltas[:, k] = dk
+        acc = acc + G[:, k] * dk[:, None]
+        dup = dup + torch.where(cb == cb[:, k:k + 1], dk[:, None], 0.0)
+    return deltas
+
+
+@pytest.mark.parametrize("cluster", [1, 8])
+@pytest.mark.parametrize("dup", [False, True])
+@pytest.mark.parametrize("loss", KERNEL_LOSSES)
+@pytest.mark.parametrize("n,d,H,block", SHAPES)
+def test_cluster_block_matches_jax(loss, n, d, H, block, dup, cluster):
+    import jax.numpy as jnp
+    from repro.kernels.sdca import sdca_kernel as jkernel
+
+    m = 2
+    xb, w, r, at0, yb, cb, kappa = _block_inputs(n + d + 3, m, n, d, block, dup)
+    deltas = _cluster_block(*_t(xb, w, r, at0, yb, cb, kappa), loss, cluster)
+    for t in range(m):
+        d_j = jkernel.sdca_block_kernel(
+            jnp.asarray(xb[t]), jnp.asarray(w[t]), jnp.asarray(r[t]), jnp.asarray(at0[t]),
+            jnp.asarray(yb[t]), jnp.asarray(cb[t], jnp.int32), jnp.float32(kappa[t]), loss,
+            interpret=True,
+        )
+        np.testing.assert_allclose(deltas[t].numpy(), np.asarray(d_j), atol=ATOL)
+
+
+def test_block_cluster_rule():
+    """Slabs of at least BLOCK_SLAB_MIN_COLS columns, as many as fit: four
+    CTAs at Synthetic-1's d = 100, eight at MNIST's d = 784, one for a
+    narrow d."""
+    assert sdca_kernel.block_cluster(100) == 4
+    assert sdca_kernel.block_cluster(60) == 2
+    assert sdca_kernel.block_cluster(17) == 1
+    assert sdca_kernel.block_cluster(784) == 8
+    assert sdca_kernel.block_cluster(5000) == 8
 
 
 @pytest.mark.parametrize("loss", ["logistic", "eps_insensitive"])
@@ -337,3 +417,30 @@ def test_wrapper_raises_on_unsupported_block(cuda):
     x, y, alpha, w, u, n_i, kappa = _t(*_problem(1, 1, 40, 4, 48), device=cuda)
     with pytest.raises(ValueError, match="block sizes"):
         ops.sdca_round(x, y, alpha, w, u, n_i, kappa, "hinge", block=48)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", sdca_kernel.SUPPORTED_BLOCK_CLUSTERS)
+@pytest.mark.parametrize("dup", [False, True])
+@pytest.mark.parametrize("m", [1, 13])
+@pytest.mark.parametrize("n,d,H,block", SHAPES + [(300, 784, 64, 64), (120, 100, 64, 64)])
+def test_block_kernel_every_cluster(cuda, cluster, dup, m, n, d, H, block):
+    """Every cluster size, one task and many, d not a multiple of 4 (33,
+    17: 4-byte copies), slabs left empty (d = 17 over 8 CTAs)."""
+    xb, w, r, at0, yb, cb, kappa = _t(*_block_inputs(n + d + m, m, n, d, block, dup),
+                                      device=cuda)
+    before = sdca_kernel.sdca_block_kernel.launches
+    deltas = sdca_kernel.sdca_block_kernel(xb, w, r, at0, yb, cb.to(torch.int32), kappa,
+                                           "smoothed_hinge", cluster=cluster)
+    torch.cuda.synchronize()
+    assert sdca_kernel.sdca_block_kernel.launches == before + 1
+    d_p = ref.sdca_block_ref(xb, w, r, at0, yb, cb, kappa, "smoothed_hinge")
+    torch.testing.assert_close(deltas, d_p, atol=ATOL, rtol=0)
+
+
+@pytest.mark.gpu
+def test_block_kernel_refuses_unsupported_cluster(cuda):
+    xb, w, r, at0, yb, cb, kappa = _t(*_block_inputs(1, 1, 40, 17, 16), device=cuda)
+    with pytest.raises(ValueError, match="clusters"):
+        sdca_kernel.sdca_block_kernel(xb, w, r, at0, yb, cb.to(torch.int32), kappa, "hinge",
+                                      cluster=3)

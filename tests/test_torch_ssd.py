@@ -5,7 +5,8 @@ kernel in interpret mode, as tests/test_kernels.py runs it) and through
 the port's, whose chunk kernel runs its plain version on CPU tensors.
 Bars are those of tests/test_kernels.py: the chunk 1e-5; ``ssd_forward``
 2e-5 against the JAX ``ssd_forward`` and ``ssd_chunked``, 2e-4 against the
-naive recurrence.
+naive recurrence and for B and C per group (the JAX functions take them per
+head, so they get the groups repeated).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -87,3 +88,30 @@ def test_port_references_agree(B, L, H, P, N, chunk):
     torch.testing.assert_close(S, Sn, atol=2e-4, rtol=0)
     np.testing.assert_allclose(Yn.numpy(), np.asarray(Yj), atol=2e-5)
     np.testing.assert_allclose(Sn.numpy(), np.asarray(Sj), atol=2e-5)
+
+
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("B,L,H,P,N,chunk", [(2, 80, 4, 16, 8, 16), (1, 53, 4, 8, 16, 16),
+                                             (1, 11, 4, 16, 8, 64)])
+def test_ssd_forward_groups_match_jax(B, L, H, P, N, chunk, G):
+    """B and C per group (G of H heads), as models/ssm.py passes them, against
+    the JAX ``ssd_chunked`` on the groups repeated to every head."""
+    x, dt, A, _, _ = _seq(L + G, B, L, H, P, N)
+    rs = np.random.RandomState(G)
+    Bg = (rs.randn(B, L, G, N) * 0.3).astype(np.float32)
+    Cg = (rs.randn(B, L, G, N) * 0.3).astype(np.float32)
+    Y, S = ops.ssd_forward(*_t((x, dt, A, Bg, Cg)), chunk=chunk)
+    rep = lambda a: np.repeat(a, H // G, axis=2)
+    Yj, Sj = jax_chunked(*_j((x, dt, A, rep(Bg), rep(Cg))), chunk=chunk)
+    np.testing.assert_allclose(Y.numpy(), np.asarray(Yj), atol=2e-4)
+    np.testing.assert_allclose(S.numpy(), np.asarray(Sj), atol=2e-4)
+    # and the port's own per-head path on the repeated groups
+    Yh, Sh = ops.ssd_forward(*_t((x, dt, A, rep(Bg), rep(Cg))), chunk=chunk)
+    torch.testing.assert_close(Y, Yh, atol=2e-6, rtol=0)
+    torch.testing.assert_close(S, Sh, atol=2e-6, rtol=0)
+
+
+def test_ssd_forward_refuses_groups_that_do_not_divide_heads():
+    x, dt, A, Bm, Cm = _t(_seq(0, 1, 16, 4, 8, 8))
+    with pytest.raises(ValueError, match="groups"):
+        ops.ssd_forward(x, dt, A, Bm[:, :, :3], Cm[:, :, :3], chunk=16)
