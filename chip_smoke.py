@@ -36,7 +36,19 @@ Phases, each printing its own lines:
               must launch flash attention 9 times and the SSD chunk 54
               times, decode ticks neither;
   5b. consistency — the same model in fp32: prefill of 256 tokens plus 3
-              decode steps against prefills of 257, 258 and 259 tokens.
+              decode steps against prefills of 257, 258 and 259 tokens;
+  6. MTL serving — (a) phase 3's estimator behind scoring_engine(batch=256)
+              (warmup() captures the score tile as a CUDA graph) scores the
+              20 000 test rows against decision_function, then the same
+              rows stream through serving_scheduler(batch=256) with one
+              partial_fit halfway; (b) serving_fleet(n_replicas=4) on the
+              one card (one capture, adopted by the other replicas) routes
+              them by task affinity through one rolling publish; (c) the
+              structured Sigma at 4096 tasks: a low_rank_diag fit of
+              Synthetic-1 (m = 4096, d = 100, about 100 rows a task)
+              through the round kernel, its test rows served with their
+              Sigma rows, and one graphical_lasso Omega-step (phase 2 holds
+              the round kernel against its plain version at this shape).
 
 It exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository. The line before the last is a JSON object with
@@ -111,6 +123,17 @@ CONSIST_S = 256
 # another order. tests/test_serve.py's decode bar; measured on an H100
 # 5.4e-5 on logits up to 5.0 (a 9.3x margin).
 TOL_CONSIST = 5e-4
+# the MTL serving path (phase 6): tiles of 256 requests at MNIST width, a
+# fleet of 4 replicas on the one card, and the structured Sigma at 4096
+# tasks of Synthetic-1 (d = 100, about 100 train and 50 test rows a task)
+SCORE_BATCH, N_REPLICAS = 256, 4
+MANY_M, MANY_D, MANY_N_TRAIN, MANY_N_TEST, MANY_RANK = 4096, 100, 100, 50, 32
+# served scores against the estimator's predict path: the same per-row dot
+# products in another kernel (a gather and a row-wise dot against
+# predictions' batched product); the JAX package's serving tests hold them
+# at 1e-5. Sigma rows gathered from the factors against the dense view:
+# the same products in another order, 1e-6 as in tests/test_sigma_view.py.
+TOL_SCORE, TOL_SIGMA_ROW = 1e-5, 1e-6
 
 
 def fail(msg: str) -> None:
@@ -442,6 +465,380 @@ def consistency(torch, dev, cfg) -> float:
     return max(errs)
 
 
+def test_rows(test):
+    """The valid rows of an MTLData on the host: X (n, d), y (n,), tasks (n,)."""
+    n = test.n.cpu().numpy()
+    x, y = test.x.cpu().numpy(), test.y.cpu().numpy()
+    X = np.concatenate([x[t, : n[t]] for t in range(len(n))])
+    Y = np.concatenate([y[t, : n[t]] for t in range(len(n))])
+    return X, Y, np.repeat(np.arange(len(n)), n)
+
+
+def flat_scores(torch, est, test) -> np.ndarray:
+    """est.decision_function over an MTLData, flattened to test_rows' order."""
+    z = est.decision_function(test).cpu().numpy()
+    n = test.n.cpu().numpy()
+    return np.concatenate([z[t, : n[t]] for t in range(len(n))])
+
+
+def check_versions(torch, dev, reqs, W_by_version, label):
+    """Every request completed on a known version, its score that
+    version's w_task . x within TOL_SCORE; returns the max error and the
+    versions seen."""
+    from repro_torch.core.dual import task_scores
+
+    check(all(r.status == "done" for r in reqs), f"{label}: a request did not complete")
+    err, seen = 0.0, sorted({r.snapshot_version for r in reqs})
+    for v in seen:
+        check(v in W_by_version, f"{label}: version {v} was never published")
+        group = [r for r in reqs if r.snapshot_version == v]
+        X = torch.from_numpy(np.stack([r.x for r in group])).to(dev)
+        t = torch.tensor([r.task for r in group], device=dev)
+        ref = task_scores(W_by_version[v], X, t).cpu().numpy()
+        got = np.asarray([r.score for r in group], np.float32)
+        err = max(err, float(np.abs(got - ref).max()))
+    check(err <= TOL_SCORE, f"{label}: scores off their version's W by {err:.3e}")
+    return err, seen
+
+
+def mtl_serving_path(torch, dev, card: str, est, train, test) -> None:
+    """Phases 6a and 6b: the fitted MNIST-width model behind the scoring
+    engine, the continuous-batching scheduler and a fleet of replicas."""
+    from repro_torch import obs
+    from repro_torch.serve import ScoreRequest
+    from repro_torch.serve.mtl import ScoreGraph, make_score_step
+
+    B = SCORE_BATCH
+    X, Y, tasks = test_rows(test)
+    n, d = X.shape
+    tiles = -(-n // B)
+    eng = est.scoring_engine(batch=B)
+    captures = ScoreGraph.captures
+    t0 = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    check(ScoreGraph.captures == captures + 1 and eng._graph is not None,
+          "warmup() did not capture the score tile")
+    eng.score_batch(X[:B], tasks[:B])
+    t0 = time.perf_counter()
+    z = eng.score_batch(X, tasks)
+    batch_s = time.perf_counter() - t0
+    ref = flat_scores(torch, est, test)
+    err = float(np.abs(z - ref).max())
+    wrong = [int(np.sum(np.sign(z[tasks == t]) != np.sign(Y[tasks == t])))
+             for t in range(est.W_.shape[0])]
+    wrong_ref = [int(np.sum(np.sign(ref[tasks == t]) != np.sign(Y[tasks == t])))
+                 for t in range(est.W_.shape[0])]
+    err_rate = float(np.mean([w / np.sum(tasks == t) for t, w in enumerate(wrong)]))
+    est_err = 1.0 - est.score(test)
+    print(f"[6a score] {n} test rows in {tiles} tiles of {B} through the captured graph: "
+          f"max|score - decision_function| {err:.3e} (tolerance {TOL_SCORE:.0e}); test error "
+          f"{err_rate:.4f} (the estimator's score(): {est_err:.4f}); capture {capture_ms:.1f} ms")
+    check(err <= TOL_SCORE, "served scores disagree with decision_function")
+    check(wrong == wrong_ref, f"served test errors per task {wrong} != {wrong_ref}")
+    check(abs(err_rate - est_err) <= 1e-6, "served test error != the estimator's")
+
+    # one tile on the device: the graph's replay against the eager step,
+    # CUDA events behind a sleep; then a tile's host cost, synchronized
+    g = eng._graph
+    step = make_score_step()
+    Xt = torch.from_numpy(X[:B]).to(dev)
+    tt = torch.from_numpy(tasks[:B]).to(dev)
+    W = est.W_
+    dev_graph = cuda_ms(torch, g.graph.replay, reps=200)
+    dev_eager = cuda_ms(torch, lambda: step(W, Xt, tt), reps=200)
+    Xb, tb = X[:B], tasks[:B].astype(np.int32)
+
+    def host_ms(fn, reps=200):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t) * 1e3 / reps
+
+    # where score_batch's host time goes: the engine's steps timed apart
+    # (validation; the rows' one copy to the card, pad rows zeroed there;
+    # the replays with the scores' copy back), beside the whole-array pad
+    # copy on the host that the JAX engine makes and this one does not
+    t = time.perf_counter()
+    Xv, tv = eng._validate_batch(X, tasks)
+    t_val = time.perf_counter() - t
+    t = time.perf_counter()
+    n_pad = tiles * B
+    Xd = torch.zeros((n_pad, d), dtype=torch.float32, device=dev)
+    Xd[:n] = torch.from_numpy(Xv)
+    td = torch.zeros((n_pad,), dtype=torch.int64, device=dev)
+    td[:n] = torch.from_numpy(tv)
+    torch.cuda.synchronize()
+    t_copy = time.perf_counter() - t
+    t = time.perf_counter()
+    g.score(W, W, Xd, td)
+    t_loop = time.perf_counter() - t
+    t = time.perf_counter()
+    np.concatenate([X, np.zeros((n_pad - n, d), np.float32)])
+    t_pad = time.perf_counter() - t
+    print(f"[6a score_batch] {batch_s * 1e3:.2f} ms for {tiles} tiles: validation "
+          f"{t_val * 1e3:.2f} ms, rows to the card ({X.nbytes / 1e6:.1f} MB pageable) "
+          f"{t_copy * 1e3:.2f} ms, {tiles} replays with the scores' copy back "
+          f"{t_loop * 1e3:.2f} ms ({t_loop * 1e3 / tiles:.4f} ms per tile); a host pad "
+          f"copy of the whole array (the JAX engine's, not made here) {t_pad * 1e3:.2f} ms")
+    host_graph = host_ms(lambda: eng._score_tiles(Xb, tb, W))
+    host_eager = host_ms(lambda: step(W, torch.from_numpy(Xb).to(dev),
+                                      torch.from_numpy(tb.astype(np.int64)).to(dev)).cpu())
+    nbytes = 2 * B * d * 4 + B * 8 + B * 4  # X tile and W rows read, tasks, scores
+    b_tile, by_tile = bound_ms(nbytes, 2.0 * B * d)
+    print(f"[6a tile] device ms per tile (CUDA events): graph replay {dev_graph:.4f}, eager "
+          f"step {dev_eager:.4f}; bound {b_tile:.5f} ms by {by_tile} ({nbytes} bytes at "
+          f"3.35 TB/s); host ms per tile (synchronized): graph path {host_graph:.4f}, eager "
+          f"step {host_eager:.4f}; score_batch {batch_s * 1e3 / tiles:.4f} ms per tile "
+          f"({n / batch_s:.0f} rows/s); on {card}")
+
+    # a request's admission: the engine's check against the full one-row
+    # validation it replaces for well-formed requests
+    probe = [ScoreRequest(task=int(t), x=X[i]) for i, t in enumerate(tasks)]
+    t = time.perf_counter()
+    for r in probe:
+        eng.admit(r)
+    admit_us = (time.perf_counter() - t) * 1e6 / n
+    t = time.perf_counter()
+    for r in probe:
+        eng._validate_batch(np.asarray(r.x, np.float32)[None], np.asarray([r.task]))
+    full_us = (time.perf_counter() - t) * 1e6 / n
+    print(f"[6a admit] {admit_us:.2f} us per request (the one-row validation: "
+          f"{full_us:.2f} us)")
+
+    # the same rows as requests through the scheduler on the real clock,
+    # one partial_fit halfway (its push hot-swaps between tiles)
+    sched = est.serving_scheduler(batch=B, policy="edf")
+    check(sched.engine.adopt_warmup(eng), "the scheduler's engine did not adopt the graph")
+    reqs = [ScoreRequest(task=int(t), x=X[i]) for i, t in enumerate(tasks)]
+    W_by_version = {sched.version: est.W_}
+    i = done = 0
+    fit_s = submit_s = 0.0
+    obs.enable(clear=True)  # the scheduler's pack and run_tile spans
+    t0 = time.perf_counter()
+    while done < n:
+        t = time.perf_counter()
+        while i < n and sched.pending < 2 * B:
+            sched.submit(reqs[i])
+            i += 1
+        submit_s += time.perf_counter() - t
+        done += len(sched.step())
+        if not fit_s and done >= n // 2:
+            t = time.perf_counter()
+            est.partial_fit(train)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t
+            W_by_version[sched.version] = est.W_
+    wall_s = time.perf_counter() - t0
+    obs.disable()
+    spans = obs.phase_breakdown(cat="serve")
+    err_s, seen = check_versions(torch, dev, reqs, W_by_version, "scheduler")
+    check(len(seen) == 2, f"the scheduler served versions {seen}, expected two")
+    s = sched.metrics.summary()
+    lat = s["latency"]
+    print(f"[6a scheduler] {n} requests, EDF, 2 tiles queued ahead: {wall_s:.3f} s wall "
+          f"including one partial_fit of {fit_s:.3f} s -> {n / (wall_s - fit_s):.0f} "
+          f"requests/s while serving; latency p50 {lat['p50_s'] * 1e3:.3f} ms, p99 "
+          f"{lat['p99_s'] * 1e3:.3f} ms (ServingMetrics; the p99 holds the requests queued "
+          f"through the partial_fit); versions {seen}, swaps {s['swaps']}, tiles "
+          f"{s['tiles']}, tile fill {s['tile_fill']:.3f}; max|score - W_v x| {err_s:.3e}")
+    check(s["completed"] == n and s["expired"] == 0, f"scheduler summary {s}")
+    pack_s, tile_s = spans["pack"]["total_s"], spans["run_tile"]["total_s"]
+    rest_s = wall_s - fit_s - submit_s - pack_s - tile_s
+    print(f"[6a scheduler] per tile (host clock, spans): submit of its requests "
+          f"{submit_s * 1e3 / s['tiles']:.3f} ms, pack {pack_s * 1e3 / s['tiles']:.3f} ms, "
+          f"run_tile {tile_s * 1e3 / s['tiles']:.3f} ms, completion bookkeeping "
+          f"{rest_s * 1e3 / s['tiles']:.3f} ms")
+
+    # 6b: four replicas on the one card, one capture adopted by the rest
+    router = est.serving_fleet(n_replicas=N_REPLICAS, batch=B)
+    captures = ScoreGraph.captures
+    router.warmup()
+    graphs = {id(router.replica(k).scheduler.engine._graph) for k in range(N_REPLICAS)}
+    check(ScoreGraph.captures == captures + 1 and len(graphs) == 1,
+          f"fleet warmup: {ScoreGraph.captures - captures} captures, {len(graphs)} graphs")
+    tokens = {t: router.session() for t in range(est.W_.shape[0])}
+    reqs = [ScoreRequest(task=int(t), x=X[i]) for i, t in enumerate(tasks)]
+    floors = [0] * n
+    W_by_version = {router.version: est.W_}
+    i = done = 0
+    published = False
+    t0 = time.perf_counter()
+    while done < n:
+        while i < n and router.pending < 2 * B * N_REPLICAS:
+            floors[i] = tokens[reqs[i].task].min_version
+            check(router.submit(reqs[i], client=tokens[reqs[i].task]).admitted,
+                  "the fleet refused a request")
+            i += 1
+        done += len(router.step())
+        if not published and done >= n // 2:
+            est.partial_fit(train)  # pushes through the router: a rolling swap
+            W_by_version[router.version] = est.W_
+            published = True
+    while router.roll_pending:
+        router.step()
+    wall_s = time.perf_counter() - t0
+    err_f, seen = check_versions(torch, dev, reqs, W_by_version, "fleet")
+    check(all(r.snapshot_version >= f for r, f in zip(reqs, floors)),
+          "a client read went behind the version its token had observed")
+    versions = [router.replica(k).scheduler.version for k in range(N_REPLICAS)]
+    check(versions == [router.version] * N_REPLICAS,
+          f"replica versions {versions}, fleet version {router.version}")
+    fs = router.summary()
+    print(f"[6b fleet] {N_REPLICAS} replicas, 1 capture, 2 tiles queued per replica: {n} "
+          f"requests by task affinity in "
+          f"{wall_s:.3f} s wall (one partial_fit included); versions served {seen}, "
+          f"replicas end at {versions}; router {fs['router']}; per-replica completed "
+          f"{[r['completed'] for r in fs['per_replica']]}; latency p50 "
+          f"{fs['fleet']['latency']['p50_s'] * 1e3:.3f} ms, p99 "
+          f"{fs['fleet']['latency']['p99_s'] * 1e3:.3f} ms; max|score - W_v x| {err_f:.3e}")
+    check(fs["fleet"]["completed"] == n and fs["router"]["admitted"] == n,
+          "the fleet lost requests")
+
+
+def round_at_many_tasks(torch, dev, card: str, data, sm_clock: str):
+    """Phase 2, the round kernel at the structured path's shape (phase 6c:
+    4096 tasks, d = 100, about 100 rows a task): against its plain version
+    for each loss, timed beside its bound and chain floor."""
+    from repro_torch import prng
+    from repro_torch.core.sdca import coords_from_uniform, kappa_of
+    from repro_torch.kernels.sdca import ref, sdca_kernel, sdca_round_kernel
+
+    x, y, n = data.x, data.y, data.n
+    m, n_max, d = x.shape
+    H = n_max + (-n_max) % BLOCK
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rs = np.random.RandomState(6)
+    alpha = torch.from_numpy(0.5 * rs.rand(m, n_max).astype(np.float32)).to(dev) * y
+    w = torch.from_numpy(0.05 * rs.randn(m, d).astype(np.float32)).to(dev)
+    keys = prng.fold_in(prng.fold_in(prng.PRNGKey(1), torch.arange(m)), 0)
+    u = prng.uniform(keys, (H,), device=dev)
+    kappa = kappa_of(1.0, 1e-3, n, torch.full((m,), 1.0 / m, device=dev))
+    err = 0.0
+    for loss in LOSSES:
+        da_k, r_k = sdca_round_kernel(x, y, alpha, w, u, n, kappa, loss, block=BLOCK)
+        torch.cuda.synchronize()
+        da_p, r_p = ref.sdca_round_ref(x, y, alpha, w, u, n, kappa, loss)
+        e = max((da_k - da_p).abs().max().item(), (r_k - r_p).abs().max().item())
+        check(bool(torch.isfinite(da_k).all() and torch.isfinite(r_k).all()),
+              f"sdca_round at {m} tasks {loss}: non-finite output")
+        print(f"[2 sdca_round {m} tasks {loss}] max|dalpha, r - plain| = {e:.3e} "
+              f"(tolerance {TOL_ROUND:.0e})")
+        check(e <= TOL_ROUND, f"sdca_round at {m} tasks {loss} disagrees with its plain version")
+        err = max(err, e)
+    ms = cuda_ms(torch, lambda: sdca_round_kernel(
+        x, y, alpha, w, u, n, kappa, "hinge", block=BLOCK), reps=20)
+    plain = cuda_ms(torch, lambda: ref.sdca_round_ref(x, y, alpha, w, u, n, kappa, "hinge"),
+                    reps=1)
+    scratch = torch.empty(m * (H // BLOCK) * (BLOCK * BLOCK + 4 * BLOCK), device=dev)
+    da_s, r_s = torch.zeros_like(alpha), torch.zeros_like(w)
+    stage_ms = [cuda_ms(torch, lambda st=st: sdca_kernel.sdca_round_stage(
+        st, x, y, alpha, w, u, n, kappa, "hinge", scratch, da_s, r_s, block=BLOCK), reps=20)
+        for st in (1, 2)]
+    del scratch, da_s, r_s
+    cluster_ms = {c: cuda_ms(torch, lambda c=c: sdca_round_kernel(
+        x, y, alpha, w, u, n, kappa, "hinge", block=BLOCK, cluster=c), reps=20)
+        for c in sdca_kernel.SUPPORTED_CLUSTERS}
+    srt = coords_from_uniform(u, n).sort(dim=1).values
+    uniq = int((srt[:, 1:] != srt[:, :-1]).sum().item()) + m
+    nbytes = (uniq * d * 4 + uniq * 8) + (m * d * 4 + m * H * 4 + m * 8) \
+        + (m * n_max * 4 + m * d * 4)
+    flops = 2.0 * m * (H // BLOCK) * (GRAM_TRI + 3 * BLOCK) * d
+    b, by = bound_ms(nbytes, flops)
+    floor = [H * cyc / (float(sm_clock) * 1e6) * 1e3 for cyc in (60, 100)]
+    print(f"[2 sdca_round {m} tasks] x {tuple(x.shape)}, H = {H}: {ms:.4f} ms/call (plain "
+          f"{plain:.1f} ms), bound {b:.4f} ms by {by} ({uniq} distinct rows, "
+          f"{flops / 1e9:.2f} GFLOP); chain floor {floor[0]:.4f}-{floor[1]:.4f} ms on {card}")
+    print(f"[2 sdca_round {m} tasks] stage 1 (Gram, q) {stage_ms[0]:.4f} ms, stage 2 (chains, "
+          f"cluster {sdca_kernel.round_cluster(m, d, BLOCK, sms)}) {stage_ms[1]:.4f} ms; round "
+          f"by cluster size: " + ", ".join(f"C={c} {t:.4f} ms" for c, t in cluster_ms.items()))
+    return err
+
+
+def structured_path(torch, dev, card: str, data) -> None:
+    """Phase 6c: a low_rank_diag fit at 4096 tasks through the round
+    kernel, its test rows served with their Sigma rows from the factors,
+    and one graphical_lasso Omega-step on the fitted W."""
+    from repro_torch.core import DMTRLEstimator, LowRankDiagSigma, SparseSigma
+    from repro_torch.core.omega_regularizers import get_regularizer
+    from repro_torch.kernels.sdca import reset_launch_counts, sdca_block_kernel, sdca_round_kernel
+    from repro_torch.serve import ScoreRequest
+
+    train, test = data.train.to(dev), data.test.to(dev)
+    m = train.m
+    cfg = dict(solver="pallas_round", loss="hinge", lam=1e-3, outer_iters=2, rounds=3,
+               block_size=BLOCK)
+    est = DMTRLEstimator(regularizer="low_rank_diag", regularizer_params={"rank": MANY_RANK},
+                         device=dev, **cfg)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est.fit(train)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = sdca_round_kernel.launches
+    rounds = cfg["outer_iters"] * cfg["rounds"]
+    gap = est.history["gap"]
+    view = est.sigma_view_
+    tr = float(view.trace())
+    print(f"[6c fit] low_rank_diag rank {MANY_RANK}, x {tuple(train.x.shape)}: {fit_s:.2f} s "
+          f"for {rounds} rounds; gap {np.array2string(gap, precision=5)}; sdca_round "
+          f"launches {launches}; tr(Sigma) {tr:.7f}; view {type(view).__name__} "
+          f"{view.nbytes()} bytes against 4 m^2 = {4 * m * m} bytes dense; test error "
+          f"{1.0 - est.score(test):.4f}")
+    check(launches == rounds, f"sdca_round launched {launches} times, expected {rounds}")
+    check(sdca_block_kernel.launches == 0, "the structured path launched sdca_block")
+    check(bool(np.all(np.isfinite(gap))) and gap[-1] < gap[0], f"gap {gap[0]} -> {gap[-1]}")
+    check(isinstance(view, LowRankDiagSigma), f"sigma_view_ is {type(view).__name__}")
+    check(abs(tr - 1.0) <= 1e-5, f"tr(Sigma) = {tr}")
+
+    X, _, tasks = test_rows(data.test)
+    ref = flat_scores(torch, est, test)
+    dense = view.dense()  # m = MATERIALIZE_LIMIT: built for the check only
+    eng = est.scoring_engine(batch=SCORE_BATCH, gather_sigma_rows=True)
+    eng.warmup()
+    err = row_err = 0.0
+    t0 = time.perf_counter()
+    for lo in range(0, len(tasks), 16 * SCORE_BATCH):
+        reqs = [ScoreRequest(task=int(t), x=X[lo + k])
+                for k, t in enumerate(tasks[lo : lo + 16 * SCORE_BATCH])]
+        eng.run(reqs)
+        err = max(err, float(np.abs(np.asarray([r.score for r in reqs])
+                                    - ref[lo : lo + len(reqs)]).max()))
+        rows = torch.from_numpy(np.stack([r.sigma_row for r in reqs])).to(dev)
+        want = dense[torch.from_numpy(tasks[lo : lo + len(reqs)]).to(dev)]
+        row_err = max(row_err, (rows - want).abs().max().item())
+    serve_s = time.perf_counter() - t0
+    print(f"[6c serve] {len(tasks)} test rows with their Sigma rows in {serve_s:.2f} s: "
+          f"max|score - decision_function| {err:.3e} (tolerance {TOL_SCORE:.0e}), "
+          f"max|sigma_row - dense[task]| {row_err:.3e} (tolerance {TOL_SIGMA_ROW:.0e})")
+    check(err <= TOL_SCORE, "structured scores disagree with decision_function")
+    check(row_err <= TOL_SIGMA_ROW, "Sigma rows from the factors disagree with the dense view")
+    del dense
+
+    t0 = time.perf_counter()
+    sparse, omega = get_regularizer("graphical_lasso").step(est.W_, 1e-6)
+    step_s = time.perf_counter() - t0
+    check(isinstance(sparse, SparseSigma) and omega is None, "graphical_lasso returned no view")
+    # its dense form built apart from rows(): the diagonal plus the ELL entries
+    D = np.diag(sparse.diag_v.cpu().numpy().astype(np.float64))
+    np.add.at(D, (np.repeat(np.arange(m), sparse.k_max), sparse.cols.cpu().numpy().ravel()),
+              sparse.vals.cpu().numpy().ravel())
+    idx = torch.arange(m, device=dev)
+    sp_err = max((sparse.rows(idx[lo : lo + 1024]).double().cpu().numpy()
+                  - D[lo : lo + 1024]).__abs__().max() for lo in range(0, m, 1024))
+    lam_min = torch.linalg.eigvalsh(torch.from_numpy(D).to(dev)).min().item()
+    print(f"[6c graphical_lasso] Omega-step on the fitted W: {step_s:.2f} s on the host "
+          f"(float64 numpy); k_max {sparse.k_max}, {int((sparse.vals != 0).sum())} couplings, "
+          f"{sparse.nbytes()} bytes; max|rows - dense| {sp_err:.3e} (tolerance "
+          f"{TOL_SIGMA_ROW:.0e}); smallest eigenvalue {lam_min:.3e}; tr {float(sparse.trace()):.7f}")
+    check(sp_err <= TOL_SIGMA_ROW, "SparseSigma rows disagree with its dense form")
+    check(lam_min >= -1e-6, f"graphical_lasso Sigma is not PSD: {lam_min}")
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: run it from a checkout of the repository "
@@ -491,6 +888,14 @@ def main() -> int:
           f"test x {tuple(test.x.shape)} ({int(test.n[0])} rows per task, padded "
           f"to the train n_max), {time.perf_counter() - t0:.1f} s")
     check(tuple(train.x.shape) == (M, N_MAX, D), f"train shape {tuple(train.x.shape)}")
+    t0 = time.perf_counter()
+    many = synthetic(1, m=MANY_M, d=MANY_D, n_train_avg=MANY_N_TRAIN,
+                     n_test_avg=MANY_N_TEST, seed=0)
+    many_train = many.train.to(dev)
+    print(f"[data] synthetic(1, m={MANY_M}, d={MANY_D}, n_train_avg={MANY_N_TRAIN}, "
+          f"n_test_avg={MANY_N_TEST}): train x {tuple(many.train.x.shape)} "
+          f"({many.train.x.numel() * 4 / 1e6:.0f} MB), test x {tuple(many.test.x.shape)}, "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # -- phase 2: kernels against their plain versions ----------------------
     rs = np.random.RandomState(0)
@@ -520,8 +925,9 @@ def main() -> int:
     ms_round = cuda_ms(torch, lambda: sdca_round_kernel(
         x, y, alpha, w, u, n, kappa, "hinge", block=BLOCK), reps=20)
     # the two stages apart (stage 2 on the Gram blocks stage 1 left), and
-    # the round at each cluster size that fits d (the measurement behind
-    # the default CLUSTER)
+    # the round at each cluster size that fits d (the measurements behind
+    # sdca_kernel.round_cluster)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     scratch = torch.empty(M * (H // BLOCK) * (BLOCK * BLOCK + 4 * BLOCK), device=dev)
     da_s, r_s = torch.zeros_like(alpha), torch.zeros_like(w)
     stage_ms = [cuda_ms(torch, lambda st=st: sdca_kernel.sdca_round_stage(
@@ -539,7 +945,7 @@ def main() -> int:
     # FMA) at 60-100 cycles each at the SM's top clock
     floor_ms = [H * cyc / (float(sm_clock) * 1e6) * 1e3 for cyc in (60, 100)]
     print(f"[2 sdca_round] stage 1 (Gram, q) {stage_ms[0]:.4f} ms, stage 2 (chains, cluster "
-          f"{sdca_kernel.CLUSTER}) {stage_ms[1]:.4f} ms; round by cluster size: "
+          f"{sdca_kernel.round_cluster(M, D, BLOCK, sms)}) {stage_ms[1]:.4f} ms; round by cluster size: "
           + ", ".join(f"C={c} {t:.4f} ms" for c, t in cluster_ms.items())
           + f"; chain floor {floor_ms[0]:.3f}-{floor_ms[1]:.3f} ms ({H} steps x 60-100 "
           f"cycles at {sm_clock} MHz)")
@@ -618,6 +1024,8 @@ def main() -> int:
               f"{floor_block[1] * 1e3:.2f} us ({BLOCK} steps x 60-100 cycles at {sm_clock} "
               f"MHz) on {card}")
     ms_block, plain_block, b_block, by_block = block_times["Synthetic-1"]
+    err_round = max(err_round, round_at_many_tasks(torch, dev, card, many_train, sm_clock))
+    del many_train
     del shapes, sx, sy, s_alpha, s_w, s_r
     del alpha, w, u, r_state
     lm = lm_kernel_checks(torch, dev, card)
@@ -712,6 +1120,12 @@ def main() -> int:
     # -- phase 5: the LM serving path; 5b: its fp32 consistency ----------------
     launches_flash, launches_ssd, lm_cfg = serve_main_path(torch, dev, card)
     consistency(torch, dev, lm_cfg)
+
+    # -- phase 6: the MTL serving path; 6c: structured Sigma at 4096 tasks -----
+    t6 = time.perf_counter()
+    mtl_serving_path(torch, dev, card, est, train, test)
+    structured_path(torch, dev, card, many)
+    print(f"[6] {time.perf_counter() - t6:.1f} s wall")
 
     kernels = [
         dict(name="sdca_round", route="cuda",

@@ -8,6 +8,11 @@ turns it into a fitted port estimator, so ``partial_fit`` continues and
     est = from_reference(state, device="cuda", config=cfg)
     est.partial_fit(train)          # train: the port's MTLData of the same arrays
 
+A structured fit (``low_rank_diag``, ``graphical_lasso``) crosses over
+through its ``sigma_view_``'s wire form, ``factors()``: the port rebuilds
+the same view from those numpy leaves, so it predicts, continues and
+serves (Sigma rows from the factors) as the JAX estimator does.
+
 A problem goes across the same way: build the port's ``MTLData`` from the
 same numpy arrays (``core.mtl_data.from_task_list`` or
 ``data.synthetic``, which match the JAX package's seed for seed).
@@ -21,24 +26,42 @@ import torch
 
 from .core.engines import EngineResult
 from .core.estimator import DMTRLEstimator
+from .core.sigma_view import maybe_dense, view_from_factors
 
 # the JAX estimator's fitted attributes that make up its state
-STATE_KEYS = ("W_", "alpha_", "sigma_", "omega_", "rho_per_outer_", "history_")
+STATE_KEYS = (
+    "W_", "alpha_", "sigma_", "omega_", "rho_per_outer_", "history_", "sigma_view_",
+)
 
 
 def from_reference(
     state: Mapping[str, object], device="cuda", **estimator_kwargs
 ) -> DMTRLEstimator:
     """A fitted ``DMTRLEstimator`` holding ``state`` (numpy arrays under
-    the names in ``STATE_KEYS``; ``omega_``, ``rho_per_outer_`` and
-    ``history_`` may be missing). ``estimator_kwargs`` (``config=``,
-    ``loss=``, ...) configure it as the JAX estimator was configured."""
+    the names in ``STATE_KEYS``; ``omega_``, ``rho_per_outer_``,
+    ``history_`` and ``sigma_view_`` may be missing). ``sigma_view_`` is
+    the JAX estimator's SigmaView (anything with ``factors()``) or its
+    factors dict; where it is given, ``sigma_`` and ``omega_`` may be views
+    too (above ``MATERIALIZE_LIMIT`` tasks) and are rebuilt from it.
+    ``estimator_kwargs`` (``config=``, ``loss=``, ...) configure the
+    estimator as the JAX estimator was configured."""
     est = DMTRLEstimator(device=device, **estimator_kwargs)
 
     def tensor(a):
         return torch.as_tensor(np.array(a), dtype=torch.float32, device=est.device)
 
-    omega = state.get("omega_")
+    view = state.get("sigma_view_")
+    if view is not None:
+        factors = view if isinstance(view, Mapping) else view.factors()
+        view = view_from_factors(factors, device=est.device)
+
+    def matrix(a):
+        if a is None:
+            return None
+        if hasattr(a, "factors"):  # a structured JAX view at huge m
+            return maybe_dense(view_from_factors(a.factors(), device=est.device))
+        return tensor(a)
+
     history: Dict[str, np.ndarray] = {
         k: np.asarray(v) for k, v in (state.get("history_") or {}).items()
     }
@@ -46,10 +69,11 @@ def from_reference(
         EngineResult(
             W=tensor(state["W_"]),
             alpha=tensor(state["alpha_"]),
-            sigma=tensor(state["sigma_"]),
-            omega=None if omega is None else tensor(omega),
+            sigma=matrix(state["sigma_"]),
+            omega=matrix(state.get("omega_")),
             history=history,
             rho_per_outer=[float(r) for r in state.get("rho_per_outer_") or []],
+            sigma_view=view,
         ),
         continued=False,
     )

@@ -27,6 +27,7 @@ from .omega import (
     correlation_from_sigma,
     init_sigma,
     omega_step,
+    omega_step_lowrank,
     rho_lemma10,
     rho_spectral,
 )
@@ -37,7 +38,15 @@ from .omega_regularizers import (
     register_regularizer,
     resolve_regularizer,
 )
-from .sigma_view import DenseSigma, SigmaView, as_view
+from .sigma_view import (
+    DenseSigma,
+    LowRankDiagSigma,
+    SigmaView,
+    SparseSigma,
+    as_view,
+    maybe_dense,
+    view_from_factors,
+)
 from .solver_backends import (
     SolverBackend,
     available_backends,

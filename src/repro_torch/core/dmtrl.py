@@ -104,7 +104,9 @@ class WarmStart:
 
     ``alpha``: (m, n_max) dual variables, ``sigma``/``omega``: (m, m) task
     covariance/precision. W is always rederived as W(alpha) under sigma,
-    never carried separately. Tensors or numpy arrays.
+    never carried separately. Tensors or numpy arrays; structured runs
+    carry a SigmaView (its factors) for ``sigma`` and None (or a view) for
+    ``omega``.
     """
 
     alpha: Tensor
@@ -116,11 +118,11 @@ class WarmStart:
 class DMTRLResult:
     W: Tensor  # (m, d)
     alpha: Tensor  # (m, n_max)
-    sigma: Tensor  # (m, m) dense
-    omega: Optional[Tensor]  # (m, m), or None when the run was given none
+    sigma: Tensor  # (m, m) dense, or a SigmaView when m is huge
+    omega: Optional[Tensor]  # (m, m); None for structured members w/o inverse
     history: Dict[str, np.ndarray]
     rho_per_outer: List[float]
-    # the SigmaView itself, when the run was given one
+    # the structured representation itself, when the run used one
     sigma_view: Optional[SigmaView] = None
 
 
@@ -156,7 +158,8 @@ def make_w_step_round(cfg: DMTRLConfig, data: MTLData, rho: float):
         sv = as_view(sigma)
         dalpha, r = solver(data.x, data.y, alpha, W, data.n, sv.diag(), keys)
         alpha = alpha + cfg.eta * dalpha
-        # delta_b rows: (m, d); server reduce: W += (1/lam) Sigma @ dB
+        # delta_b rows: (m, d); server reduce: W += (1/lam) Sigma @ dB,
+        # from the factors for a structured Sigma (no dense (m, m))
         db = cfg.eta * r / data.n[:, None].to(r.dtype)
         W = W + sv.matvec(db) / cfg.lam
         return alpha, W
@@ -209,7 +212,7 @@ def fit(
     """
     device = resolve_device(device)
     data = data.to(device)
-    reg = omega_reg.resolve_regularizer(cfg, regularizer)
+    reg = omega_reg.resolve_regularizer(cfg, regularizer, m=data.m)
     key = prng.PRNGKey(cfg.seed)
     m, n_max = data.m, data.n_max
     dtype = data.x.dtype
@@ -218,6 +221,7 @@ def fit(
         return torch.as_tensor(a, dtype=dtype, device=device)
 
     if init is not None:
+        # a structured warm start keeps its factors: no dense (m, m)
         alpha = tensor(init.alpha)
         sigma = init.sigma if isinstance(init.sigma, SigmaView) else tensor(init.sigma)
         omega = init.omega

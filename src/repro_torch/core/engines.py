@@ -24,6 +24,7 @@ import torch
 from .dmtrl import DMTRLConfig, WarmStart, fit as _fit_reference
 from .mtl_data import MTLData
 from .sigma_view import SigmaView
+from ..obs.trace import span
 
 _NOT_PORTED = ("distributed", "async")
 
@@ -35,10 +36,12 @@ class EngineResult:
 
     W: torch.Tensor  # (m, d) task weight rows
     alpha: torch.Tensor  # (m, n_max) dual variables
-    sigma: torch.Tensor  # (m, m) task covariance
-    omega: Optional[torch.Tensor]  # (m, m) task precision, or None
+    sigma: torch.Tensor  # (m, m) task covariance; a SigmaView at huge m
+    omega: Optional[torch.Tensor]  # (m, m) task precision; None when the
+    #               structured member has no cheap inverse at this size
     history: Dict[str, np.ndarray]
     rho_per_outer: Optional[List[float]] = None
+    # structured runs also expose the factors (SigmaView) directly
     sigma_view: Optional[SigmaView] = None
 
 
@@ -84,9 +87,10 @@ def _run_reference(
     track: bool = True,
     device="cuda",
 ) -> EngineResult:
-    res = _fit_reference(
-        cfg, data, track=track, init=init, regularizer=regularizer, device=device
-    )
+    with span("engine_run", cat="driver", engine="reference"):
+        res = _fit_reference(
+            cfg, data, track=track, init=init, regularizer=regularizer, device=device
+        )
     return EngineResult(
         W=res.W,
         alpha=res.alpha,

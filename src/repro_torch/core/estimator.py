@@ -1,4 +1,4 @@
-"""DMTRLEstimator — the engine-agnostic training facade.
+"""DMTRLEstimator — the engine-agnostic training and serving facade.
 
     est = DMTRLEstimator(loss="hinge", lam=1e-4, rounds=8, solver="pallas_round")
     est.fit(train).score(test)
@@ -10,16 +10,20 @@
     (``core.omega_regularizers``) — the paper's trace_constraint by default;
   * ``partial_fit`` warm-starts from the previous (alpha, Sigma) so
     training continues instead of restarting;
-  * ``predict``/``decision_function``/``score`` serve the fitted W.
+  * ``predict``/``decision_function``/``score`` serve the fitted W, and
+    ``scoring_engine()`` / ``serving_scheduler()`` / ``serving_fleet()``
+    wire it into the batched serving stack (serve/mtl.py,
+    serve/scheduler.py, serve/fleet.py); every ``fit``/``partial_fit``
+    pushes the new weights into each of them that is still alive.
 
 Everything runs on ``device``: the CUDA card unless the caller passes
-``device="cpu"``. Fitted tensors (``W_``, ``alpha_``, ...) stay there.
-The batched scoring engine (``scoring_engine``) waits for the port of
-``serve/mtl.py``.
+``device="cpu"``. Fitted tensors (``W_``, ``alpha_``, ...) stay there,
+and so do the serving engines' copies of W.
 """
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
@@ -77,7 +81,10 @@ class DMTRLEstimator:
         when no card is present.
 
     Fitted attributes (trailing underscore): ``W_``, ``alpha_``,
-    ``sigma_``, ``omega_``, ``history_``, ``rho_per_outer_``.
+    ``sigma_``, ``omega_``, ``history_``, ``rho_per_outer_``;
+    structured regularizers additionally set ``sigma_view_`` (the
+    SigmaView factors; ``sigma_`` stays the view itself at huge m instead
+    of a dense (m, m), ``omega_`` may be None).
     """
 
     def __init__(
@@ -124,8 +131,11 @@ class DMTRLEstimator:
         self.history_: Dict[str, np.ndarray] = {}
         self.rho_per_outer_: list = []
         self.n_fit_calls_: int = 0
-        # bumps on every install, so consumers can tell stale weights
+        # serving surface: model version bumps on every install, and every
+        # engine/scheduler/router built from this estimator gets the new
+        # snapshot pushed (weak refs: serving objects own their lifetime)
         self._model_version: int = 0
+        self._model_refs: list = []
 
     # -- training -----------------------------------------------------------
     def _run(self, data: MTLData, init: Optional[WarmStart], track: bool):
@@ -154,6 +164,7 @@ class DMTRLEstimator:
         self._fitted = True
         self.n_fit_calls_ += 1
         self._model_version += 1
+        self._publish_model()
 
     def fit(self, data: MTLData, track: bool = True) -> "DMTRLEstimator":
         """Run the full alternating procedure from scratch. Returns self."""
@@ -170,6 +181,8 @@ class DMTRLEstimator:
         """
         init = None
         if self._fitted:
+            # structured fits warm-start from the factors, never a dense
+            # (m, m); dense fits keep the tensor path
             sigma = self.sigma_view_ if self.sigma_view_ is not None else self.sigma_
             init = WarmStart(alpha=self.alpha_, sigma=sigma, omega=self.omega_)
         self._run(data, init=init, track=track)
@@ -254,6 +267,118 @@ class DMTRLEstimator:
 
         sigma = self.sigma_view_ if self.sigma_view_ is not None else self.sigma_
         return ModelSnapshot(version=self._model_version, W=self.W_, sigma=sigma)
+
+    def _publish_model(self) -> None:
+        """Push the new snapshot to every live serving object built from
+        this estimator (hot-swap: engines/schedulers switch weights
+        without draining; in-flight tiles finish on the old snapshot).
+        Uses the restamping ``publish_weights`` surface so a consumer
+        whose version counter ran ahead (a manual ``swap``) still installs
+        the newly trained weights instead of colliding."""
+        targets = [obj for obj in (r() for r in self._model_refs) if obj is not None]
+        self._model_refs = [weakref.ref(obj) for obj in targets]
+        if not targets:
+            return
+        snap = self.model_snapshot()
+        for obj in targets:
+            obj.publish_weights(snap.W, snap.sigma, snap.version)
+
+    def _engine(self, batch: int, **kwargs):
+        from ..serve.mtl import MTLScoringEngine
+
+        snap = self.model_snapshot()
+        return MTLScoringEngine(
+            snap.W,
+            batch=batch,
+            classify=self._loss.is_classification,
+            version=snap.version,
+            sigma=snap.sigma,
+            device=self.device,
+            **kwargs,
+        )
+
+    def scoring_engine(self, batch: int = 32, *, gather_sigma_rows: bool = False):
+        """Batched MTL scoring engine over the fitted W (serve/mtl.py), on
+        the estimator's device.
+
+        The engine is version-bound and SUBSCRIBED: a later
+        ``partial_fit`` pushes the new weights into it (and ``refresh()``
+        pulls them), so it never silently serves stale weights. The
+        fitted Sigma (structured factors when available) rides on the
+        snapshot; ``gather_sigma_rows=True`` makes every served tile
+        attach each request's task-relatedness row.
+        """
+        self._check_fitted()
+        engine = self._engine(batch, source=self, gather_sigma_rows=gather_sigma_rows)
+        self._model_refs.append(weakref.ref(engine))
+        return engine
+
+    def serving_scheduler(
+        self,
+        batch: int = 32,
+        *,
+        slo_s: Optional[float] = None,
+        policy: str = "edf",
+        max_queue: Optional[int] = None,
+        clock=None,
+        metrics=None,
+    ):
+        """Continuous-batching scheduler over a fresh scoring engine
+        (serve/scheduler.py), subscribed to this estimator's snapshots:
+        ``partial_fit`` hot-swaps the served weights between tiles."""
+        from ..serve.scheduler import ContinuousBatchingScheduler
+
+        engine = self.scoring_engine(batch=batch)
+        kwargs = dict(slo_s=slo_s, policy=policy, max_queue=max_queue, metrics=metrics)
+        if clock is not None:
+            kwargs["clock"] = clock
+        scheduler = ContinuousBatchingScheduler(engine, **kwargs)
+        self._model_refs.append(weakref.ref(scheduler))
+        return scheduler
+
+    def serving_fleet(
+        self,
+        n_replicas: int = 2,
+        batch: int = 32,
+        *,
+        slo_s: Optional[float] = None,
+        policy: str = "edf",
+        max_queue: Optional[int] = None,
+        clock=None,
+        tile_cost_s: Optional[float] = None,
+        spill_depth: Optional[int] = None,
+    ):
+        """A ``FleetRouter`` over ``n_replicas`` fresh scheduler replicas
+        (serve/fleet.py), each wrapping its own scoring engine over the
+        fitted model on the estimator's device.
+
+        Only the ROUTER subscribes to this estimator: a later
+        ``partial_fit`` pushes new weights through the router's rolling
+        ``publish_weights`` (one replica per router step, monotonic reads
+        preserved), never to replicas individually — direct per-replica
+        pushes would restamp versions divergently and break the fleet's
+        shared version space. ``slo_s`` doubles as the router's shed
+        budget for deadline-less requests; give ``tile_cost_s`` to enable
+        backlog-estimate shedding.
+        """
+        self._check_fitted()
+        if n_replicas < 1:
+            raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
+        from ..serve.fleet import FleetRouter
+        from ..serve.scheduler import ContinuousBatchingScheduler
+
+        kwargs = dict(slo_s=slo_s, policy=policy, max_queue=max_queue)
+        if clock is not None:
+            kwargs["clock"] = clock
+        replicas = [
+            ContinuousBatchingScheduler(self._engine(batch), **kwargs)
+            for _ in range(n_replicas)
+        ]
+        router = FleetRouter(
+            replicas, slo_s=slo_s, tile_cost_s=tile_cost_s, spill_depth=spill_depth
+        )
+        self._model_refs.append(weakref.ref(router))
+        return router
 
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
         state = "fitted" if self._fitted else "unfitted"

@@ -17,6 +17,8 @@ from typing import Tuple
 
 import torch
 
+from .. import prng
+
 Tensor = torch.Tensor
 
 
@@ -42,6 +44,56 @@ def omega_step(W: Tensor, jitter: float = 1e-6) -> Tuple[Tensor, Tensor]:
     sigma = 0.5 * (sigma + sigma.T)
     omega = 0.5 * (omega + omega.T)
     return sigma, omega
+
+
+def omega_step_lowrank(
+    W: Tensor, rank: int, iters: int = 8, jitter: float = 1e-6
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Rank-r Zhang-Yeung Omega-step without ever forming M = W W^T.
+
+    Subspace iteration with W-matvecs only (V <- W (W^T V), QR) followed by
+    Rayleigh-Ritz on the r-dimensional subspace gives the top-r eigenpairs
+    of M; sqrt of the Ritz values are the leading singular values of the
+    paper's (W^T W)^{1/2}. The trailing spectral mass is folded into a
+    per-task residual diagonal d_i = sqrt(max(M_ii - sum_k lam_k U_ik^2, 0))
+    so the trace constraint still holds exactly after normalization.
+
+    The start block is the JAX package's, ``normal(PRNGKey(17), (m, r))``
+    (to float32 rounding). QR column signs and Ritz vectors inside
+    near-equal eigenvalues may differ from JAX's, but Sigma = U diag(s)
+    U^T + diag(d) does not: compare Sigma, never U.
+
+    Cost: O(m d r) per iteration + an r x r eigh — no m x m anything.
+    Exact at r >= rank(M) (in particular r = m), where it reproduces
+    ``omega_step``'s Sigma.
+
+    Returns ``(U, s, d)`` with U (m, r) orthonormal, s (r,) >= 0 Ritz-sqrt
+    weights and d (m,) > 0: Sigma = U diag(s) U^T + diag(d), tr == 1.
+    """
+    m = W.shape[0]
+    r = min(rank, m)
+    V = prng.normal(prng.PRNGKey(17), (m, r), device=W.device).to(W.dtype)
+    V, _ = torch.linalg.qr(V)
+    for _ in range(iters):
+        V, _ = torch.linalg.qr(W @ (W.T @ V))
+    T = V.T @ (W @ (W.T @ V))
+    evals, S = torch.linalg.eigh(0.5 * (T + T.T))
+    U = V @ S
+    lam = torch.clamp(evals, min=0.0)
+    s = torch.sqrt(lam)
+    # residual diagonal: spectral mass M_ii not captured by the subspace
+    M_diag = torch.sum(W * W, dim=1)
+    captured = torch.sum((U * U) * lam[None, :], dim=1)
+    d_raw = torch.sqrt(torch.clamp(M_diag - captured, min=0.0))
+    tr = torch.sum(s) + torch.sum(d_raw)
+    safe = tr > 1e-30
+    s_n = torch.where(safe, s / torch.clamp(tr, min=1e-30), torch.zeros_like(s))
+    d_n = torch.where(
+        safe, d_raw / torch.clamp(tr, min=1e-30), torch.ones_like(d_raw) / m
+    )
+    d_n = d_n + jitter
+    renorm = torch.sum(s_n) + torch.sum(d_n)
+    return U, s_n / renorm, d_n / renorm
 
 
 def init_sigma(

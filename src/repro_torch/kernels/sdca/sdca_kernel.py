@@ -30,7 +30,7 @@ from ..nvcc import INT, VP, check_tensor, launcher, raise_on
 SUPPORTED_LOSSES = ("hinge", "squared", "smoothed_hinge")
 SUPPORTED_BLOCKS = (16, 32, 64)
 SUPPORTED_CLUSTERS = (2, 4, 8)
-CLUSTER = 4  # CTAs per task in stage 2 (chosen by measurement, see the source)
+CLUSTER = 4  # CTAs per task in stage 2 while the tasks are few (``round_cluster``)
 # the block kernel's cluster sizes, and the narrowest column slab its
 # default cluster gives one CTA (chosen by measurement, chip_smoke.py phase
 # 2: at d = 100 four CTAs of 25 columns beat one, two and eight; at d = 784
@@ -74,6 +74,27 @@ def chain_smem_bytes(block: int, d: int, cluster: int) -> int:
     column slab and of its scratch, the slab of r, and per-block vectors."""
     slab = (-(-d // cluster) + 3) // 4 * 4
     return 4 * (2 * block * slab + 2 * _scratch_floats(block) + slab + 8 * block)
+
+
+def round_cluster(m: int, d: int, block: int, sms: int) -> int:
+    """Stage 2's default cluster for m tasks on a card of ``sms`` SMs.
+
+    While the tasks are fewer than the SMs, ``CLUSTER`` CTAs split each
+    task's chain (at MNIST width, 10 tasks, 4 and 8 measured equal and 2
+    does not fit d = 784). Once the tasks alone fill every SM, the fewest
+    CTAs per task that fit d run more chains per wave: at 4096 tasks and
+    d = 100 a round took 1.025 ms at 2, 1.590 at 4 and 2.802 at 8 (H100,
+    ``chip_smoke.py`` phase 2)."""
+    if m < sms:
+        return CLUSTER
+    fits = [c for c in SUPPORTED_CLUSTERS if chain_smem_bytes(block, d, c) <= MAX_SMEM_BYTES]
+    return min(fits, default=CLUSTER)
+
+
+def _cluster_for(x: torch.Tensor, block: int) -> int:
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count \
+        if x.device.type == "cuda" else 0
+    return round_cluster(x.shape[0], x.shape[2], block, sms)
 
 
 def _round_checks(x, y, alpha, w, u, n, kappa, loss, block, cluster):
@@ -123,10 +144,12 @@ def sdca_round_kernel(
     kappa: torch.Tensor,  # (m,) rho * sigma_ii / (lambda * n_i)
     loss: str,
     block: int = 64,
-    cluster: int = CLUSTER,
+    cluster: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One fused local round for every task: (dalpha (m, n_max), r (m, d)).
-    ``cluster`` is the number of CTAs that share a task's chain (stage 2)."""
+    ``cluster`` is the number of CTAs that share a task's chain (stage 2;
+    default: ``round_cluster``)."""
+    cluster = _cluster_for(x, block) if cluster is None else cluster
     m, n_max, d, H = _round_checks(x, y, alpha, w, u, n, kappa, loss, block, cluster)
     f32, dev = torch.float32, x.device
     n_blocks = H // block
@@ -146,12 +169,13 @@ def sdca_round_stage(
     dalpha: torch.Tensor,  # (m, n_max), updated in place by stage 2
     r: torch.Tensor,  # (m, d), updated in place by stage 2
     block: int = 64,
-    cluster: int = CLUSTER,
+    cluster: Optional[int] = None,
 ) -> None:
     """Launch one stage of the round alone on the caller's buffers, to time
     the two apart: stage 1 writes every block's Gram, q and metadata into
     ``scratch``; stage 2 reads them and runs the chains into ``dalpha`` and
     ``r``. Not counted in ``sdca_round_kernel.launches``."""
+    cluster = _cluster_for(x, block) if cluster is None else cluster
     m, n_max, d, H = _round_checks(x, y, alpha, w, u, n, kappa, loss, block, cluster)
     if stage not in (1, 2):
         raise ValueError(f"stage must be 1 or 2, got {stage}")

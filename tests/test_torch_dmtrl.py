@@ -83,10 +83,17 @@ def test_config_fields_and_defaults_match_jax():
 
 
 @pytest.mark.parametrize("bad", [dict(omega_regularizer="nope"),
-                                 dict(omega_regularizer="low_rank_diag")])
+                                 dict(omega_regularizer="low_rank")])
 def test_config_validation(bad):
     with pytest.raises(ValueError, match="unknown omega_regularizer"):
         DMTRLConfig(**bad)
+
+
+@pytest.mark.parametrize("name", ["graph_laplacian", "frobenius_shrunk", "low_rank_diag",
+                                  "graphical_lasso"])
+def test_config_names_every_member_jax_names(name):
+    assert DMTRLConfig(omega_regularizer=name).omega_regularizer == \
+        jdmtrl.DMTRLConfig(omega_regularizer=name).omega_regularizer
 
 
 @pytest.mark.parametrize("fields", [

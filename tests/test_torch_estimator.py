@@ -30,7 +30,8 @@ def pair(small_problem, port_problem, cfgs):
     jcfg, tcfg = cfgs
     je = JaxEstimator(engine="reference", config=jcfg).fit(small_problem.train)
     te = DMTRLEstimator(config=tcfg, device="cpu").fit(port_problem.train)
-    after_fit = {k: np.array(getattr(je, k)) if k not in ("history_", "rho_per_outer_")
+    after_fit = {k: np.array(getattr(je, k))
+                 if k not in ("history_", "rho_per_outer_", "sigma_view_")
                  else getattr(je, k) for k in STATE_KEYS}
     W_fit = (np.asarray(je.W_).copy(), te.W_.clone())
     je.partial_fit(small_problem.train)
@@ -130,3 +131,42 @@ def test_learn_omega_false_is_identity_stl(port_problem, cfgs):
     assert te.regularizer.name == "identity_stl"
     te.fit(port_problem.train)
     torch.testing.assert_close(te.sigma_, torch.eye(4) / 4)
+
+
+@pytest.mark.parametrize("name,params", [("low_rank_diag", {"rank": 3}),
+                                         ("graphical_lasso", {"penalty": 0.5})])
+def test_from_reference_carries_a_structured_fit(small_problem, port_problem, cfgs,
+                                                 name, params):
+    """A JAX estimator fitted with a structured member crosses over through
+    its sigma_view_'s factors: the port predicts, serves the same Sigma
+    rows and continues training as the JAX estimator does."""
+    from repro.serve import ScoreRequest as JaxRequest
+    from repro_torch.serve import ScoreRequest
+
+    je = JaxEstimator(config=cfgs[0], regularizer=name,
+                      regularizer_params=params).fit(small_problem.train)
+    state = {k: getattr(je, k) for k in STATE_KEYS}
+    te = from_reference(state, device="cpu", config=cfgs[1], regularizer=name,
+                        regularizer_params=params)
+    assert type(te.sigma_view_).__name__ == type(je.sigma_view_).__name__
+    np.testing.assert_allclose(te.sigma_view_.dense().numpy(),
+                               np.asarray(je.sigma_view_.dense()), atol=1e-7)
+    X = np.array(small_problem.test.x[1, :9])
+    np.testing.assert_allclose(te.decision_function(X, tasks=1).numpy(),
+                               je.decision_function(X, tasks=1), atol=1e-6)
+    tasks = [0, 3, 1, 2, 3]
+    jeng = je.scoring_engine(batch=4, gather_sigma_rows=True)
+    teng = te.scoring_engine(batch=4, gather_sigma_rows=True)
+    np.testing.assert_allclose(teng.sigma_rows_for(tasks), jeng.sigma_rows_for(tasks), atol=1e-6)
+    jreqs = [JaxRequest(task=t, x=X[k]) for k, t in enumerate(tasks)]
+    treqs = [ScoreRequest(task=t, x=X[k]) for k, t in enumerate(tasks)]
+    jeng.run_tile(jreqs[:4], jeng.model_snapshot())
+    teng.run_tile(treqs[:4], teng.model_snapshot())
+    for a, b in zip(treqs[:4], jreqs[:4]):
+        assert a.score == pytest.approx(b.score, abs=1e-5)
+        np.testing.assert_allclose(a.sigma_row, b.sigma_row, atol=1e-6)
+    je.partial_fit(small_problem.train)
+    te.partial_fit(port_problem.train)
+    np.testing.assert_allclose(te.W_.numpy(), np.asarray(je.W_), atol=2e-4)
+    np.testing.assert_allclose(te.sigma_.numpy(), np.asarray(je.sigma_), atol=1e-5)
+    assert teng.version == 2  # the push reached the engine

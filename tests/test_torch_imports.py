@@ -38,7 +38,11 @@ def test_port_has_modules():
             "configs/base.py", "configs/zamba2_2_7b.py",
             "models/common.py", "models/mlp.py", "models/attention.py",
             "models/ssm.py", "models/transformer.py",
-            "serve/scheduler.py", "serve/engine.py"} <= names
+            "serve/scheduler.py", "serve/engine.py", "serve/mtl.py", "serve/fleet.py",
+            "serve/metrics.py", "serve/__init__.py",
+            "obs/__init__.py", "obs/trace.py", "obs/metrics.py", "obs/export.py",
+            "core/sigma_view.py", "core/omega.py", "core/omega_regularizers.py",
+            "core/engines.py"} <= names
     for cu in ("sdca/csrc/sdca_round.cu", "sdca/csrc/sdca_block.cu",
                "flash/csrc/flash_fwd.cu", "ssd/csrc/ssd_chunk.cu"):
         assert (PORT / "kernels" / cu).exists(), cu
@@ -59,6 +63,7 @@ def test_import_pulls_in_no_jax():
         "import repro_torch, repro_torch.core, repro_torch.convert, repro_torch.prng\n"
         "import repro_torch.kernels.sdca, repro_torch.data.synthetic\n"
         "import repro_torch.serve.scheduler, repro_torch.serve.engine\n"
+        "import repro_torch.serve.mtl, repro_torch.serve.fleet, repro_torch.obs\n"
         "import repro_torch.kernels.flash, repro_torch.kernels.ssd, repro_torch.models\n"
         "import repro_torch.configs\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"

@@ -444,3 +444,15 @@ def test_block_kernel_refuses_unsupported_cluster(cuda):
     with pytest.raises(ValueError, match="clusters"):
         sdca_kernel.sdca_block_kernel(xb, w, r, at0, yb, cb.to(torch.int32), kappa, "hinge",
                                       cluster=3)
+
+
+def test_round_cluster_rule():
+    """Stage 2 keeps CLUSTER CTAs per task while the tasks are fewer than the
+    SMs, and takes the fewest that fit d once they fill the card."""
+    rc = sdca_kernel.round_cluster
+    assert rc(10, 784, 64, 132) == sdca_kernel.CLUSTER
+    assert rc(131, 100, 64, 132) == sdca_kernel.CLUSTER
+    assert rc(4096, 100, 64, 132) == 2
+    fits = [c for c in sdca_kernel.SUPPORTED_CLUSTERS
+            if sdca_kernel.chain_smem_bytes(64, 784, c) <= sdca_kernel.MAX_SMEM_BYTES]
+    assert rc(4096, 784, 64, 132) == min(fits) > 2
