@@ -48,7 +48,17 @@ Phases, each printing its own lines:
               Synthetic-1 (m = 4096, d = 100, about 100 rows a task)
               through the round kernel, its test rows served with their
               Sigma rows, and one graphical_lasso Omega-step (phase 2 holds
-              the round kernel against its plain version at this shape).
+              the round kernel against its plain version at this shape);
+  7. the parameter server — (a) fit_async over the threaded server, 2
+              worker threads at MNIST width through the round kernel (2
+              launches a round), held against the one-process fit, then at
+              tau = 1 with worker 1 paced 4x and under the int8 codec; (b)
+              the multiprocess server (2 worker processes) on Synthetic-1
+              against the threaded one; (c) the gossip ring of 4 nodes on
+              Synthetic-1 through the block kernel; (d) the paper's claims:
+              Table 2 on school_like (DMTRL, STL, centralized MTRL), the
+              smooth loss converging faster (Theorems 8/9), Theta and
+              rho_min on phase 3's model, SSDCA reaching DMTRL's dual.
 
 It exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository. The line before the last is a JSON object with
@@ -134,6 +144,13 @@ MANY_M, MANY_D, MANY_N_TRAIN, MANY_N_TEST, MANY_RANK = 4096, 100, 100, 50, 32
 # at 1e-5. Sigma rows gathered from the factors against the dense view:
 # the same products in another order, 1e-6 as in tests/test_sigma_view.py.
 TOL_SCORE, TOL_SIGMA_ROW = 1e-5, 1e-6
+# the parameter server (phase 7): 2 workers over the server at MNIST width
+# and on Synthetic-1 (phase 4's lambda there), the second one paced 4x at
+# tau = 1; the gossip ring over 4 nodes
+PS_WORKERS, PS_DELAYS, GOSSIP_NODES = 2, (1, 4), 4
+PS_CFG = dict(solver="pallas_round", loss="hinge", lam=1e-4, outer_iters=2, rounds=3,
+              local_iters=0, block_size=BLOCK)
+SYN_LAM = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -839,6 +856,259 @@ def structured_path(torch, dev, card: str, data) -> None:
     check(lam_min >= -1e-6, f"graphical_lasso Sigma is not PSD: {lam_min}")
 
 
+def wire_counters(transport: str, codec: str, topology: str = "star") -> dict:
+    """The wire_stats that fit_async published (obs gauges) for its last
+    run over ``transport`` under ``codec``."""
+    from repro_torch.obs.metrics import get_registry
+
+    reg = get_registry()
+    keys = ("n_snapshots", "n_commits", "snapshot_bytes", "commit_bytes", "mix_bytes",
+            "raw_snapshot_bytes", "raw_commit_bytes", "raw_mix_bytes", "n_exchanges",
+            "spectral_gap")
+    return {k: reg.gauge(f"repro_transport_{k}", labels=("transport", "codec", "topology"))
+            .value(transport=transport, codec=codec, topology=topology) for k in keys}
+
+
+def parameter_server_path(torch, dev, card: str, train, syn) -> None:
+    """Phase 7a-c: fit_async over the threaded server at MNIST width (held
+    against the single-process fit), at tau = 1 with a straggler and under
+    the int8 codec; the multiprocess server on Synthetic-1 against the
+    threaded one; the gossip ring through the block kernel."""
+    import dataclasses
+
+    from repro_torch import obs
+    from repro_torch.core import AsyncOptions, DMTRLConfig, fit, fit_async
+    from repro_torch.core import convergence as cv
+    from repro_torch.core.solver_backends import get_backend
+    from repro_torch.kernels.sdca import reset_launch_counts, sdca_block_kernel, sdca_round_kernel
+
+    cfg = DMTRLConfig(**PS_CFG)
+    rounds = cfg.outer_iters * cfg.rounds
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    def run(data, transport, workers, cfg=cfg, **kw):
+        reset_launch_counts()
+        opts = AsyncOptions(transport=transport, n_workers=workers, **kw)
+        out, sec = timed(lambda: fit_async(cfg, data, options=opts, device=dev))
+        return out, sec, sdca_round_kernel.launches, sdca_block_kernel.launches
+
+    # 7a: the threaded server at full width against the one-process fit
+    ref, ref_s = timed(lambda: fit(cfg, train, device=dev))
+    obs.enable(clear=True)  # the transport's gate/snapshot/solve/commit spans
+    (W, S, _, h0), s0, k1, k2 = run(train, "threaded", PS_WORKERS)
+    obs.disable()
+    spans = obs.phase_breakdown(cat="transport")
+    dW = (W - ref.W).abs().max().item()
+    dS = (S - ref.sigma).abs().max().item()
+    print(f"[7a threaded] x {tuple(train.x.shape)}, {PS_WORKERS} worker threads, tau 0: "
+          f"max|W - fit| {dW:.3e} (tolerance {TOL_W:.0e}), max|Sigma - fit| {dS:.3e} "
+          f"(tolerance {TOL_SIGMA:.0e}); sdca_round launches {k1} = {k1 / rounds:g} per "
+          f"round; {s0 * 1e3 / rounds:.1f} ms/round wall against {ref_s * 1e3 / rounds:.1f} "
+          f"for the one-process fit (objectives per commit and Omega-steps included); gap "
+          f"{np.array2string(h0['gap'], precision=5)} on {card}")
+    check(k1 == PS_WORKERS * rounds, f"sdca_round launched {k1} times, expected "
+          f"{PS_WORKERS} per round")
+    check(k2 == 0, "the threaded MNIST path launched sdca_block")
+    check(dW <= TOL_W, "the threaded fit's W disagrees with the one-process fit")
+    check(dS <= TOL_SIGMA, "the threaded fit's Sigma disagrees with the one-process fit")
+    check(bool(np.all(np.isfinite(h0["gap"]))), "threaded gap is not finite")
+    print("[7a split] per round, host clock (spans summed over both workers): "
+          + ", ".join(f"{k} {spans[k]['total_s'] * 1e3 / rounds:.3f} ms ({spans[k]['count']})"
+                      for k in ("gate", "snapshot", "snapshot_encode", "snapshot_decode",
+                                "solve", "commit") if k in spans))
+    gap0 = abs(float(h0["gap"][-1]))
+    wires = {"none": wire_counters("threaded", "none")}
+    (_, _, _, h1), s1, k1b, _ = run(train, "threaded", PS_WORKERS, tau=1,
+                                    async_delays=PS_DELAYS)
+    stale = cv.staleness_summary(h1)
+    print(f"[7a tau=1] worker delays {PS_DELAYS} (x {1e3 * 0.005:g} ms of sleep): "
+          f"{s1 * 1e3 / rounds:.1f} ms/round wall; max lag {h1['w_lag'].max()}, max "
+          f"staleness {h1['w_staleness'].max()}; final gap {float(h1['gap'][-1]):.5f} against "
+          f"{gap0:.5f} at tau 0; staleness_summary {stale}; sdca_round launches {k1b}; "
+          f"gap {np.array2string(h1['gap'], precision=5)}, commits by worker "
+          f"{h1['w_worker'].tolist()}, their staleness {h1['w_staleness'].tolist()}")
+    check(h1["w_lag"].max() <= 1, f"lag {h1['w_lag'].max()} exceeds tau = 1")
+    check(h1["w_staleness"].max() >= 1, "no commit was stale at tau = 1")
+    check(float(h1["gap"][-1]) <= 2.0 * gap0 + 1e-9, "tau = 1 gap above twice the tau = 0 gap")
+    # the same fit again, warm: its device share under torch.profiler, and
+    # its wall with the interpreter's thread switch interval cut from 5 ms
+    # to 0.1 ms (the workers hand the interpreter lock to each other at
+    # every synchronization: snapshot copies, objectives, the solve's wait)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, sp, _, _ = run(train, "threaded", PS_WORKERS)
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-4)
+    try:
+        _, ssw, _, _ = run(train, "threaded", PS_WORKERS)
+    finally:
+        sys.setswitchinterval(switch)
+    print(f"[7a warm] {sp * 1e3 / rounds:.1f} ms/round wall under torch.profiler, device busy "
+          f"{busy_ms / rounds:.2f} ms/round = {busy_ms / (sp * 1e3):.1%} of wall; with a "
+          f"0.1 ms switch interval (default {switch * 1e3:g} ms): {ssw * 1e3 / rounds:.1f} "
+          f"ms/round wall")
+    (_, _, _, h8), s8, _, _ = run(train, "threaded", PS_WORKERS, codec="int8")
+    wires["int8"] = wire_counters("threaded", "int8")
+    for codec, w in wires.items():
+        print(f"[7a wire {codec}] per round: snapshots {w['snapshot_bytes'] / rounds:.0f} B "
+              f"(raw {w['raw_snapshot_bytes'] / rounds:.0f}), commits "
+              f"{w['commit_bytes'] / rounds:.0f} B (raw {w['raw_commit_bytes'] / rounds:.0f}); "
+              f"{int(w['n_snapshots'])} snapshots, {int(w['n_commits'])} commits")
+    print(f"[7a int8] {s8 * 1e3 / rounds:.1f} ms/round wall; final primal "
+          f"{float(h8['primal'][-1]):.6f} against {float(h0['primal'][-1]):.6f} exact")
+    check(abs(float(h8["primal"][-1]) - float(h0["primal"][-1]))
+          <= 2e-2 * max(1.0, abs(float(h0["primal"][-1]))), "int8 run outside its bound")
+
+    # 7b: worker processes on Synthetic-1 against the threaded server
+    data = syn.train.to(dev)
+    scfg = dataclasses.replace(cfg, lam=SYN_LAM)
+    (Wt, St, _, ht), st_s, kt, _ = run(data, "threaded", PS_WORKERS, cfg=scfg)
+    obs.enable(clear=True)
+    (Wm, Sm, _, hm), sm_s, _, _ = run(data, "multiprocess", PS_WORKERS, cfg=scfg)
+    obs.disable()
+    spans = obs.phase_breakdown(cat="transport")
+    start_s = spans["start_workers"]["total_s"]
+    stop_s = spans["stop_workers"]["total_s"]
+    dW = (Wm - Wt).abs().max().item()
+    dS = (Sm - St).abs().max().item()
+    print(f"[7b multiprocess] x {tuple(data.x.shape)}, {PS_WORKERS} worker processes: "
+          f"start-up {start_s:.2f} s (spawn, import, block to the card), exit "
+          f"{stop_s:.2f} s, rounds {(sm_s - start_s - stop_s) * 1e3 / rounds:.1f} ms/round "
+          f"wall against {st_s * 1e3 / rounds:.1f} threaded ({kt} sdca_round launches there); "
+          f"max|W - threaded| {dW:.3e}, max|Sigma - threaded| {dS:.3e}; gap "
+          f"{float(hm['gap'][0]):.5f} -> {float(hm['gap'][-1]):.5f}")
+    check(dW <= TOL_W and dS <= TOL_SIGMA, "the multiprocess fit disagrees with the threaded one")
+    check(hm["w_lag"].max() == 0 and len(hm["w_worker"]) == PS_WORKERS * rounds,
+          "multiprocess commits")
+
+    # 7c: the gossip ring through the block kernel
+    gcfg = dataclasses.replace(scfg, solver="pallas_block")
+    H = get_backend("pallas_block").round_local_iters(data.n_max, BLOCK)
+    obs.enable(clear=True)
+    (Wg, Sg, _, hg), sg_s, _, kb = run(data, "gossip", GOSSIP_NODES, cfg=gcfg, topology="ring")
+    obs.disable()
+    spans = obs.phase_breakdown(cat="transport")
+    wg = wire_counters("gossip", "none", "ring")
+    sys.setswitchinterval(1e-4)
+    try:
+        _, sg_sw, _, _ = run(data, "gossip", GOSSIP_NODES, cfg=gcfg, topology="ring")
+    finally:
+        sys.setswitchinterval(switch)
+    print(f"[7c gossip] ring of {GOSSIP_NODES}, spectral gap {wg['spectral_gap']:.4f}: "
+          f"{sg_s * 1e3 / rounds:.1f} ms/round wall ({sg_sw * 1e3 / rounds:.1f} with a 0.1 ms "
+          f"switch interval); sdca_block launches {kb} "
+          f"(= {GOSSIP_NODES} nodes x {rounds} rounds x {H // BLOCK} blocks); "
+          f"{int(wg['n_exchanges'])} exchanges, {wg['mix_bytes'] / rounds:.0f} B mixed per "
+          f"round; gap per commit {np.array2string(hg['gap'], precision=4)}")
+    print("[7c split] per round, host clock (spans summed over the nodes): "
+          + ", ".join(f"{k} {spans[k]['total_s'] * 1e3 / rounds:.3f} ms ({spans[k]['count']})"
+                      for k in ("gate", "snapshot", "snapshot_encode", "solve", "commit")
+                      if k in spans))
+    check(kb == GOSSIP_NODES * rounds * (H // BLOCK), f"sdca_block launched {kb} times")
+    check(bool(np.all(np.isfinite(hg["gap"]))) and hg["gap"][-1] < hg["gap"][0],
+          "the gossip gap did not shrink")
+
+
+def paper_claims(torch, dev, card: str, est, train) -> None:
+    """Phase 7d: the paper's claims on the card (the bars of
+    benchmarks/paper.py and tests/test_dmtrl.py)."""
+    import dataclasses
+
+    from repro_torch import prng
+    from repro_torch.core import DMTRLConfig, fit, w_step
+    from repro_torch.core import baselines, dual as dm, omega as om
+    from repro_torch.core import convergence as cv
+    from repro_torch.core.losses import get_loss
+    from repro_torch.core.transport import make_block_solver
+    from repro_torch.data.synthetic import school_like, synthetic
+
+    # Table 2 on School: DMTRL no worse than STL, within 5 % of centralized
+    sp = school_like(seed=0)
+    tr, te = sp.train.to(dev), sp.test.to(dev)
+    cfg = DMTRLConfig(loss="squared", lam=1e-3, outer_iters=4, rounds=10,
+                      local_iters=128, seed=0)
+    t = time.perf_counter()
+    res = fit(cfg, tr, device=dev)
+    stl = baselines.fit_stl(cfg, tr, device=dev)
+    Wc, _, _ = baselines.fit_centralized_mtrl(cfg, tr, inner_steps=500, device=dev)
+    rmse = {k: float(dm.rmse(te, W)) for k, W in
+            (("dmtrl", res.W), ("stl", stl.W), ("centralized", Wc))}
+    print(f"[7d table2] school_like x {tuple(tr.x.shape)}: RMSE {rmse} "
+          f"({time.perf_counter() - t:.2f} s)")
+    check(rmse["dmtrl"] <= rmse["stl"] + 1e-3, "Table 2: DMTRL worse than STL")
+    check(abs(rmse["dmtrl"] - rmse["centralized"]) <= 0.05 * rmse["centralized"],
+          "Table 2: DMTRL not within 5 % of centralized MTRL")
+
+    # Theorems 8/9: the smooth loss's dual suboptimality falls faster
+    data = synthetic(1, m=8, d=60, n_train_avg=200, n_test_avg=50, seed=0).train.to(dev)
+    sigma0, _ = om.init_sigma(data.m, device=dev)
+    slopes = {}
+    for loss in ("squared", "hinge"):
+        c = DMTRLConfig(loss=loss, lam=1e-3, rounds=40, local_iters=256, seed=0)
+        zeros = (torch.zeros((data.m, data.n_max), device=dev),
+                 torch.zeros((data.m, data.d), device=dev))
+        _, _, hist = w_step(c, data, *zeros, sigma0, 1.0, prng.PRNGKey(0))
+        d_star = hist["dual"][-1] + hist["gap"][-1]
+        subopt = np.maximum(d_star - hist["dual"], 1e-12)
+        slopes[loss] = float(np.polyfit(hist["round"][:20], np.log(subopt[:20]), 1)[0])
+    print(f"[7d theory] log-suboptimality slope per round over the first 20: {slopes}")
+    check(slopes["squared"] < slopes["hinge"] < 0, "smooth loss does not converge faster")
+
+    # Assumption 1's Theta on phase 3's problem at the fit's first round
+    # (alpha = 0, W = 0, Sigma = I/m, rho = 1: later the local subproblem
+    # barely moves and Theta is float32 noise), one task's 1024-step round
+    # through the round kernel against 20000 naive steps; Eq. (5)'s rho_min
+    # on the fitted Sigma against the Lemma-10 rho a next W-step would use
+    lam = est.config.lam
+    sigma0, _ = om.init_sigma(train.m, device=dev)
+    alpha0 = torch.zeros_like(train.y)
+    W0 = torch.zeros((train.m, train.d), device=dev)
+    rho0 = est.rho_per_outer_[0]
+    solve = make_block_solver(dataclasses.replace(est.config, local_iters=1024),
+                              train.n_max, rho0)
+    dalpha, _ = solve(train.x, train.y, alpha0, W0, train.n, sigma0,
+                      torch.arange(train.m), prng.PRNGKey(7))
+    t = time.perf_counter()
+    th = cv.measure_theta(train, 3, alpha0, W0, sigma0, rho0, lam, "hinge", dalpha[3])
+    th_s = time.perf_counter() - t
+    sigma = est.sigma_
+    rho = float(om.rho_lemma10(sigma))
+    t = time.perf_counter()
+    rho_min = cv.rho_min_power_iteration(train, sigma)
+    print(f"[7d theta] task 3, a 1024-step round against 20000 naive steps: {th} "
+          f"({th_s:.2f} s); rho_min (power iteration) {rho_min:.5f} <= Lemma 10 "
+          f"{rho:.5f} on the fitted Sigma ({time.perf_counter() - t:.2f} s); rho per outer "
+          f"of the fit {[round(r, 5) for r in est.rho_per_outer_]}")
+    check(0.0 <= th["theta"] <= 1.0, f"Theta {th['theta']} outside [0, 1]")
+    check(rho_min <= rho * (1 + 1e-5), "rho_min above the Lemma-10 bound")
+
+    # SSDCA: the single-machine exact solver reaches DMTRL's dual
+    data = synthetic(1, m=4, d=24, n_train_avg=60, n_test_avg=20, seed=3).train.to(dev)
+    cfg = DMTRLConfig(loss="hinge", lam=1e-2, outer_iters=1, rounds=25, local_iters=128,
+                      learn_omega=False, seed=0)
+    res = fit(cfg, data, device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, _, hist = baselines.fit_ssdca(cfg, data, passes=25, device=dev)
+    torch.cuda.synchronize()
+    ss_s = time.perf_counter() - t
+    sig, _ = om.init_sigma(data.m, device=dev)
+    d_dmtrl = float(dm.dual_objective(data, res.alpha, sig, cfg.lam, get_loss("hinge")))
+    print(f"[7d ssdca] {data.m} x {data.n_max} coordinates a pass, 25 passes: dual "
+          f"{hist['dual'][-1]:.6f} against DMTRL's {d_dmtrl:.6f}; "
+          f"{ss_s * 1e3 / 25:.1f} ms per pass on {card} (one eager step per coordinate)")
+    check(abs(d_dmtrl - hist["dual"][-1]) <= 0.05 * abs(hist["dual"][-1]),
+          "SSDCA's dual not within 5 % of DMTRL's")
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: run it from a checkout of the repository "
@@ -1126,6 +1396,12 @@ def main() -> int:
     mtl_serving_path(torch, dev, card, est, train, test)
     structured_path(torch, dev, card, many)
     print(f"[6] {time.perf_counter() - t6:.1f} s wall")
+
+    # -- phase 7: the parameter server; 7d: the paper's claims ---------------
+    t7 = time.perf_counter()
+    parameter_server_path(torch, dev, card, train, syn)
+    paper_claims(torch, dev, card, est, train)
+    print(f"[7] {time.perf_counter() - t7:.1f} s wall")
 
     kernels = [
         dict(name="sdca_round", route="cuda",

@@ -4,6 +4,8 @@
     est = DMTRLEstimator(loss="hinge", solver="pallas_round")   # on the card
     est.fit(train).score(test)
 """
+from .async_dmtrl import AsyncOptions, fit_async
+from .distributed import MeshAxes
 from .dmtrl import (
     DMTRLConfig,
     DMTRLResult,

@@ -20,6 +20,7 @@ passes ``device="cpu"``.
 from __future__ import annotations
 
 import dataclasses
+import numbers
 from typing import Dict, List, Optional, Union
 
 import numpy as np
@@ -48,14 +49,112 @@ def resolve_device(device="cuda") -> torch.device:
     return device
 
 
+def validate_tau(tau) -> None:
+    """Eagerly reject malformed staleness bounds (e.g. tau="fast") so the
+    error surfaces at config/option construction, not mid-fit."""
+    if tau == "auto":
+        return
+    if not isinstance(tau, int) or isinstance(tau, bool):
+        raise ValueError(f'tau must be an int >= 0 or "auto", got {tau!r}')
+    if tau < 0:
+        raise ValueError(f"tau must be >= 0, got {tau}")
+
+
+def validate_topology(topology) -> None:
+    """Eagerly reject malformed gossip topologies. Named topologies are
+    checked against the known set; an explicit adjacency must be a square
+    symmetric 0/1 matrix (connectivity is checked at transport setup,
+    where the worker count is known)."""
+    if isinstance(topology, str):
+        if topology not in ("ring", "torus", "complete"):
+            raise ValueError(
+                f"topology must be 'ring' | 'torus' | 'complete' or an "
+                f"explicit adjacency matrix, got {topology!r}"
+            )
+        return
+    adj = np.asarray(topology)
+    if adj.ndim != 2 or adj.shape[0] != adj.shape[1] or adj.shape[0] < 1:
+        raise ValueError(
+            f"adjacency topology must be a square matrix, got shape {adj.shape}"
+        )
+    if not np.array_equal(adj, adj.T):
+        raise ValueError("adjacency topology must be symmetric")
+    if not np.isin(adj, (0, 1)).all():
+        raise ValueError("adjacency topology entries must be 0/1")
+
+
+def validate_async_fields(
+    tau,
+    tau_max,
+    async_delays,
+    omega_delay,
+    transport="simulated",
+    n_workers=None,
+    staleness_budget=None,
+    topology="complete",
+    codec="none",
+) -> None:
+    """Shared eager validation for DMTRLConfig and AsyncOptions."""
+    validate_tau(tau)
+    if not isinstance(transport, str):
+        raise ValueError(
+            f"transport must be a core.transport member name, got {transport!r}"
+        )
+    validate_topology(topology)
+    if not isinstance(codec, str):
+        raise ValueError(f"codec must be a core.wire codec name, got {codec!r}")
+    from .wire import available_codecs  # local: wire is numpy-only
+
+    if codec not in available_codecs():
+        raise ValueError(
+            f"unknown wire codec {codec!r}; have {sorted(available_codecs())}"
+        )
+    if n_workers is not None and (
+        not isinstance(n_workers, numbers.Integral)
+        or isinstance(n_workers, bool)
+        or n_workers < 1
+    ):
+        raise ValueError(f"n_workers must be an int >= 1 or None, got {n_workers!r}")
+    if staleness_budget is not None and (
+        isinstance(staleness_budget, bool)
+        or not isinstance(staleness_budget, numbers.Real)
+        or staleness_budget < 0
+    ):
+        raise ValueError(
+            f"staleness_budget must be a float >= 0 or None, got {staleness_budget!r}"
+        )
+    if staleness_budget is not None and tau != "auto":
+        raise ValueError(
+            f'staleness_budget only drives the tau="auto" controller; it '
+            f"would be silently ignored with tau={tau!r}"
+        )
+    if not isinstance(tau_max, int) or isinstance(tau_max, bool) or tau_max < 0:
+        raise ValueError(f"tau_max must be an int >= 0, got {tau_max!r}")
+    if not isinstance(omega_delay, int) or isinstance(omega_delay, bool) or omega_delay < 0:
+        raise ValueError(f"omega_delay must be an int >= 0, got {omega_delay!r}")
+    if async_delays is not None:
+        # numbers.Integral admits numpy ints (delay schedules are often
+        # built from numpy arrays); _worker_delays coerces them with int()
+        bad = [
+            v
+            for v in async_delays
+            if not isinstance(v, numbers.Integral) or isinstance(v, bool) or v < 1
+        ]
+        if bad:
+            raise ValueError(
+                f"async_delays entries must be ints >= 1, got {async_delays!r}"
+            )
+
+
 @dataclasses.dataclass(frozen=True)
 class DMTRLConfig:
     """Core algorithm config, field for field the JAX package's.
 
-    The per-engine knobs at the bottom (async staleness, distributed gram
-    options) belong to engines this package does not have yet; they are
-    kept, unchecked and unread, so that a JAX config carries over
-    unchanged.
+    The per-engine knobs at the bottom are the legacy surface of the async
+    engine (``core/async_dmtrl.py``; the estimator takes them as typed
+    ``AsyncOptions`` instead) and of the mesh engine, which is not ported
+    (its two gram options are kept, unread, so that a JAX config carries
+    over unchanged).
     """
 
     loss: str = "hinge"
@@ -76,21 +175,40 @@ class DMTRLConfig:
     omega_regularizer: str = "trace_constraint"  # family member name,
     #               resolved through core.omega_regularizers
     seed: int = 0
-    gram_bf16: bool = False  # distributed engine (not ported yet)
-    dist_block_hoisted: bool = False  # distributed engine (not ported yet)
+    gram_bf16: bool = False  # mesh engine (not ported: ROADMAP §A item 15)
+    dist_block_hoisted: bool = False  # mesh engine (not ported)
     track_every: int = 1  # record objectives every k rounds
-    # --- async engine (legacy; not ported yet) ------------------------------
-    tau: Union[int, str] = 0
-    tau_max: int = 8
-    async_delays: Optional[tuple] = None
-    omega_delay: int = 0
-    transport: str = "simulated"
-    n_workers: Optional[int] = None
-    staleness_budget: Optional[float] = None
-    topology: Union[str, tuple] = "complete"
-    codec: str = "none"
+    # --- async engine (legacy; see async_dmtrl.AsyncOptions) ---------------
+    tau: Union[int, str] = 0  # staleness bound: a worker may run at most tau
+    #               rounds ahead of the slowest worker (0 == bulk-
+    #               synchronous); "auto" adapts it online (transport._adapt_tau)
+    tau_max: int = 8  # upper bound for the tau="auto" adaptation
+    async_delays: Optional[tuple] = None  # per-worker solve duration in
+    #               ticks (host transports: sleep pacing); None == all 1
+    omega_delay: int = 0  # server commits the Omega-step install waits for
+    transport: str = "simulated"  # snapshot/commit substrate, resolved
+    #               through core.transport: "threaded" | "multiprocess" |
+    #               "gossip" ("simulated" needs a mesh and raises)
+    n_workers: Optional[int] = None  # host-transport worker count; None == 1
+    staleness_budget: Optional[float] = None  # tau="auto" cost target
+    topology: Union[str, tuple] = "complete"  # gossip neighbor graph:
+    #               "ring" | "torus" | "complete" or an explicit symmetric
+    #               0/1 adjacency (nested tuples); gossip transport only
+    codec: str = "none"  # wire codec for (delta_w, Sigma) messages,
+    #               resolved through core.wire: "none" | "bf16" | "int8"
 
     def __post_init__(self):
+        validate_async_fields(
+            self.tau,
+            self.tau_max,
+            self.async_delays,
+            self.omega_delay,
+            transport=self.transport,
+            n_workers=self.n_workers,
+            staleness_budget=self.staleness_budget,
+            topology=self.topology,
+            codec=self.codec,
+        )
         if self.omega_regularizer not in omega_reg.available_regularizers():
             raise ValueError(
                 f"unknown omega_regularizer {self.omega_regularizer!r}; "

@@ -89,6 +89,57 @@ def duality_gap(
     )
 
 
+def local_subproblem_objective(
+    data: MTLData,
+    i: int,
+    dalpha_i: Tensor,
+    alpha: Tensor,
+    w_i: Tensor,
+    sigma_ii,
+    rho: float,
+    lam: float,
+    loss: Loss,
+    m: int,
+) -> Tensor:
+    """D_i^rho of Eq. (4) for one task, without its constant term (used in
+    tests and the Theta measurement):
+
+    D_i^rho = -(1/n_i) sum_j l*(-(alpha_j + dalpha_j))
+              -(1/n_i) sum_j dalpha_j w_i^T x_j
+              -(rho/(2 lam)) dalpha^T K_[ii] dalpha
+    with K_[ii] = (sigma_ii/n_i^2) X_i X_i^T. The constant
+    -(1/(2 lam m)) alpha^T K alpha does not move the argmax;
+    ``local_subproblem_objective_full`` adds it. ``m`` is kept for the
+    JAX package's signature."""
+    xi, yi, mi = data.x[i], data.y[i], data.mask[i]
+    ni = data.n[i].to(xi.dtype)
+    conj = loss.conjugate(-(alpha[i] + dalpha_i), yi) * mi
+    t1 = -torch.sum(conj) / ni
+    t2 = -torch.sum(dalpha_i * (xi @ w_i) * mi) / ni
+    r = xi.T @ (dalpha_i * mi)
+    t3 = -(rho * sigma_ii / (2.0 * lam * ni**2)) * torch.sum(r * r)
+    return t1 + t2 + t3
+
+
+def local_subproblem_objective_full(
+    data: MTLData,
+    i: int,
+    dalpha_i: Tensor,
+    alpha: Tensor,
+    w_i: Tensor,
+    sigma: Tensor,
+    rho: float,
+    lam: float,
+    loss: Loss,
+) -> Tensor:
+    """D_i^rho including the constant -(1/(2 lam m)) alpha^T K alpha term."""
+    base = local_subproblem_objective(
+        data, i, dalpha_i, alpha, w_i, sigma[i, i], rho, lam, loss, data.m
+    )
+    const = -quad_term(data, alpha, sigma) / (2.0 * lam * data.m)
+    return base + const
+
+
 def predictions(data: MTLData, W: Tensor) -> Tensor:
     """z_j^i = w_i^T x_j^i, (m, n_max)."""
     return torch.einsum("mnd,md->mn", data.x, W)

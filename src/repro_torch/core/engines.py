@@ -9,9 +9,12 @@ contract. Registered here:
 
   reference    single-process Algorithm 1 (core/dmtrl.py:fit); the
                semantic oracle.
+  async        bounded-staleness (SSP) engine over a host transport
+               (core/async_dmtrl.py:fit_async; threaded, multiprocess or
+               gossip); AsyncOptions.
 
-The JAX package's ``distributed`` and ``async`` engines are not ported
-yet; asking for them raises.
+The JAX package's ``distributed`` (mesh) engine is not ported yet (ROADMAP
+§A item 15); asking for it raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -21,12 +24,13 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from .async_dmtrl import AsyncOptions, fit_async as _fit_async
 from .dmtrl import DMTRLConfig, WarmStart, fit as _fit_reference
 from .mtl_data import MTLData
-from .sigma_view import SigmaView
+from .sigma_view import SigmaView, maybe_dense
 from ..obs.trace import span
 
-_NOT_PORTED = ("distributed", "async")
+_NOT_PORTED = ("distributed",)
 
 
 @dataclasses.dataclass
@@ -51,8 +55,10 @@ class Engine:
 
     name: str
     description: str
-    # run(cfg, data, *, regularizer, init, track, device)
+    # run(cfg, data, *, regularizer, init, track, device[, options])
     run: Callable[..., EngineResult]
+    # the typed options its run takes as options= (None: takes none)
+    options_cls: Optional[type] = None
 
 
 _REGISTRY: Dict[str, Engine] = {}
@@ -66,7 +72,8 @@ def register_engine(engine: Engine) -> Engine:
 def get_engine(name: str) -> Engine:
     if name in _NOT_PORTED:
         raise NotImplementedError(
-            f"engine {name!r} is not ported yet; have {sorted(_REGISTRY)}"
+            f"engine {name!r} runs on a device mesh and is not ported yet "
+            f"(ROADMAP §A item 15); have {sorted(_REGISTRY)}"
         )
     try:
         return _REGISTRY[name]
@@ -108,5 +115,47 @@ register_engine(
         description="single-process Algorithm 1 (all tasks batched); the "
         "semantic oracle",
         run=_run_reference,
+    )
+)
+
+
+def _run_async(
+    cfg: DMTRLConfig,
+    data: MTLData,
+    *,
+    regularizer=None,
+    init: Optional[WarmStart] = None,
+    track: bool = True,
+    device="cuda",
+    options: Optional[AsyncOptions] = None,
+) -> EngineResult:
+    with span("engine_run", cat="driver", engine="async"):
+        W, sigma, state, hist = _fit_async(
+            cfg, data, track=track, options=options, init=init,
+            regularizer=regularizer, device=device,
+        )
+    # the transports pad the task axis to a multiple of the workers
+    alpha = state.alpha[: data.m, : data.n_max]
+    omega, sigma_view = state.omega, None
+    if isinstance(omega, SigmaView):
+        omega = maybe_dense(omega.unpad(data.m))
+    elif omega is not None:
+        omega = omega[: data.m, : data.m]
+    if isinstance(state.sigma, SigmaView):
+        sigma_view = state.sigma.unpad(data.m)
+    return EngineResult(
+        W=W, alpha=alpha, sigma=sigma, omega=omega, history=hist,
+        sigma_view=sigma_view,
+    )
+
+
+register_engine(
+    Engine(
+        name="async",
+        description="bounded-staleness (SSP) engine: workers commit against "
+        "snapshots at most tau rounds stale over a host transport "
+        "(threaded/multiprocess/gossip)",
+        run=_run_async,
+        options_cls=AsyncOptions,
     )
 )

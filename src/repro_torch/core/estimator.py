@@ -4,8 +4,9 @@
     est.fit(train).score(test)
     z = est.decision_function(x_batch, tasks=task_ids)
 
-  * engines resolve through ``core.engines`` (the ``reference`` engine is
-    the one ported so far);
+  * engines resolve through ``core.engines``: ``reference`` (one process)
+    or ``async`` (the parameter server over a host transport, with its
+    knobs as ``async_options=AsyncOptions(...)``);
   * the Omega regularizer is a named family member
     (``core.omega_regularizers``) — the paper's trace_constraint by default;
   * ``partial_fit`` warm-starts from the previous (alpha, Sigma) so
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 from . import dual as dual_mod
+from .async_dmtrl import AsyncOptions
 from .dmtrl import DMTRLConfig, WarmStart, resolve_device
 from .engines import Engine, EngineResult, get_engine
 from .losses import get_loss
@@ -70,10 +72,13 @@ class DMTRLEstimator:
 
     Parameters
     ----------
-    engine : "reference" (core.engines registry)
+    engine : "reference" | "async" (core.engines registry)
     config : optional pre-built core DMTRLConfig; core field kwargs
         (``loss=``, ``lam=``, ``rounds=`` ...) override it. Engine-specific
-        legacy fields (``tau``, ``dist_block_hoisted``, ...) are rejected.
+        legacy fields (``tau``, ``dist_block_hoisted``, ...) are rejected:
+        the async engine takes ``async_options=AsyncOptions(...)``.
+    async_options : the async engine's AsyncOptions (transport, workers,
+        tau, codec, ...).
     regularizer : Omega family member name or OmegaRegularizer instance
         (core.omega_regularizers); ``regularizer_params`` configure named
         members.
@@ -94,6 +99,7 @@ class DMTRLEstimator:
         config: Optional[DMTRLConfig] = None,
         regularizer: Union[str, OmegaRegularizer, None] = None,
         regularizer_params: Optional[dict] = None,
+        async_options: Optional[AsyncOptions] = None,
         device="cuda",
         **params,
     ):
@@ -104,8 +110,21 @@ class DMTRLEstimator:
         if leaked:
             raise ValueError(
                 f"{leaked} are per-engine options, not core config fields; "
-                "their engines are not ported yet"
+                "pass async_options=AsyncOptions(...) (the mesh engine's "
+                "options are not ported)"
             )
+        if async_options is not None:
+            if not isinstance(async_options, AsyncOptions):
+                raise TypeError(
+                    f"async_options= takes AsyncOptions, got "
+                    f"{type(async_options).__name__}"
+                )
+            if self.engine.options_cls is not AsyncOptions:
+                raise ValueError(
+                    f'AsyncOptions need engine="async", got engine='
+                    f"{self.engine.name!r}"
+                )
+        self.async_options = async_options
         unknown = sorted(params.keys() - _CONFIG_FIELDS)
         if unknown:
             raise ValueError(
@@ -139,9 +158,12 @@ class DMTRLEstimator:
 
     # -- training -----------------------------------------------------------
     def _run(self, data: MTLData, init: Optional[WarmStart], track: bool):
+        kw = {}
+        if self.engine.options_cls is AsyncOptions:
+            kw["options"] = self.async_options
         res: EngineResult = self.engine.run(
             self.config, data, regularizer=self.regularizer, init=init,
-            track=track, device=self.device,
+            track=track, device=self.device, **kw,
         )
         self._install(res, continued=init is not None)
         return res

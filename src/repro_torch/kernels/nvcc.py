@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Sequence
@@ -32,6 +33,9 @@ NVCC_FLAGS = (
 )
 VP, INT, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FUNCS: Dict[Path, ctypes._CFuncPtr] = {}
+# held while a library is built and loaded: worker threads of a transport
+# may launch a kernel for the first time together
+_FUNCS_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -64,7 +68,9 @@ def build_all(sources: Iterable[Path]) -> Dict[str, float]:
         if out.exists():
             seconds[src.stem] = 0.0
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        # one temporary name per process and thread: concurrent builds of
+        # one source each write their own file, and os.replace is atomic
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
         procs[src.stem] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT),
@@ -85,14 +91,19 @@ def build_all(sources: Iterable[Path]) -> Dict[str, float]:
 
 
 def launcher(src: Path, argtypes: Sequence) -> ctypes._CFuncPtr:
-    """The C entry point ``<name>_launch`` of ``src``, built on first use."""
+    """The C entry point ``<name>_launch`` of ``src``, built on first use.
+    Safe from several threads: the first caller builds and loads while
+    the others wait for it."""
     fn = _FUNCS.get(src)
     if fn is None:
-        build_all([src])
-        fn = getattr(ctypes.CDLL(str(lib_path(src))), f"{src.stem}_launch")
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-        _FUNCS[src] = fn
+        with _FUNCS_LOCK:
+            fn = _FUNCS.get(src)
+            if fn is None:
+                build_all([src])
+                fn = getattr(ctypes.CDLL(str(lib_path(src))), f"{src.stem}_launch")
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+                _FUNCS[src] = fn
     return fn
 
 

@@ -20,6 +20,7 @@ a CUDA error, and only then adds one to its ``launches`` count.
 """
 from __future__ import annotations
 
+import threading
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -42,6 +43,8 @@ BLOCK_SLAB_MIN_COLS = 24
 SCRATCH_CAP_BYTES = 256 << 20
 MAX_SMEM_BYTES = 232448  # shared memory one Hopper CTA can use
 _LOSS_IDS = {name: i for i, name in enumerate(SUPPORTED_LOSSES)}
+# the transports' worker threads launch both kernels concurrently
+_COUNT_LOCK = threading.Lock()
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "sdca_round.cu", CSRC / "sdca_block.cu")
@@ -159,7 +162,7 @@ def sdca_round_kernel(
     r = torch.zeros((m, d), dtype=f32, device=dev)
     _launch_round(x, y, alpha, w, u, n, kappa, loss, block, cluster, scratch, group,
                   dalpha, r, stages=3)
-    sdca_round_kernel.launches += 1
+    _count(sdca_round_kernel)
     return dalpha, r
 
 
@@ -220,7 +223,7 @@ def sdca_block_kernel(
         m, B, d, _LOSS_IDS[loss], cluster, torch.cuda.current_stream(dev).cuda_stream,
     )
     raise_on(err, "sdca_block")
-    sdca_block_kernel.launches += 1
+    _count(sdca_block_kernel)
     return deltas
 
 
@@ -230,6 +233,11 @@ def block_cluster(d: int) -> int:
     that width)."""
     fits = [c for c in SUPPORTED_BLOCK_CLUSTERS if -(-d // c) >= BLOCK_SLAB_MIN_COLS]
     return max(fits, default=1)
+
+
+def _count(wrapper) -> None:
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 sdca_round_kernel.launches = 0

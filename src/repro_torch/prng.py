@@ -123,6 +123,24 @@ def uniform(
     return torch.maximum(lo, fused)
 
 
+def randint(
+    key: torch.Tensor, shape: Shape, minval: int, maxval: int, device=None
+) -> torch.Tensor:
+    """``jax.random.randint`` for int32 draws in [minval, maxval): the key
+    splits in two, each half gives 32 random bits per element, and the
+    pair is reduced modulo the span as JAX does (in uint32 arithmetic, so
+    products and sums wrap at 2**32). Returned as int64 holding the same
+    values. A span of 0 or less returns ``minval`` everywhere, as JAX."""
+    shape = _shape(shape)
+    pair = split(key, 2)
+    hi = random_bits(pair[..., 0, :], shape, device)
+    lo = random_bits(pair[..., 1, :], shape, device)
+    span = (int(maxval) - int(minval)) & _MASK if maxval > minval else 1
+    mult = ((2**16 % span) ** 2 & _MASK) % span
+    off = (((hi % span) * mult) & _MASK) + lo % span
+    return int(minval) + (off & _MASK) % span
+
+
 def normal(
     key: torch.Tensor, shape: Shape = (), dtype: torch.dtype = torch.float32,
     device=None,

@@ -78,6 +78,7 @@ from .scheduler import (
     QueueFull,
     ServeRequest,
     SubmitOutcome,
+    owned,
 )
 
 
@@ -388,6 +389,7 @@ class FleetRouter:
         )
         if validate is not None:
             validate(ModelSnapshot(version=0, W=W, sigma=sigma))
+        W, sigma = owned(W), owned(sigma)
         with self._lock:
             cur = max(
                 [self._version]

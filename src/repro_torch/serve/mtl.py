@@ -45,7 +45,7 @@ import torch
 from ..core.dmtrl import resolve_device
 from ..core.dual import task_scores
 from ..core.sigma_view import SigmaView
-from .scheduler import ModelSnapshot, ServeRequest
+from .scheduler import ModelSnapshot, ServeRequest, owned
 
 Tensor = torch.Tensor
 
@@ -182,7 +182,7 @@ class MTLScoringEngine:
         device="cuda",
     ):
         self.device = resolve_device(device)
-        W = self._as_W(W)
+        W = self._owned_W(W)
         if W.ndim != 2:
             raise ValueError(f"W must be (m, d), got {tuple(W.shape)}")
         if batch < 1:
@@ -190,7 +190,7 @@ class MTLScoringEngine:
         self.batch = int(batch)
         self.classify = bool(classify)
         self.gather_sigma_rows = bool(gather_sigma_rows)
-        self._snapshot = ModelSnapshot(version=int(version), W=W, sigma=sigma)
+        self._snapshot = ModelSnapshot(version=int(version), W=W, sigma=owned(sigma))
         self._step = make_score_step()
         self._gather = make_sigma_gather()
         self._graph: Optional[ScoreGraph] = None  # captured by warmup()
@@ -205,6 +205,13 @@ class MTLScoringEngine:
         float32, as ``jnp.asarray`` does without x64."""
         W = torch.as_tensor(W, device=self.device)
         return W.float() if W.dtype == torch.float64 else W
+
+    def _owned_W(self, W) -> Tensor:
+        """W as it is installed: ``_as_W`` may share memory with the
+        caller's array or tensor, so the engine keeps a copy. Every
+        installed W is then a fresh object, which ``ScoreGraph.score``'s
+        identity check relies on."""
+        return owned(self._as_W(W))
 
     # -- model surface ------------------------------------------------------
     @property
@@ -241,7 +248,7 @@ class MTLScoringEngine:
         captured step is reused and task ids stay valid. Re-delivering the
         current version is an idempotent no-op; an older version raises."""
         self.validate_snapshot(snapshot)
-        W = self._as_W(snapshot.W)
+        W, sigma = self._owned_W(snapshot.W), owned(snapshot.sigma)
         with self._swap_lock:
             if snapshot.version == self._snapshot.version:
                 return self._snapshot.version
@@ -250,7 +257,7 @@ class MTLScoringEngine:
                     f"snapshot version {snapshot.version} is not newer than "
                     f"the installed version {self._snapshot.version}"
                 )
-            self._snapshot = dataclasses.replace(snapshot, W=W)
+            self._snapshot = dataclasses.replace(snapshot, W=W, sigma=sigma)
             return self._snapshot.version
 
     def swap(self, W, sigma=None, version: Optional[int] = None) -> int:

@@ -40,6 +40,9 @@ import threading
 import time
 from typing import Any, Callable, List, Optional, Sequence
 
+import numpy as np
+import torch
+
 from .metrics import ServingMetrics
 from ..obs.trace import span
 
@@ -64,6 +67,21 @@ class ModelSnapshot:
     version: int
     W: Optional[Any] = None
     sigma: Optional[Any] = None
+
+
+def owned(a):
+    """A published W or dense Sigma as a copy its publisher cannot change.
+
+    JAX arrays are immutable and ``jnp.asarray`` copies; a torch tensor or
+    numpy array is neither, so a snapshot that kept the caller's object
+    would serve whatever the caller later writes into it. Tensors and
+    arrays are copied; a ``SigmaView`` (whose factors nothing updates in
+    place) and None pass through."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().clone()
+    if isinstance(a, np.ndarray):
+        return a.copy()
+    return a
 
 
 @dataclasses.dataclass(kw_only=True)
@@ -391,6 +409,7 @@ class ContinuousBatchingScheduler:
         publishers can never drop each other's weights. Returns the
         installed version."""
         self._validate_snapshot(ModelSnapshot(version=0, W=W, sigma=sigma))
+        W, sigma = owned(W), owned(sigma)
         with self._lock:
             cur = self._snapshot.version
             v = int(version) if version is not None else cur + 1

@@ -80,3 +80,33 @@ def test_scores_and_metrics(state):
         got = getattr(td, name)(state["tte"], Wt)
         ref = getattr(jd, name)(state["jte"], Wj)
         assert float(got) == pytest.approx(float(ref), rel=1e-5, abs=1e-6), name
+
+
+@pytest.mark.parametrize("loss_name", ["hinge", "smoothed_hinge", "squared"])
+@pytest.mark.parametrize("i", [0, 3])
+def test_local_subproblem_objectives(state, loss_name, i):
+    """D_i^rho of Eq. (4), without and with its constant term, at a random
+    dalpha that keeps alpha + dalpha feasible: 1e-5 as the objectives."""
+    a, s, W = state["alpha"], state["sigma"], state["W"]
+    rs = np.random.RandomState(11 + i)
+    y, mask = np.asarray(state["jtr"].y[i]), np.asarray(state["jtr"].mask[i])
+    da = (0.3 * y * rs.uniform(0, 1, y.shape) * mask - 0.3 * a[i]).astype(np.float32)
+    if loss_name == "squared":
+        da = (0.5 * rs.randn(*y.shape) * mask).astype(np.float32)
+    rho = 1.7
+    jl, tl = jloss(loss_name), tloss(loss_name)
+    got = td.local_subproblem_objective(
+        state["ttr"], i, torch.from_numpy(da), torch.from_numpy(a), torch.from_numpy(W[i]),
+        torch.tensor(s[i, i]), rho, LAM, tl, 4)
+    ref = jd.local_subproblem_objective(
+        state["jtr"], i, jnp.asarray(da), jnp.asarray(a), jnp.asarray(W[i]),
+        jnp.asarray(s[i, i]), rho, LAM, jl, 4)
+    assert np.isfinite(float(ref))
+    assert float(got) == pytest.approx(float(ref), rel=1e-5, abs=1e-5)
+    got = td.local_subproblem_objective_full(
+        state["ttr"], i, torch.from_numpy(da), torch.from_numpy(a), torch.from_numpy(W[i]),
+        torch.from_numpy(s), rho, LAM, tl)
+    ref = jd.local_subproblem_objective_full(
+        state["jtr"], i, jnp.asarray(da), jnp.asarray(a), jnp.asarray(W[i]),
+        jnp.asarray(s), rho, LAM, jl)
+    assert float(got) == pytest.approx(float(ref), rel=1e-5, abs=1e-5)

@@ -42,7 +42,9 @@ def test_port_has_modules():
             "serve/metrics.py", "serve/__init__.py",
             "obs/__init__.py", "obs/trace.py", "obs/metrics.py", "obs/export.py",
             "core/sigma_view.py", "core/omega.py", "core/omega_regularizers.py",
-            "core/engines.py"} <= names
+            "core/engines.py", "core/wire.py", "core/distributed.py",
+            "core/transport.py", "core/async_dmtrl.py", "core/gossip.py",
+            "core/convergence.py", "core/baselines.py", "core/feature_maps.py"} <= names
     for cu in ("sdca/csrc/sdca_round.cu", "sdca/csrc/sdca_block.cu",
                "flash/csrc/flash_fwd.cu", "ssd/csrc/ssd_chunk.cu"):
         assert (PORT / "kernels" / cu).exists(), cu
@@ -66,6 +68,10 @@ def test_import_pulls_in_no_jax():
         "import repro_torch.serve.mtl, repro_torch.serve.fleet, repro_torch.obs\n"
         "import repro_torch.kernels.flash, repro_torch.kernels.ssd, repro_torch.models\n"
         "import repro_torch.configs\n"
+        "import repro_torch.core.transport, repro_torch.core.gossip, repro_torch.core.wire\n"
+        "import repro_torch.core.async_dmtrl, repro_torch.core.distributed\n"
+        "import repro_torch.core.convergence, repro_torch.core.baselines\n"
+        "import repro_torch.core.feature_maps\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )

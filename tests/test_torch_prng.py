@@ -70,3 +70,17 @@ def test_normal_close(seed):
     nj = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), (500,)))
     nt = prng.normal(prng.PRNGKey(seed), (500,)).numpy()
     np.testing.assert_allclose(nt, nj, atol=2e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("lo, hi", [(0, 4), (0, 10), (3, 70000), (-5, 2**31 - 1),
+                                    (0, 1), (5, 5), (-2**31, 2**31 - 1)])
+@pytest.mark.parametrize("seed", [0, 17, 2**31 - 1])
+def test_randint(seed, lo, hi):
+    """jax.random.randint (int32, partitionable threefry) bit for bit, over
+    spans below and above 2**16 (where the uint32 multiplier wraps), an
+    empty span and the full int32 range."""
+    want = np.asarray(jax.random.randint(jax.random.PRNGKey(seed), (700,), lo, hi))
+    got = prng.randint(prng.PRNGKey(seed), (700,), lo, hi)
+    assert got.dtype == torch.int64 and np.array_equal(got.numpy(), want)
+    shaped = prng.randint(prng.PRNGKey(seed), (3, 5), lo, hi).numpy()
+    assert np.array_equal(shaped, np.asarray(jax.random.randint(jax.random.PRNGKey(seed), (3, 5), lo, hi)))

@@ -258,6 +258,72 @@ def test_dead_engines_are_dropped_from_the_push_list(port_problem, port_cfg):
 
 
 # ---------------------------------------------------------------------------
+# installed weights are copies (ROADMAP §C, C1): JAX arrays are immutable
+# and jnp.asarray copies, so the JAX engine serves what was published
+# whatever the caller does to its array afterwards
+# ---------------------------------------------------------------------------
+def _alias_probe():
+    """W (3, 4) and one request x from RandomState(0), served for task 1."""
+    rs = np.random.RandomState(0)
+    return rs.randn(3, 4).astype(np.float32), rs.randn(4).astype(np.float32)
+
+
+def test_engine_keeps_its_own_w_when_the_caller_zeroes_it():
+    from repro.serve.mtl import MTLScoringEngine as JEngine
+
+    W, x = _alias_probe()
+    want = float(JEngine(W.copy()).score_batch(x[None], np.array([1]))[0])
+    assert want == pytest.approx(1.6736, abs=1e-4)
+    for W_in in (W.copy(), torch.from_numpy(W.copy())):
+        eng = MTLScoringEngine(W_in, batch=2, device="cpu")
+        W_in[:] = 0.0  # the caller reuses its buffer
+        got = eng.score_batch(x[None], np.array([1]))[0]
+        assert got == pytest.approx(want, abs=TOL) and eng.version == 0
+        eng.swap(W_in)  # a swap installs the values of that moment ...
+        W_in[:] = 1.0  # ... not what the caller writes later
+        assert eng.score_batch(x[None], np.array([1]))[0] == pytest.approx(0.0, abs=TOL)
+
+
+def test_scheduler_serves_the_published_w_not_a_later_write():
+    W, x = _alias_probe()
+    want = 1.6736
+    eng = MTLScoringEngine(np.zeros_like(W), batch=2, device="cpu")
+    sched = ContinuousBatchingScheduler(eng, clock=VirtualClock())
+    Wt = torch.from_numpy(W.copy())
+    assert sched.publish_weights(Wt) == 1
+    Wt.mul_(2)  # after the publish, before the tile
+    r = ScoreRequest(task=1, x=x)
+    sched.submit(r)
+    sched.step()
+    assert r.snapshot_version == 1
+    assert r.score == pytest.approx(want, abs=1e-4)
+    assert r.score == pytest.approx(float(x @ W[1]), abs=TOL)
+    # a dense Sigma rides the snapshot as a copy too
+    sigma = torch.eye(3)
+    sched.publish_weights(Wt, sigma)
+    sigma.mul_(0)
+    assert torch.equal(sched.snapshot.sigma, torch.eye(3))
+
+
+def test_fleet_rolls_the_published_w_not_a_later_write():
+    from repro_torch.serve import FleetRouter
+
+    W, x = _alias_probe()
+    replicas = [ContinuousBatchingScheduler(MTLScoringEngine(np.zeros_like(W), batch=2,
+                                                             device="cpu"),
+                                            clock=VirtualClock()) for _ in range(2)]
+    router = FleetRouter(replicas)
+    Wt = torch.from_numpy(W.copy())
+    router.publish_weights(Wt)
+    Wt.zero_()
+    for _ in range(3):
+        router.step()
+    for rep in replicas:
+        assert rep.snapshot.version == 1
+        assert torch.equal(torch.as_tensor(rep.snapshot.W), torch.from_numpy(W))
+
+
+# ---------------------------------------------------------------------------
 # on the card: the captured graph
 # ---------------------------------------------------------------------------
 @pytest.fixture()
@@ -327,6 +393,36 @@ def test_publish_between_replays_and_packed_w(cuda):
         r = _requests([3], d=784, seed=5)
         eng.run_tile(r, ModelSnapshot(version=9, W=snap_W))
         assert r[0].score == pytest.approx(float(r[0].x @ snap_W[3]), abs=1e-4)
+
+
+@pytest.mark.gpu
+def test_in_place_update_republished_reaches_the_graph(cuda):
+    """A tensor updated in place and re-published under a new version is
+    served at its new values through the captured graph: every install is
+    a fresh copy, so the graph's identity check sees a new W."""
+    W = torch.from_numpy(_card_w(7)).to(cuda)
+    eng = MTLScoringEngine(W, batch=64, version=1, device=cuda)
+    eng.warmup()
+    X = np.random.RandomState(8).rand(10, W.shape[1]).astype(np.float32)
+    t = np.arange(10)
+    Wn = W.cpu().numpy()
+    np.testing.assert_allclose(eng.score_batch(X, t), np.einsum("nd,nd->n", X, Wn[t]),
+                               atol=1e-4)
+    for k in (2, 3):
+        W.mul_(2.0)  # the producer updates its tensor in place
+        assert eng.publish_weights(W, version=k) == k
+        np.testing.assert_allclose(eng.score_batch(X, t),
+                                   np.einsum("nd,nd->n", X, W.cpu().numpy()[t]), atol=1e-3)
+    sched = ContinuousBatchingScheduler(eng, clock=VirtualClock())
+    W.mul_(0.5)
+    sched.publish_weights(W)
+    W.zero_()  # after the publish: the tile still serves the published values
+    reqs = _requests([0, 1, 2], d=W.shape[1], seed=9)
+    sched.submit_many(reqs)
+    sched.step()
+    Wp = 0.5 * 4.0 * Wn
+    for r in reqs:
+        assert r.score == pytest.approx(float(r.x @ Wp[r.task]), abs=1e-3)
 
 
 @pytest.mark.gpu
