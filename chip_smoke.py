@@ -17,10 +17,13 @@ Phases, each printing its own lines:
               floor; flash attention at Zamba2-2.7B's (1, 32, 512, 80),
               causal, bf16 (tensor-core kernel) and fp32 (fp32 kernel), each
               with and without a 128 window, timed beside
-              scaled_dot_product_attention; the SSD chunk with dt and A in
-              the model's ranges, per head in the chunked layout (1, 80, 8,
-              64, 64, 64) and in Zamba2's own layout (bf16 views of the conv
-              output, one B/C group), plus a ragged 17-step chunk and
+              scaled_dot_product_attention, and at gemma3-1b's (1, 4, 512,
+              256; bf16 and fp32, causal and its 512 window) and
+              qwen1.5-4b's (1, 20, 512, 128; bf16); the SSD chunk with dt
+              and A in the model's ranges, per head in the chunked layout
+              (1, 80, 8, 64, 64, 64), in Zamba2's own layout (bf16 views of
+              the conv output, one B/C group) and in mamba2-780m's (48
+              heads, P = 64, N = 128), plus a ragged 17-step chunk and
               Q = N = P = 128 in fp32 and bf16;
   3. main path — DMTRLEstimator(solver="pallas_round") fits the paper's
               MNIST-width problem (mnist_like, scale 1.0) on the card, then
@@ -58,7 +61,22 @@ Phases, each printing its own lines:
               Synthetic-1 through the block kernel; (d) the paper's claims:
               Table 2 on school_like (DMTRL, STL, centralized MTRL), the
               smooth loss converging faster (Theorems 8/9), Theta and
-              rho_min on phase 3's model, SSDCA reaching DMTRL's dual.
+              rho_min on phase 3's model, SSDCA reaching DMTRL's dual;
+  8. the LM families — phase 5's engine and requests (bf16, random weights
+              from seed 0) at full width: (a) gemma3-1b, 26 layers (22
+              local with a ring buffer of 512, 4 global), prompts prefilled
+              in power-of-two buckets with true_len, K3 26 times a prefill;
+              in fp32 a bucketed prefill against an exact-length one and
+              the ring across the window (508 tokens + 8 decode steps
+              against prefills of 509 .. 516); (b) qwen1.5-4b, 40 layers,
+              K3 40 times a prefill; (c) nemotron-4-15b cut to 4 layers;
+              (d) mamba2-780m, 48 layers at exact length, K4 48 times a
+              prefill, and its fp32 state (256 + 3 against 257 .. 259); (e)
+              the bridge: DMTRL heads (fit_mtl_heads, pallas_round) on
+              gemma3-1b's pooled features of 6 band tasks x 256 sequences
+              x 64 tokens: K3 in the backbone, K1 24 times in the fit, the
+              features against the plain attention, the fit against
+              block_gram on the same features, the test error.
 
 It exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository. The line before the last is a JSON object with
@@ -108,6 +126,13 @@ TOL_W, TOL_SIGMA = 2e-4, 1e-5  # fit parity bars of the JAX package's tests
 # chunks (80 heads, P = N = 64, chunks of 64) over it
 ATTN_HEADS, ATTN_S, ATTN_HD, ATTN_WINDOW = 32, 512, 80, 128
 SSD_H, SSD_NC, SSD_Q, SSD_P, SSD_N = 80, 8, 64, 64, 64
+# the dense and SSM families' shapes (phase 8) over the same prompt:
+# gemma3-1b's attention (4 heads of 256 after the GQA expand, its local
+# layers' window of 512), qwen1.5-4b's (20 heads of 128), and one
+# mamba2-780m layer's SSD chunks (48 heads, P = 64, N = 128, one group)
+GEMMA_HEADS, GEMMA_HD, GEMMA_WINDOW = 4, 256, 512
+QWEN_HEADS, QWEN_HD = 20, 128
+MAMBA_H, MAMBA_P, MAMBA_N = 48, 64, 128
 # flash attention and the SSD chunk against their plain versions. Flash:
 # the JAX package's bars (tests/test_kernels.py: fp32 1e-5, bf16 2e-2);
 # measured on an H100 at the shapes below, 1.13e-6 in fp32 (8.8x margin)
@@ -151,6 +176,27 @@ PS_WORKERS, PS_DELAYS, GOSSIP_NODES = 2, (1, 4), 4
 PS_CFG = dict(solver="pallas_round", loss="hinge", lam=1e-4, outer_iters=2, rounds=3,
               local_iters=0, block_size=BLOCK)
 SYN_LAM = 1e-3
+# the LM families (phase 8), each at full width behind phase 5's engine and
+# requests; nemotron-4-15b's depth is cut to 4 of its 32 layers (its 15.7e9
+# parameters at full depth would show nothing the other three do not).
+# gemma3's ring buffer in fp32 across its window: a prefill of 508 tokens
+# plus 8 decode steps against prefills of 509 .. 516 tokens
+LM_FAMILIES = ("gemma3-1b", "qwen1.5-4b", "nemotron-4-15b", "mamba2-780m")
+NEMOTRON_LAYERS = 4
+RING_S, RING_STEPS = 508, 8
+BUCKET_LENS = (300, 129, 17)  # bucketed (512, 256, 32) against exact-length prefills
+# 8e, the backbone -> DMTRL bridge: examples/train_lm_mtl.py's band recipe
+# at 6 tasks x 256 sequences x 64 tokens (seed 0 train, seed 1 test), heads
+# fitted on gemma3-1b's pooled features (d = 1152) through K1
+BRIDGE_TASKS, BRIDGE_N, BRIDGE_SEQ = 6, 256, 64
+BRIDGE_CFG = dict(loss="hinge", lam=1e-3, outer_iters=3, rounds=8, local_iters=128, seed=0)
+# the bf16 backbone's unit-norm features through K3 against the same
+# backbone with the plain attention on the card: K3 rounds P to bf16 (the
+# plain version keeps it in fp32), which moves an attention output by up to
+# one bf16 step, and 26 layers carry that to the pooled, normalized
+# features (entries up to 0.14). Measured on an H100: 9.8e-4 (min cosine
+# 0.999987); held at 5e-3, a 5x margin
+TOL_FEATURES = 5e-3
 
 
 def fail(msg: str) -> None:
@@ -231,6 +277,51 @@ def lm_kernel_checks(torch, dev, card: str) -> dict:
     print(f"[2 flash_fwd] bf16 {tuple(q.shape)} causal: {ms_flash:.4f} ms/call (plain "
           f"{plain_flash:.3f} ms, scaled_dot_product_attention {lib_flash:.4f} ms), "
           f"bound {b_flash:.5f} ms by {by_flash} on {card}")
+    flash_shapes = [dict(shape=list(q.shape), dtype="bf16", window=0, max_abs_err=err_flash,
+                         ms=ms_flash, plain_ms=plain_flash, bound_ms=b_flash,
+                         bound_by=by_flash, library_ms=lib_flash)]
+    del qkv32, q, k, v
+
+    # gemma3-1b (head dim 256, bf16 and fp32, causal and its window) and
+    # qwen1.5-4b (head dim 128, bf16), each timed beside
+    # scaled_dot_product_attention where it computes the same function (a
+    # window that covers the whole prompt is the causal mask)
+    for H_, HD_, dtype, window in (
+        (GEMMA_HEADS, GEMMA_HD, torch.bfloat16, 0),
+        (GEMMA_HEADS, GEMMA_HD, torch.bfloat16, GEMMA_WINDOW),
+        (GEMMA_HEADS, GEMMA_HD, torch.float32, 0),
+        (GEMMA_HEADS, GEMMA_HD, torch.float32, GEMMA_WINDOW),
+        (QWEN_HEADS, QWEN_HD, torch.bfloat16, 0),
+    ):
+        bf16 = dtype == torch.bfloat16
+        name, tol = ("bf16", TOL_FLASH_BF16) if bf16 else ("fp32", TOL_FLASH_F32)
+        label = f"{name} (1, {H_}, {S}, {HD_})" + (f" window {window}" if window else "")
+        q, k, v = (torch.from_numpy(rs.randn(1, H_, S, HD_).astype(np.float32)).to(dev, dtype)
+                   for _ in range(3))
+        out = flash_kernel.flash_attention(q, k, v, True, window)
+        torch.cuda.synchronize()
+        want = flash_ref.attention_ref(q, k, v, True, window)
+        check(bool(torch.isfinite(out).all()), f"flash {label}: non-finite output")
+        e = (out.float() - want.float()).abs().max().item()
+        check(e <= tol, f"flash {label} disagrees with its plain version: {e:.3e}")
+        err_flash = max(err_flash, e)
+        ms = cuda_ms(torch, lambda: flash_kernel.flash_attention(q, k, v, True, window), reps=50)
+        plain = cuda_ms(torch, lambda: flash_ref.attention_ref(q, k, v, True, window), reps=10)
+        lib = None
+        if window == 0 or window >= S:
+            lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+                          reps=50)
+        pairs = sum(min(i + 1, window or S) for i in range(S))  # (query, key) pairs kept
+        b, by = bound_ms(4 * q.numel() * q.element_size(), 4.0 * H_ * HD_ * pairs,
+                         PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS)
+        lib_txt = f"{lib:.4f} ms" if lib is not None else "n/a (window)"
+        print(f"[2 flash_fwd {label}] max|out - plain| = {e:.3e} (tolerance {tol:.0e}); "
+              f"{ms:.4f} ms/call (plain {plain:.3f} ms, scaled_dot_product_attention "
+              f"{lib_txt}), bound {b:.5f} ms by {by} on {card}")
+        flash_shapes.append(dict(shape=[1, H_, S, HD_], dtype=name, window=window,
+                                 max_abs_err=e, ms=ms, plain_ms=plain, bound_ms=b,
+                                 bound_by=by, library_ms=lib))
+        del q, k, v, out, want
 
     Hs, nc, Q, P, N = SSD_H, SSD_NC, SSD_Q, SSD_P, SSD_N
     dt0 = np.exp(np.linspace(np.log(1e-3), np.log(1e-1), Hs))
@@ -285,6 +376,16 @@ def lm_kernel_checks(torch, dev, card: str) -> dict:
                 -torch.linspace(1.0, 16.0, H, device=dev), xbc[..., H * P_: H * P_ + G * N_].reshape(1, L, G, N_),
                 xbc[..., H * P_ + G * N_:].reshape(1, L, G, N_))
 
+    def ssd_bound(L_, H_, P_, N_, Q_):
+        """x, B, C (bf16, one group) and dt read; Y, S, a_tot written
+        (fp32); C B^T once per chunk, Y and S per head, three TF32 passes
+        (the kernel forms C B^T per head: the bound counts the work needed)."""
+        nc_, tri_ = -(-L_ // Q_), Q_ * (Q_ + 1) / 2
+        nbytes = (L_ * H_ * P_ * 2 + L_ * 2 * N_ * 2 + L_ * H_ * 4
+                  + 4 * (L_ * H_ * P_ + nc_ * H_ * N_ * P_ + nc_ * H_) + H_ * 4)
+        flops = 3 * (nc_ * 2.0 * tri_ * N_ + nc_ * H_ * (2.0 * tri_ * P_ + 2.0 * Q_ * N_ * P_))
+        return bound_ms(nbytes, flops, PEAK_TF32_FLOPS) + (nbytes, flops)
+
     L = nc * Q
     zin = seq_inputs(L, Hs, 1, P, N, torch.bfloat16, 2)
     got = ssd_kernel.ssd_chunk_kernel(*zin, chunk=Q)
@@ -303,42 +404,60 @@ def lm_kernel_checks(torch, dev, card: str) -> dict:
     del got, inp
     ms_ssd = cuda_ms(torch, lambda: ssd_kernel.ssd_chunk_kernel(*zin, chunk=Q), reps=50)
     plain_ssd = cuda_ms(torch, lambda: ssd_ref.chunk_seq_ref(*zin, Q), reps=10)
-    # x, B, C (bf16, B and C once for the group) and dt read; Y, S, a_tot
-    # written (fp32); C B^T once per chunk, Y and S per head, three passes
-    # (the kernel forms C B^T per head: the bound counts the work needed)
-    ssd_bytes = (L * Hs * P * 2 + L * 2 * N * 2 + L * Hs * 4
-                 + 4 * (L * Hs * P + nc * Hs * N * P + nc * Hs) + Hs * 4)
-    ssd_flops = 3 * (nc * 2.0 * tri * N + cells_n * (2.0 * tri * P + 2.0 * Q * N * P))
-    b_ssd, by_ssd = bound_ms(ssd_bytes, ssd_flops, PEAK_TF32_FLOPS)
+    b_ssd, by_ssd, ssd_bytes, ssd_flops = ssd_bound(L, Hs, P, N, Q)
     print(f"[2 ssd_chunk] Zamba2 layout bf16 (1, {L}, {Hs}, {P}), G=1: {ms_ssd:.4f} ms/call "
           f"(plain {plain_ssd:.3f} ms), bound {b_ssd:.5f} ms by {by_ssd} "
           f"({ssd_bytes / 1e6:.2f} MB, {ssd_flops / 1e9:.2f} GFLOP TF32) on {card}")
     del zin
+    ssd_shapes = [dict(shape=[1, L, Hs, P], N=N, dtype="bf16", max_abs_err=err_ssd, ms=ms_ssd,
+                       plain_ms=plain_ssd, bound_ms=b_ssd, bound_by=by_ssd, library_ms=None)]
+    # mamba2-780m's layout: bf16 views of its conv output, one group
+    min_ = seq_inputs(L, MAMBA_H, 1, MAMBA_P, MAMBA_N, torch.bfloat16, 4)
+    got = ssd_kernel.ssd_chunk_kernel(*min_, chunk=Q)
+    torch.cuda.synchronize()
+    e = ssd_check("mamba2-780m layout bf16 G=1", got, ssd_ref.chunk_seq_ref(*min_, Q))
+    err_ssd = max(err_ssd, e)
+    ms = cuda_ms(torch, lambda: ssd_kernel.ssd_chunk_kernel(*min_, chunk=Q), reps=50)
+    plain = cuda_ms(torch, lambda: ssd_ref.chunk_seq_ref(*min_, Q), reps=10)
+    b, by, nbytes, flops = ssd_bound(L, MAMBA_H, MAMBA_P, MAMBA_N, Q)
+    print(f"[2 ssd_chunk] mamba2-780m layout bf16 (1, {L}, {MAMBA_H}, {MAMBA_P}), N={MAMBA_N}, "
+          f"G=1: {ms:.4f} ms/call (plain {plain:.3f} ms), bound {b:.5f} ms by {by} "
+          f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP TF32) on {card}")
+    ssd_shapes.append(dict(shape=[1, L, MAMBA_H, MAMBA_P], N=MAMBA_N, dtype="bf16",
+                           max_abs_err=e, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                           library_ms=None))
+    del min_, got
     return dict(
         flash=dict(max_abs_err=err_flash, ms=ms_flash, plain_ms=plain_flash,
-                   bound_ms=b_flash, bound_by=by_flash, library_ms=lib_flash),
+                   bound_ms=b_flash, bound_by=by_flash, library_ms=lib_flash,
+                   shapes=flash_shapes),
         ssd=dict(max_abs_err=err_ssd, ms=ms_ssd, plain_ms=plain_ssd,
-                 bound_ms=b_ssd, bound_by=by_ssd, library_ms=None),
+                 bound_ms=b_ssd, bound_by=by_ssd, library_ms=None, shapes=ssd_shapes),
     )
 
 
-def serve_main_path(torch, dev, card: str):
-    """Phase 5: Zamba2-2.7B at full width behind the ServingEngine. Returns
-    (flash launches, SSD launches, the config) of the counted run."""
+def serve_lm(torch, dev, card: str, cfg, tag: str, per_prefill) -> tuple:
+    """``cfg`` at full width (random bf16 weights from seed 0) behind
+    ServingEngine(batch=4, max_len=1024), answering the 6 greedy requests
+    of PROMPT_LENS; every prefill must launch flash attention and the SSD
+    chunk ``per_prefill`` = (flash, ssd) times, decode ticks neither.
+    Prints inject and tick times, and where the device time of a warm
+    prefill and decode step goes. Returns (flash, SSD) launches of the run,
+    each counted from 0."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels.flash import flash_kernel
     from repro_torch.kernels.ssd import ssd_kernel
     from repro_torch.models import decode_step, init_decode_cache, init_params, prefill
     from repro_torch.serve import Request, ServeConfig, ServingEngine
 
-    cfg = get_config("zamba2-2.7b")
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
-    print(f"[5 init] {cfg.name}: {cfg.param_count() / 1e9:.3f}e9 parameters "
-          f"({cfg.dtype}), {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, "
+    print(f"[{tag} init] {cfg.name}: {cfg.param_count() / 1e9:.3f}e9 parameters "
+          f"({cfg.dtype}, {cfg.n_layers} layers, d_model {cfg.d_model}), "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, "
           f"{time.perf_counter() - t0:.1f} s")
     eng = ServingEngine(cfg, params, ServeConfig(batch=SERVE_BATCH, max_len=SERVE_MAX_LEN),
                         device=dev)
@@ -347,7 +466,6 @@ def serve_main_path(torch, dev, card: str):
                     max_new_tokens=NEW_TOKENS) for n in PROMPT_LENS]
     for r in reqs:
         eng.admit(r)
-    periods = cfg.n_layers // cfg.hybrid_attn_every
 
     def counts():
         return flash_kernel.flash_attention.launches, ssd_kernel.ssd_chunk_kernel.launches
@@ -363,9 +481,10 @@ def serve_main_path(torch, dev, card: str):
         torch.cuda.synchronize()
         inject_ms.append((time.perf_counter() - t) * 1e3)
         after = counts()
-        check(after[0] - before[0] == periods and after[1] - before[1] == cfg.n_layers,
-              f"prefill of {len(r.prompt)} tokens launched flash "
-              f"{after[0] - before[0]} and ssd_chunk {after[1] - before[1]} times")
+        check((after[0] - before[0], after[1] - before[1]) == tuple(per_prefill),
+              f"{cfg.name}: prefill of {len(r.prompt)} tokens launched flash "
+              f"{after[0] - before[0]} and ssd_chunk {after[1] - before[1]} times, "
+              f"expected {per_prefill}")
 
     flash_kernel.flash_attention.launches = 0
     ssd_kernel.ssd_chunk_kernel.launches = 0
@@ -387,17 +506,20 @@ def serve_main_path(torch, dev, card: str):
     run_s = time.perf_counter() - t_run
     launches_flash, launches_ssd = counts()
 
-    print(f"[5 serve] {len(reqs)} requests x {NEW_TOKENS} new tokens, batch {SERVE_BATCH}, "
-          f"max_len {SERVE_MAX_LEN}: {run_s:.2f} s wall, {len(tick_ms)} decode ticks")
+    print(f"[{tag} serve] {len(reqs)} requests x {NEW_TOKENS} new tokens, batch "
+          f"{SERVE_BATCH}, max_len {SERVE_MAX_LEN}: {run_s:.2f} s wall, {len(tick_ms)} decode "
+          f"ticks; prefill {'in power-of-two buckets' if eng._maskable else 'at exact length'}")
     for r, ms in zip(reqs, inject_ms):
-        print(f"[5 serve]   prompt {len(r.prompt):4d}: inject (prefill + slot insert) "
+        print(f"[{tag} serve]   prompt {len(r.prompt):4d} (prefill length "
+              f"{eng._bucket_for(len(r.prompt))}): inject (prefill + slot insert) "
               f"{ms:8.2f} ms; {r.finish_reason} after {len(r.output)} tokens: "
               f"{r.output[:8]}...")
     ticks = np.asarray(tick_ms)
-    print(f"[5 serve] decode tick (batch {SERVE_BATCH}, host clock): mean {ticks.mean():.2f} "
-          f"ms, median {np.median(ticks):.2f} ms, first {ticks[0]:.2f} ms, max "
-          f"{ticks.max():.2f} ms; launches flash {launches_flash}, ssd_chunk "
-          f"{launches_ssd}, during ticks {tick_launches}; on {card}")
+    print(f"[{tag} serve] decode tick (batch {SERVE_BATCH}, host clock): mean "
+          f"{ticks.mean():.2f} ms, median {np.median(ticks):.2f} ms, first {ticks[0]:.2f} ms, "
+          f"max {ticks.max():.2f} ms; launches flash {launches_flash}, ssd_chunk "
+          f"{launches_ssd} (per prefill {per_prefill[0]}, {per_prefill[1]}), during ticks "
+          f"{tick_launches}; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; on {card}")
     check(len(done) == len(reqs) and all(r.done for r in reqs), "a request did not finish")
     for r in reqs:
         check(r.finish_reason in ("eos", "length"), f"finish reason {r.finish_reason}")
@@ -405,10 +527,10 @@ def serve_main_path(torch, dev, card: str):
         check(all(0 <= t < cfg.vocab_size for t in r.output),
               f"token outside [0, {cfg.vocab_size}): {r.output}")
         check(r.finish_reason == "eos" or len(r.output) == NEW_TOKENS, "short by length")
-    check(launches_flash == periods * len(reqs),
-          f"flash launched {launches_flash} times, expected {periods} x {len(reqs)}")
-    check(launches_ssd == cfg.n_layers * len(reqs),
-          f"ssd_chunk launched {launches_ssd} times, expected {cfg.n_layers} x {len(reqs)}")
+    check(launches_flash == per_prefill[0] * len(reqs),
+          f"flash launched {launches_flash} times, expected {per_prefill[0]} x {len(reqs)}")
+    check(launches_ssd == per_prefill[1] * len(reqs),
+          f"ssd_chunk launched {launches_ssd} times, expected {per_prefill[1]} x {len(reqs)}")
     check(tick_launches == 0, f"decode ticks launched the prefill kernels {tick_launches} times")
 
     # where the device time of one prefill (the longest prompt) and of one
@@ -431,31 +553,33 @@ def serve_main_path(torch, dev, card: str):
             wall_ms = (time.perf_counter() - t) * 1e3
         events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
         if not events:
-            print(f"[5 profile] {label}: the profiler saw no device time ({wall_ms:.1f} ms wall)")
+            print(f"[{tag} profile] {label}: the profiler saw no device time "
+                  f"({wall_ms:.1f} ms wall)")
             continue
         busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-        print(f"[5 profile] warm {label}: {wall_ms:.1f} ms wall (profiler on), device "
+        print(f"[{tag} profile] warm {label}: {wall_ms:.1f} ms wall (profiler on), device "
               f"busy {busy_ms:.2f} ms = {busy_ms / wall_ms:.1%} of wall, "
               f"{sum(e.count for e in events)} profiler events with device time")
         for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
             dms = e.self_device_time_total / 1e3
-            print(f"[5 profile]   {dms:8.3f} ms {dms / busy_ms:6.1%}  x{e.count:<5d} {e.key[:80]}")
+            print(f"[{tag} profile]   {dms:8.3f} ms {dms / busy_ms:6.1%}  x{e.count:<5d} "
+                  f"{e.key[:80]}")
         copy_ev = [e for e in prof.key_averages() if e.key == "aten::copy_"]
-        print(f"[5 profile]   aten::copy_ calls: {sum(e.count for e in copy_ev)}, device "
+        print(f"[{tag} profile]   aten::copy_ calls: {sum(e.count for e in copy_ev)}, device "
               f"{sum(e.device_time_total for e in copy_ev) / 1e3:.3f} ms")
         for name in ("flash_fwd", "ssd_chunk_kernel"):
             dms = sum(e.self_device_time_total for e in events if name in e.key) / 1e3
-            print(f"[5 profile]   {name}: {dms:.3f} ms = {dms / busy_ms:.1%} of device time")
+            print(f"[{tag} profile]   {name}: {dms:.3f} ms = {dms / busy_ms:.1%} of device time")
     del cache
     del eng, params
     torch.cuda.empty_cache()
-    return launches_flash, launches_ssd, cfg
+    return launches_flash, launches_ssd
 
 
-def consistency(torch, dev, cfg) -> float:
-    """Phase 5b: in fp32, prefill of S tokens plus 3 decode steps tracks
-    the last logits of prefills over S+1, S+2 and S+3 tokens (the invariant
-    of tests/test_serve.py), holding the kernel prefill against the plain
+def consistency(torch, dev, cfg, tag: str, S: int = CONSIST_S, steps: int = 3) -> float:
+    """In fp32, prefill of S tokens plus ``steps`` decode steps tracks the
+    last logits of prefills over S+1 .. S+steps tokens (the invariant of
+    tests/test_serve.py), holding the kernel prefill against the plain
     decode path."""
     import dataclasses
 
@@ -464,22 +588,199 @@ def consistency(torch, dev, cfg) -> float:
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params = init_params(cfg32, seed=0, device=dev)
     rs = np.random.RandomState(5)
-    toks = torch.from_numpy(rs.randint(2, cfg.vocab_size, size=(1, CONSIST_S + 3))).to(dev)
-    _, cache = prefill(cfg32, params, toks[:, :CONSIST_S], extra_len=8)
+    toks = torch.from_numpy(rs.randint(2, cfg.vocab_size, size=(1, S + steps))).to(dev)
+    _, cache = prefill(cfg32, params, toks[:, :S], extra_len=8)
     errs, scale = [], 0.0
-    for t in range(3):
-        out, cache = decode_step(cfg32, params, toks[:, CONSIST_S + t], cache)
-        want, _ = prefill(cfg32, params, toks[:, :CONSIST_S + t + 1], extra_len=8)
+    for t in range(steps):
+        out, cache = decode_step(cfg32, params, toks[:, S + t], cache)
+        want, _ = prefill(cfg32, params, toks[:, :S + t + 1], extra_len=8)
         check(bool(torch.isfinite(out).all()), "decode logits not finite")
         errs.append((out - want).abs().max().item())
         scale = max(scale, want.abs().max().item())
-    print(f"[5b consistency] fp32 {cfg.name}, prompt {CONSIST_S}: max|decode - prefill| "
-          f"logits over 3 steps {', '.join(f'{e:.3e}' for e in errs)} (max|logit| "
-          f"{scale:.2f}; tolerance {TOL_CONSIST:.0e})")
-    check(max(errs) <= TOL_CONSIST, "prefill + decode disagrees with a longer prefill")
+    print(f"[{tag}] fp32 {cfg.name}, prompt {S} + {steps} decode steps (positions {S} .. "
+          f"{S + steps - 1}): max|decode - prefill| logits {', '.join(f'{e:.3e}' for e in errs)}"
+          f" (max|logit| {scale:.2f}; tolerance {TOL_CONSIST:.0e})")
+    check(max(errs) <= TOL_CONSIST, f"{cfg.name}: prefill + decode disagrees with a longer "
+          "prefill")
     del params, cache
     torch.cuda.empty_cache()
     return max(errs)
+
+
+def serve_main_path(torch, dev, card: str):
+    """Phase 5: Zamba2-2.7B at full width behind the ServingEngine: the
+    shared block's flash attention 9 times and the SSD chunk 54 times a
+    prefill. Returns (flash launches, SSD launches, the config)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("zamba2-2.7b")
+    per_prefill = (cfg.n_layers // cfg.hybrid_attn_every, cfg.n_layers)
+    return serve_lm(torch, dev, card, cfg, "5", per_prefill) + (cfg,)
+
+
+def bucketed_prefill(torch, dev, cfg, tag: str) -> float:
+    """In fp32, a right-padded power-of-two bucket (``true_len``) gives the
+    last logits of an exact-length prefill of the same prompt."""
+    import dataclasses
+
+    from repro_torch.models import init_params, prefill
+    from repro_torch.serve.engine import _next_bucket
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = init_params(cfg32, seed=0, device=dev)
+    rs = np.random.RandomState(7)
+    errs = []
+    for L in BUCKET_LENS:
+        S = _next_bucket(L, 16, SERVE_MAX_LEN - 1)
+        prompt = torch.from_numpy(rs.randint(2, cfg.vocab_size, size=(1, L))).to(dev)
+        padded = torch.zeros((1, S), dtype=prompt.dtype, device=dev)
+        padded[:, :L] = prompt
+        got, cache = prefill(cfg32, params, padded, extra_len=8, true_len=L)
+        want, _ = prefill(cfg32, params, prompt, extra_len=8)
+        check(bool(torch.isfinite(got).all()) and int(cache.position) == L,
+              f"bucketed prefill of {L} in {S}")
+        errs.append((L, S, (got - want).abs().max().item()))
+    print(f"[{tag}] fp32 {cfg.name}: bucketed against exact-length prefill, max|logits| "
+          "difference " + ", ".join(f"{L} in {S}: {e:.3e}" for L, S, e in errs)
+          + f" (tolerance {TOL_CONSIST:.0e})")
+    check(max(e for _, _, e in errs) <= TOL_CONSIST, "bucketed prefill disagrees")
+    del params
+    torch.cuda.empty_cache()
+    return max(e for _, _, e in errs)
+
+
+def band_tasks(vocab: int, seed: int):
+    """examples/train_lm_mtl.py's task recipe: each task prefers a distinct
+    token-id band; a label says whether a sequence leans into that band."""
+    rng = np.random.RandomState(seed)
+    tokens, labels = [], []
+    for t in range(BRIDGE_TASKS):
+        lo, hi = (t * vocab) // BRIDGE_TASKS, ((t + 1) * vocab) // BRIDGE_TASKS
+        toks = np.zeros((BRIDGE_N, BRIDGE_SEQ), np.int32)
+        y = np.zeros((BRIDGE_N,), np.float32)
+        for i in range(BRIDGE_N):
+            pos = rng.rand() < 0.5
+            toks[i] = rng.randint(lo, hi, size=BRIDGE_SEQ) if pos else rng.randint(
+                0, vocab, size=BRIDGE_SEQ)
+            y[i] = 1.0 if pos else -1.0
+        tokens.append(toks)
+        labels.append(y)
+    return tokens, labels
+
+
+def bridge(torch, dev, card: str) -> dict:
+    """Phase 8e: DMTRL heads fitted on gemma3-1b's pooled features (K3 in
+    the backbone, K1 in the fit). Returns the launches of the run."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import DMTRLConfig, dual, fit
+    from repro_torch.kernels.flash import flash_kernel
+    from repro_torch.kernels.flash import ref as flash_ref
+    from repro_torch.kernels.sdca import reset_launch_counts, sdca_round_kernel
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import init_params
+    from repro_torch.train import build_mtl_data_from_backbone, fit_mtl_heads
+
+    cfg = get_config("gemma3-1b")
+    params = init_params(cfg, seed=0, device=dev)
+    train_toks, train_labs = band_tasks(cfg.vocab_size, 0)
+    test_toks, test_labs = band_tasks(cfg.vocab_size, 1)
+    batches = BRIDGE_TASKS * -(-BRIDGE_N // 32)
+    dcfg = DMTRLConfig(solver="pallas_round", **BRIDGE_CFG)
+
+    # the entry point, counted: features through K3, the fit through K1
+    reset_launch_counts()
+    flash_kernel.flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fit_mtl_heads(cfg, params, train_toks, train_labs, dcfg, device=dev)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    k1, k3 = sdca_round_kernel.launches, flash_kernel.flash_attention.launches
+    rounds = BRIDGE_CFG["outer_iters"] * BRIDGE_CFG["rounds"]
+    gap = res.dmtrl.history["gap"]
+    t0 = time.perf_counter()
+    test = build_mtl_data_from_backbone(cfg, params, test_toks, test_labs, device=dev)
+    torch.cuda.synchronize()
+    feat_s = time.perf_counter() - t0
+    err = float(dual.error_rate(test, res.dmtrl.W))
+    print(f"[8e bridge] fit_mtl_heads on {cfg.name} ({cfg.dtype}, full width and depth): "
+          f"{BRIDGE_TASKS} tasks x {BRIDGE_N} x {BRIDGE_SEQ} tokens, phi dim "
+          f"{res.features_dim}: {fit_s:.2f} s (features and fit); K3 launches {k3} "
+          f"(= {cfg.n_layers} x {batches} batches), sdca_round launches {k1} (= {rounds} "
+          f"rounds); gap {gap[0]:.5f} -> {gap[-1]:.5f}; test error {err:.4f} (chance 0.5); "
+          f"test features {feat_s:.2f} s on {card}")
+    check(k1 == rounds, f"sdca_round launched {k1} times, expected {rounds}")
+    check(k3 == cfg.n_layers * batches, f"flash launched {k3} times in the bridge")
+    check(bool(np.all(np.isfinite(gap))) and gap[-1] < gap[0], f"gap did not shrink: {gap}")
+    check(res.features_dim == cfg.d_model, "phi dim")
+
+    # the same features through K3 and through the plain attention on the card
+    data = build_mtl_data_from_backbone(cfg, params, train_toks, train_labs, device=dev)
+
+    def plain_bshd(q, k, v, causal=True, window=0):
+        return flash_ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                       causal, window).transpose(1, 2)
+
+    kernel_bshd = attn_mod.flash_attention_bshd
+    attn_mod.flash_attention_bshd = plain_bshd
+    try:
+        plain = build_mtl_data_from_backbone(cfg, params, train_toks, train_labs, device=dev)
+    finally:
+        attn_mod.flash_attention_bshd = kernel_bshd
+    de = (data.x - plain.x).abs().max().item()
+    real = data.mask > 0
+    cos = torch.nn.functional.cosine_similarity(data.x, plain.x, dim=-1)[real].min().item()
+    print(f"[8e features] through K3 against the plain attention on the card: max|dphi| "
+          f"{de:.3e} (unit-norm rows, entries up to {plain.x.abs().max().item():.3f}; "
+          f"tolerance {TOL_FEATURES:.0e}), min cosine {cos:.6f}")
+    check(de <= TOL_FEATURES, "features through K3 disagree with the plain path")
+
+    # K1 against the plain block_gram solver on the same features
+    fits = {s: fit(DMTRLConfig(solver=s, **BRIDGE_CFG), data, device=dev)
+            for s in ("pallas_round", "block_gram")}
+    dW = (fits["pallas_round"].W - fits["block_gram"].W).abs().max().item()
+    dS = (fits["pallas_round"].sigma - fits["block_gram"].sigma).abs().max().item()
+    dE = (fits["pallas_round"].W - res.dmtrl.W).abs().max().item()
+    print(f"[8e fit] pallas_round against block_gram on the same features: max|dW| {dW:.3e} "
+          f"(tol {TOL_W:.0e}), max|dSigma| {dS:.3e} (tol {TOL_SIGMA:.0e}); the entry point's W "
+          f"against a refit on recomputed features {dE:.3e}; Sigma diag "
+          f"{np.round(np.diag(res.dmtrl.sigma.cpu().numpy()), 4).tolist()}")
+    check(dW <= TOL_W and dS <= TOL_SIGMA, "pallas_round disagrees with block_gram")
+    check(dE <= TOL_W, "the features are not reproducible")
+    del params, data, plain, fits, res
+    torch.cuda.empty_cache()
+    return dict(sdca_round=k1, flash=k3)
+
+
+def lm_families(torch, dev, card: str) -> dict:
+    """Phase 8: the dense and SSM families at full width behind the engine,
+    their fp32 checks, and the bridge. Returns launches by path."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    launches = {}
+    for sub, name in zip("abcd", LM_FAMILIES):
+        tag = f"8{sub} {name}"
+        cfg = get_config(name)
+        if name == "nemotron-4-15b":
+            cfg = dataclasses.replace(cfg, n_layers=NEMOTRON_LAYERS)
+            print(f"[{tag}] depth cut: {NEMOTRON_LAYERS} of 32 layers, full width (d_model "
+                  f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV heads, d_ff "
+                  f"{cfg.d_ff}, {cfg.act})")
+        t0 = time.perf_counter()
+        per_prefill = (0, cfg.n_layers) if cfg.arch_type == "ssm" else (cfg.n_layers, 0)
+        launches[tag] = serve_lm(torch, dev, card, cfg, tag, per_prefill)
+        if name == "gemma3-1b":
+            bucketed_prefill(torch, dev, cfg, f"{tag} bucket")
+            consistency(torch, dev, cfg, f"{tag} ring", S=RING_S, steps=RING_STEPS)
+        if name == "mamba2-780m":
+            consistency(torch, dev, cfg, f"{tag} consistency")
+        print(f"[{tag}] {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    launches["8e bridge"] = bridge(torch, dev, card)
+    print(f"[8e bridge] {time.perf_counter() - t0:.1f} s wall")
+    return launches
 
 
 def test_rows(test):
@@ -1389,7 +1690,7 @@ def main() -> int:
 
     # -- phase 5: the LM serving path; 5b: its fp32 consistency ----------------
     launches_flash, launches_ssd, lm_cfg = serve_main_path(torch, dev, card)
-    consistency(torch, dev, lm_cfg)
+    consistency(torch, dev, lm_cfg, "5b consistency")
 
     # -- phase 6: the MTL serving path; 6c: structured Sigma at 4096 tasks -----
     t6 = time.perf_counter()
@@ -1403,13 +1704,23 @@ def main() -> int:
     paper_claims(torch, dev, card, est, train)
     print(f"[7] {time.perf_counter() - t7:.1f} s wall")
 
+    # -- phase 8: the dense and SSM LM families; 8e: the DMTRL bridge --------
+    t8 = time.perf_counter()
+    by_path = lm_families(torch, dev, card)
+    print(f"[8] {time.perf_counter() - t8:.1f} s wall")
+    flash_by_path = {"5 zamba2-2.7b": launches_flash, **{
+        k: (v["flash"] if isinstance(v, dict) else v[0]) for k, v in by_path.items()}}
+    ssd_by_path = {"5 zamba2-2.7b": launches_ssd, **{
+        k: v[1] for k, v in by_path.items() if not isinstance(v, dict)}}
+
     kernels = [
         dict(name="sdca_round", route="cuda",
              source="src/repro_torch/kernels/sdca/csrc/sdca_round.cu",
              replaces="src/repro/kernels/sdca/sdca_kernel.py:261",
              launches=launches_round, max_abs_err=err_round, ms=ms_round,
              plain_ms=plain_round, bound_ms=b_round, bound_by=by_round,
-             library_ms=None),
+             library_ms=None, launches_by_path={
+                 "3 fit": launches_round, "8e bridge": by_path["8e bridge"]["sdca_round"]}),
         dict(name="sdca_block", route="cuda",
              source="src/repro_torch/kernels/sdca/csrc/sdca_block.cu",
              replaces="src/repro/kernels/sdca/sdca_kernel.py:143",
@@ -1419,11 +1730,11 @@ def main() -> int:
         dict(name="flash_fwd", route="cuda",
              source="src/repro_torch/kernels/flash/csrc/flash_fwd.cu",
              replaces="src/repro/kernels/flash/flash_kernel.py:84",
-             launches=launches_flash, **lm["flash"]),
+             launches=launches_flash, launches_by_path=flash_by_path, **lm["flash"]),
         dict(name="ssd_chunk", route="cuda",
              source="src/repro_torch/kernels/ssd/csrc/ssd_chunk.cu",
              replaces="src/repro/kernels/ssd/ssd_kernel.py:70",
-             launches=launches_ssd, **lm["ssd"]),
+             launches=launches_ssd, launches_by_path=ssd_by_path, **lm["ssd"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -84,11 +84,12 @@ def lm_params_from_reference(cfg, params_np: Mapping, device="cuda") -> Dict:
     """The port's LM param dict from the JAX package's ``init_params`` pytree
     with its leaves as numpy arrays (``jax.tree.map(np.asarray, params)``):
     the same keys and stacked layer axes, each leaf a tensor of the same
-    dtype on ``device``. ``cfg`` names the architecture the pytree is for."""
+    dtype on ``device``. ``cfg`` names the architecture the pytree is for:
+    dense, pure SSM or hybrid (the rest raise "not ported yet")."""
     from .core.dmtrl import resolve_device
-    from .models.transformer import _require_hybrid
+    from .models.transformer import _require_ported
 
-    _require_hybrid(cfg)
+    _require_ported(cfg)
     device = resolve_device(device)
 
     def leaf(a):

@@ -10,8 +10,13 @@
 // Two kernels, one per dtype:
 //   * bf16: flash_fwd_bf16_kernel, on the tensor cores (FlashAttention-2
 //     form). A CTA of 4 warps per (64-row q block, head, batch); each warp
-//     owns 16 q rows and keeps them as mma A fragments in registers for the
-//     whole kv loop. K and V tiles of 64 keys stay bf16 in shared memory in
+//     owns 16 q rows and, up to HD = 128, keeps them as mma A fragments in
+//     registers for the whole kv loop. Above 128 (192 and 256, gemma3's
+//     head dim) the O accumulator alone takes HD/2 registers a thread (128
+//     at HD = 256), so the Q fragments are read again from the resident Q
+//     tile at every k-step instead; the tiles then take 129 KB (HD = 192)
+//     or 165 KB (HD = 256) of shared memory, one CTA per SM. K and V tiles
+//     of 64 keys stay bf16 in shared memory in
 //     a ring of STAGES tiles filled by cp.async, STAGES - 1 tiles ahead of
 //     the one in use; rows are padded to HD + 8 elements, an odd number of
 //     16-byte units, so the 8 rows an ldmatrix phase reads fall in 8
@@ -28,7 +33,9 @@
 //     block index reversed, so the heaviest causal blocks of every head are
 //     dispatched first.
 //   * fp32: flash_fwd_kernel, fp32 FMAs from shared memory (256 threads,
-//     K transposed and V staged as fp32, the score tile in shared memory).
+//     K transposed and V staged as fp32, the score tile in shared memory;
+//     HD/16 output columns a thread, up to MJ = 8 columns below HD = 128
+//     and 16 above, 210 KB of shared memory at HD = 256).
 //     Its 1e-5 bar cannot be met with bf16 operands, so fp32 calls keep it.
 //
 // The masks and the sentinel are the TPU kernel's: a masked score is
@@ -66,7 +73,7 @@ namespace {
 constexpr int BQ = 64;            // query rows per CTA
 constexpr int BK = 64;            // keys per kv step
 constexpr int THREADS = 256;      // fp32 kernel: 16 x 16 thread grid over (rows, cols)
-constexpr int MAX_J = 8;          // HD / 16 columns per thread: HD <= 128
+constexpr int MAX_HD = 256;       // both kernels: HD a multiple of 16 up to 256
 constexpr int KT_STRIDE = BK + 1; // padded rows of the transposed K tile
 constexpr int S_STRIDE = BK + 1;  // padded rows of the score tile
 constexpr int BF16_THREADS = 128;  // bf16 kernel: 4 warps x 16 q rows
@@ -99,7 +106,8 @@ __device__ __forceinline__ void kv_range(int q0, int rows, int Sk, int causal, i
   }
 }
 
-template <typename T>
+// MJ: the most output columns a thread keeps (HD / 16 <= MJ)
+template <typename T, int MJ>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, int S, int Sk, int HD, int causal, int window,
@@ -132,11 +140,11 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     l_s[r] = 0.f;
   }
 
-  float acc[4][MAX_J];
+  float acc[4][MJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < MAX_J; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < MJ; ++j) acc[i][j] = 0.f;
 
   int kb_begin, kb_end;
   kv_range(q0, BQ, Sk, causal, window, kb_begin, kb_end);
@@ -216,14 +224,14 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     for (int i = 0; i < 4; ++i) {
       const float corr = c_s[ty + 16 * i];
 #pragma unroll
-      for (int j = 0; j < MAX_J; ++j) acc[i][j] *= corr;
+      for (int j = 0; j < MJ; ++j) acc[i][j] *= corr;
     }
     for (int c = 0; c < BK; ++c) {
       float pv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = Ss[(ty + 16 * i) * S_STRIDE + c];
 #pragma unroll
-      for (int j = 0; j < MAX_J; ++j) {
+      for (int j = 0; j < MJ; ++j) {
         if (j < nj) {
           const float vv = Vs[c * HD + tx + 16 * j];
 #pragma unroll
@@ -240,7 +248,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     if (q0 + r >= S) continue;
     const float denom = fmaxf(l_s[r], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < MAX_J; ++j)
+    for (int j = 0; j < MJ; ++j)
       if (j < nj) og[(q0 + r) * st.os + tx + 16 * j] = from_f<T>(acc[i][j] / denom);
   }
 }
@@ -330,6 +338,7 @@ __global__ void __launch_bounds__(BF16_THREADS) flash_fwd_bf16_kernel(
   constexpr int LD = HD + 8;  // shared row stride (elements)
   constexpr int KS = HD / 16; // k-steps of Q K^T
   constexpr int NT = HD / 8;  // n-tiles of P V
+  constexpr bool Q_IN_REGS = HD <= 128;  // else Q fragments come from Qs per k-step
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][LD]
   __nv_bfloat16* Ks = Qs + BQ * LD;                                 // [STAGES][64][LD]
@@ -363,7 +372,7 @@ __global__ void __launch_bounds__(BF16_THREADS) flash_fwd_bf16_kernel(
     cp_async_commit();
   }
 
-  uint32_t qf[KS][4];
+  uint32_t qf[Q_IN_REGS ? KS : 1][4];
   float acc[NT][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j)
@@ -383,11 +392,14 @@ __global__ void __launch_bounds__(BF16_THREADS) flash_fwd_bf16_kernel(
     cp_async_commit();
     const __nv_bfloat16* Kb = Ks + (it % STAGES) * BK * LD;
     const __nv_bfloat16* Vb = Vs + (it % STAGES) * BK * LD;
-    if (it == 0) {
+    // this lane's ldmatrix row of the warp's Q rows, k-step 0
+    const __nv_bfloat16* q_lane =
+        Qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
+    if constexpr (Q_IN_REGS) {
+      if (it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                kk * 16 + (lane >> 4) * 8);
+        for (int kk = 0; kk < KS; ++kk) ldmatrix_x4(qf[kk], q_lane + kk * 16);
+      }
     }
 
     // S = Q K^T: 16 rows x 64 keys per warp
@@ -397,15 +409,23 @@ __global__ void __launch_bounds__(BF16_THREADS) flash_fwd_bf16_kernel(
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qa[4];
+      if constexpr (Q_IN_REGS) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+      } else {
+        ldmatrix_x4(qa, q_lane + kk * 16);
+      }
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t bk[4];
         ldmatrix_x4(bk, Kb + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
                             ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+        mma_bf16(s[2 * np], qa, bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
       }
+    }
 
     // scale (log2 domain) and mask where the block needs it
     const int k0 = (kb_begin + it) * BK;
@@ -489,16 +509,17 @@ __global__ void __launch_bounds__(BF16_THREADS) flash_fwd_bf16_kernel(
   }
 }
 
+template <int MJ>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int S,
                int Sk, int HD, int causal, int window, float scale, const Strides& st,
                cudaStream_t stream) {
   const size_t smem =
       (size_t)(BQ * HD + HD * KT_STRIDE + BK * HD + BQ * S_STRIDE + 3 * BQ) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_kernel<float, MJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<float><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_kernel<float, MJ><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), S, Sk, HD, causal, window,
       scale, st);
@@ -530,7 +551,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
 }  // namespace
 
 // q, o: (B, H, S, HD) views; k, v: (B, H, Sk, HD) views; all of one dtype,
-// the head dim contiguous. strides: 12 element strides, (batch, head, row)
+// the head dim contiguous: HD a multiple of 16 up to 256 in fp32; 16 .. 128,
+// 192 or 256 in bf16. strides: 12 element strides, (batch, head, row)
 // of q, k, v and o in that order; for bf16 each must be a multiple of 8 and
 // each base 16-byte aligned (cp.async moves 16 bytes). Returns the launch's
 // cudaError_t (0 on success).
@@ -538,12 +560,15 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, voi
                                 int B, int H, int S, int Sk, int HD, int causal,
                                 int window, float scale, int is_bf16,
                                 const long long* strides, void* stream) {
-  if (HD <= 0 || HD % 16 != 0 || HD > 16 * MAX_J || S <= 0 || Sk <= 0)
+  if (HD <= 0 || HD % 16 != 0 || HD > MAX_HD || S <= 0 || Sk <= 0)
     return cudaErrorInvalidValue;
   const Strides st{strides[0], strides[1], strides[2], strides[3], strides[4],  strides[5],
                    strides[6], strides[7], strides[8], strides[9], strides[10], strides[11]};
   cudaStream_t sm = static_cast<cudaStream_t>(stream);
-  if (!is_bf16) return launch_f32(q, k, v, o, B, H, S, Sk, HD, causal, window, scale, st, sm);
+  if (!is_bf16)
+    return HD <= 128
+               ? launch_f32<8>(q, k, v, o, B, H, S, Sk, HD, causal, window, scale, st, sm)
+               : launch_f32<16>(q, k, v, o, B, H, S, Sk, HD, causal, window, scale, st, sm);
   for (int i = 0; i < 12; ++i)
     if (strides[i] % 8 != 0) return cudaErrorInvalidValue;
   for (int i = 2; i < 12; i += 3)  // 64 rows of offsets within a tile fit 32 bits
@@ -563,6 +588,8 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, voi
     FLASH_BF16_CASE(96)
     FLASH_BF16_CASE(112)
     FLASH_BF16_CASE(128)
+    FLASH_BF16_CASE(192)
+    FLASH_BF16_CASE(256)
     default:
       return cudaErrorInvalidValue;
   }

@@ -29,7 +29,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "flash_fwd.cu",)
 _ARGTYPES = [VP] * 4 + [INT] * 7 + [FLOAT, INT, VP, VP]
 DTYPES = (torch.float32, torch.bfloat16)
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
+# the bf16 kernel is built per head dim: every multiple of 16 up to 128, and
+# 192 and 256 (gemma3's); the fp32 kernel takes any multiple of 16 up to 256
+BF16_HEAD_DIMS = tuple(range(16, 129, 16)) + (192, 256)
 
 
 def flash_attention(
@@ -43,8 +46,9 @@ def flash_attention(
 
     The kernel tiles by 64 rows and keys itself and masks the ragged edge,
     so S and Sk need not be multiples of a block. HD must be a multiple of
-    16 up to 128. A causal call needs Sk >= S (every row keeps its
-    diagonal key, which lets the kernel skip fully masked key blocks)."""
+    16 up to 256, and in bf16 one of ``BF16_HEAD_DIMS``. A causal call
+    needs Sk >= S (every row keeps its diagonal key, which lets the kernel
+    skip fully masked key blocks)."""
     if q.device.type != "cuda":
         raise ValueError(f"the flash kernel runs on CUDA tensors, got {q.device}")
     B, H, S, HD = q.shape
@@ -53,6 +57,8 @@ def flash_attention(
         raise TypeError(f"kernel takes {DTYPES}, got {q.dtype}")
     if HD % 16 or HD > MAX_HEAD_DIM:
         raise ValueError(f"head dim must be a multiple of 16 up to {MAX_HEAD_DIM}, got {HD}")
+    if q.dtype == torch.bfloat16 and HD not in BF16_HEAD_DIMS:
+        raise ValueError(f"the bf16 kernel is built for head dims {BF16_HEAD_DIMS}, got {HD}")
     if causal and Sk < S:
         raise ValueError(f"a causal call needs Sk >= S, got Sk={Sk}, S={S}")
     for name, t, shape in (("q", q, (B, H, S, HD)), ("k", k, (B, H, Sk, HD)),

@@ -1,7 +1,15 @@
-"""Model substrate of the port: so far the zamba2-style hybrid (Mamba2 SSD
-layers with a shared attention block) for serving."""
+"""Model substrate of the port: decoder-only LMs of the dense (local/global
+attention), pure-SSM (Mamba2) and zamba2-style hybrid families, for
+serving and as the DMTRL heads' backbone."""
 from . import attention, common, mlp, ssm, transformer
-from .transformer import DecodeCache, decode_step, init_decode_cache, init_params, prefill
+from .transformer import (
+    DecodeCache,
+    decode_step,
+    forward_train,
+    init_decode_cache,
+    init_params,
+    prefill,
+)
 
 __all__ = [
     "attention",
@@ -11,6 +19,7 @@ __all__ = [
     "transformer",
     "DecodeCache",
     "decode_step",
+    "forward_train",
     "init_decode_cache",
     "init_params",
     "prefill",

@@ -1,19 +1,26 @@
-"""Attention: GQA with RoPE, causal prefill through the flash-attention
-kernel, and KV-cache decode with per-row positions.
+"""Attention: GQA with RoPE, causal / sliding-window prefill through the
+flash-attention kernel, and KV-cache decode with per-row positions and ring
+buffers for local layers.
 
 Prefill runs ``kernels.flash.ops.flash_attention_bshd``: on CUDA tensors
-the Hopper kernel, on CPU tensors its plain version. Its mask is by index,
-which equals the JAX package's position mask (``chunked_attention``) for
-``positions = arange(S)``: the only positions a hybrid prefill has. Decode
+the Hopper kernel, on CPU tensors its plain version. Its mask is by index.
+The JAX package masks by position (``chunked_attention``), and the two
+agree for the positions a prefill has: ``arange(S)``, or ``arange(L)``
+followed by ``-1`` pad entries (a right-padded bucket). Pad keys sit at
+indices at or past L, beyond every real query's diagonal, so the causal
+mask (and the window, relative to the same index) already hides them from
+every real row; pad rows produce values nobody reads (their logits are not
+taken and their cache slots carry ``pos = -1``). RoPE runs at the index,
+which is the position on every real row and keeps pad rows finite. Decode
 is plain torch, as it is in the JAX package.
 
-Not ported yet (later slices): pad positions (-1) of a bucketed prefill,
-cross-attention, and the ring buffer of local (sliding-window) layers.
+Not ported yet (a later slice): cross-attention (the encoder-decoder
+architecture).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -72,24 +79,43 @@ def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported yet")
 
 
+def real_length(positions: Tensor) -> int:
+    """L of a prefill's positions ``arange(L)`` followed by ``-1``s (a
+    right-padded bucket); raises on any other pattern. A CPU tensor is read
+    in place; a CUDA tensor is copied to the host first (a synchronization),
+    so the port's own callers build positions on the CPU."""
+    p = positions.detach().reshape(-1).cpu()
+    S = p.shape[0]
+    L = int((p >= 0).sum())
+    ok = torch.equal(p[:L], torch.arange(L, dtype=p.dtype)) and bool((p[L:] == -1).all())
+    if not ok:
+        raise ValueError(
+            f"positions must be arange(L) followed by -1 pad entries (right-padded), "
+            f"got {p[:8].tolist()}... of length {S}"
+        )
+    return L
+
+
 def attention_train(
     x: Tensor,
     p: Dict[str, Tensor],
     cfg: ModelConfig,
-    positions: Tensor,  # (S,) = arange(S)
+    positions: Tensor,  # (S,): arange(L) then -1s (best on the CPU, see real_length)
     is_local: bool = False,
     causal: bool = True,
     return_kv: bool = False,
 ):
-    """Full-sequence attention for prefill. ``return_kv`` additionally
+    """Full-sequence attention for prefill and the forward pass, causal over
+    the whole (possibly right-padded) sequence. ``return_kv`` additionally
     returns the post-RoPE (KV-head) k/v for the decode cache."""
     B, S, _ = x.shape
-    if bool((positions < 0).any()):
-        raise _not_ported("attention over pad positions (-1)")
+    if real_length(positions) < S and not causal:
+        raise _not_ported("non-causal attention over pad positions")
     q, kkv, vkv = _project_qkv(x, p, cfg)
     if cfg.rope_theta > 0:
-        q = apply_rope(q, positions[None, :], cfg.rope_theta)
-        kkv = apply_rope(kkv, positions[None, :], cfg.rope_theta)
+        index = torch.arange(S, device=x.device)[None, :]
+        q = apply_rope(q, index, cfg.rope_theta)
+        kkv = apply_rope(kkv, index, cfg.rope_theta)
     k = _expand_kv(kkv, cfg.n_heads)
     v = _expand_kv(vkv, cfg.n_heads)
     window = cfg.window if (is_local and cfg.window) else 0
@@ -110,17 +136,35 @@ def cache_from_kv(
     v: Tensor,
     is_local: bool,
     max_len: int,
+    positions: Optional[Tensor] = None,  # (S,): arange(L) then -1s; None = arange(S)
 ) -> Dict[str, Tensor]:
-    """Decode cache of one global layer from prefill k/v: slot == position."""
-    if is_local and cfg.window:
-        raise _not_ported("the local ring buffer")
+    """Assemble a decode cache from prefill k/v, with ring placement for
+    local (sliding-window) layers.
+
+    Real entries keep the slot == position layout the decode writer
+    assumes (a local layer: slot == position % window, the last ``window``
+    real entries kept); pad entries (position -1) land with ``pos = -1``,
+    so ``attention_decode`` masks them."""
     B, S = k.shape[:2]
+    L = S if positions is None else real_length(positions)
+    dev = k.device
+    if is_local and cfg.window:
+        W = min(cfg.window, max_len)
+        kept = torch.arange(max(0, L - W), L, device=dev)
+        slots = kept % W
+        ck = k.new_zeros((B, W) + tuple(k.shape[2:]))
+        cv = v.new_zeros((B, W) + tuple(v.shape[2:]))
+        cpos = torch.full((B, W), -1, dtype=torch.int32, device=dev)
+        ck[:, slots] = k[:, kept]
+        cv[:, slots] = v[:, kept]
+        cpos[:, slots] = kept.to(torch.int32)
+        return {"k": ck, "v": cv, "pos": cpos}
     ck = k.new_zeros((B, max_len) + tuple(k.shape[2:]))
     cv = v.new_zeros((B, max_len) + tuple(v.shape[2:]))
     ck[:, :S] = k
     cv[:, :S] = v
-    cpos = torch.full((B, max_len), -1, dtype=torch.int32, device=k.device)
-    cpos[:, :S] = torch.arange(S, dtype=torch.int32, device=k.device)
+    cpos = torch.full((B, max_len), -1, dtype=torch.int32, device=dev)
+    cpos[:, :L] = torch.arange(L, dtype=torch.int32, device=dev)
     return {"k": ck, "v": cv, "pos": cpos}
 
 
@@ -130,15 +174,15 @@ def cache_from_kv(
 def init_kv_cache(
     cfg: ModelConfig, batch: int, max_len: int, is_local: bool, dtype, device
 ) -> Dict[str, Tensor]:
-    """Cache for one global attention layer."""
-    if is_local and cfg.window:
-        raise _not_ported("the local ring buffer")
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    """Cache for one attention layer. Local layers get a ring buffer of
+    ``min(window, max_len)`` slots."""
+    size = min(cfg.window, max_len) if (is_local and cfg.window) else max_len
+    shape = (batch, size, cfg.n_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
         # absolute position of each slot (for masking); -1 = empty
-        "pos": torch.full((batch, max_len), -1, dtype=torch.int32, device=device),
+        "pos": torch.full((batch, size), -1, dtype=torch.int32, device=device),
     }
 
 
@@ -151,12 +195,12 @@ def attention_decode(
     is_local: bool,
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """One-token decode; ``position`` is a scalar or per-row ``(B,)``.
-    Writes land at ``slot == position`` per row, IN PLACE in ``cache``
-    (the JAX package returns updated copies); the same dict comes back."""
-    if is_local and cfg.window:
-        raise _not_ported("the local ring buffer")
+    Writes land at ``slot == position`` per row (a local layer's ring:
+    ``position % size``), IN PLACE in ``cache`` (the JAX package returns
+    updated copies); the same dict comes back."""
     B = x.shape[0]
     hd = cfg.head_dim
+    local = bool(is_local and cfg.window)
     q, k, v = _project_qkv(x, p, cfg)  # (B,1,H,hd), (B,1,KV,hd)
     pos_v = torch.broadcast_to(position, (B,)).long()
     if cfg.rope_theta > 0:
@@ -164,7 +208,7 @@ def attention_decode(
         k = apply_rope(k, pos_v[:, None], cfg.rope_theta)
 
     size = cache["k"].shape[1]
-    slot = torch.clamp(pos_v, max=size - 1)
+    slot = torch.clamp(pos_v % size if local else pos_v, max=size - 1)
     rows = torch.arange(B, device=x.device)
     cache["k"][rows, slot] = k[:, 0]
     cache["v"][rows, slot] = v[:, 0]
@@ -175,6 +219,8 @@ def attention_decode(
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) * (1.0 / math.sqrt(hd))
     cpos = cache["pos"]
     valid = (cpos >= 0) & (cpos <= pos_v[:, None])
+    if local:
+        valid &= cpos > pos_v[:, None] - cfg.window
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", w, vv)

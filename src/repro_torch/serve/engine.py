@@ -22,9 +22,11 @@ The port of the JAX package's ``serve/engine.py``, with three differences:
     engine builds updated copies with ``.at[].set``;
   * sampling is greedy only (``temperature > 0`` is not ported yet).
 
-SSM / hybrid architectures cannot mask pad steps out of a state scan, so
-they prefill at EXACT prompt length; the only architecture the port's
-model serves so far is the hybrid.
+Attention architectures (dense: qwen1.5, nemotron-4, gemma3 with its
+local ring buffers) prefill in power-of-two buckets, right-padded, with the
+pad carried as ``prefill(..., true_len=)``. SSM / hybrid architectures
+cannot mask pad steps out of a state scan, so they prefill at EXACT prompt
+length.
 """
 from __future__ import annotations
 
@@ -77,21 +79,33 @@ def _next_bucket(n: int, lo: int, hi: int) -> int:
 
 
 def _tree_map(fn, *trees):
-    """``fn`` over the matching tensor leaves of DecodeCaches, or of the
-    plain tensors scripted tests use in their place."""
+    """``fn`` over the matching tensor leaves of nested dicts and lists."""
     t0 = trees[0]
     if t0 is None:
         return None
-    if isinstance(t0, DecodeCache):
-        return DecodeCache(*(
-            _tree_map(fn, *(getattr(t, f.name) for t in trees))
-            for f in dataclasses.fields(DecodeCache)
-        ))
     if isinstance(t0, dict):
         return {k: _tree_map(fn, *(t[k] for t in trees)) for k in t0}
     if isinstance(t0, (list, tuple)):
         return type(t0)(_tree_map(fn, *leaves) for leaves in zip(*trees))
     return fn(*trees)
+
+
+def _map_cache(fn, *caches):
+    """``fn(batch_axis, *leaves)`` over the matching leaves of DecodeCaches,
+    or of the plain tensors scripted tests use in their place (axis 0). The
+    batch axis is not uniform: uniform archs stack the layer caches as
+    (n_layers, B, ...) dicts (batch at axis 1), the others keep per-layer
+    lists of (B, ...) leaves, and the position is a scalar (B=1 prefill)
+    or a (B,) vector (the batch)."""
+    c0 = caches[0]
+    if not isinstance(c0, DecodeCache):
+        return _tree_map(lambda *ls: fn(0, *ls), *caches)
+    ax = 1 if isinstance(c0.layers, dict) else 0
+    return DecodeCache(
+        _tree_map(lambda *ls: fn(ax, *ls), *(c.layers for c in caches)),
+        fn(0, *(c.position for c in caches)),
+        _tree_map(lambda *ls: fn(0, *ls), *(c.shared for c in caches)),
+    )
 
 
 class ServingEngine:
@@ -321,29 +335,31 @@ class ServingEngine:
     # -- internals: batch state / insert / decode ---------------------------
     def _alloc_batch_state(self, one) -> None:
         """Allocate the batch-wide cache from the structure of one B=1
-        prefill cache: every leaf's batch axis (axis 0) grows to ``batch``;
-        the scalar position becomes a per-row (B,) vector."""
+        prefill cache: every leaf's batch axis grows to ``batch``; the
+        scalar position becomes a per-row (B,) vector."""
         B = self.scfg.batch
 
-        def rep(a):
+        def rep(ax, a):
             if a.ndim == 0:  # position scalar -> per-row vector
                 return torch.zeros((B,), dtype=a.dtype, device=a.device)
-            return a.new_zeros((B,) + tuple(a.shape[1:]))
+            shape = list(a.shape)
+            shape[ax] = B
+            return a.new_zeros(shape)
 
-        self._cache = _tree_map(rep, one)
+        self._cache = _map_cache(rep, one)
         self._token = torch.zeros((B,), dtype=torch.int32, device=self.device)
 
     def _insert(self, one, i: int, tok0: Tensor) -> None:
         """Copy a B=1 prefill cache into slot ``i`` of the batch cache, in
         place, and set the slot's next input token."""
 
-        def put(full, o):
+        def put(ax, full, o):
             if o.ndim == 0:
                 full[i] = o
             else:
-                full[i:i + 1] = o
+                full.narrow(ax, i, 1).copy_(o)
 
-        _tree_map(put, self._cache, one)
+        _map_cache(put, self._cache, one)
         self._token[i] = tok0[0]
 
     def _step_call(self, token: Tensor, cache: DecodeCache):

@@ -109,3 +109,41 @@ def test_bf16_kernel_rounding_matches_jax(window):
                     block_q=64, block_k=64)
     want = np.asarray(want.astype(jnp.float32)).transpose(0, 2, 1, 3)
     np.testing.assert_allclose(out.float().numpy(), want, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("window", [0, 48])
+def test_flash_at_head_dim_256_matches_jax_kernel(window):
+    """gemma3's head dim through the plain version against the JAX kernel."""
+    q, k, v = _qkv(256 + window, (1, 2, 128, 256))
+    out = ops.flash_attention(*map(torch.from_numpy, (q, k, v)), True, window,
+                              block_q=64, block_k=64)
+    want = jax_flash(*map(jnp.asarray, (q, k, v)), True, window, block_q=64, block_k=64)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("L,S,window", [(21, 32, 0), (37, 64, 16), (64, 64, 0)])
+def test_right_padded_bucket_needs_no_key_mask(L, S, window):
+    """A right-padded bucket run causal over all S rows (the kernel's index
+    mask, no key mask) gives, on every real row, what the JAX package's
+    position mask gives with the pad positions at -1 (chunked_attention)."""
+    from repro.models.attention import chunked_attention
+
+    q, k, v = _qkv(L + S, (1, S, 4, 64))
+    out = ops.flash_attention_bshd(*map(torch.from_numpy, (q, k, v)), True, window)
+    pos = jnp.where(jnp.arange(S) < L, jnp.arange(S), -1)
+    want = chunked_attention(*map(jnp.asarray, (q, k, v)), pos, pos, True, window)
+    np.testing.assert_allclose(out.numpy()[:, :L], np.asarray(want)[:, :L], atol=2e-5)
+    assert np.isfinite(out.numpy()).all()
+
+
+def test_bf16_kernel_rounding_at_head_dim_256():
+    """The card's bf16 rounding at gemma3's head dim (4 heads, its window
+    of 512 over a 300-token prompt) against the JAX kernel, bf16 bar."""
+    B, S, H, HD = 1, 300, 4, 256
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(S + HD, (B, H, S, HD)))
+    out = _bf16_kernel_emulation(q, k, v, True, 512)
+    to_jax = lambda t: jnp.asarray(t.float().numpy(), jnp.bfloat16).transpose(0, 2, 1, 3)
+    want = jax_bshd(to_jax(q), to_jax(k), to_jax(v), causal=True, window=512,
+                    block_q=64, block_k=64)
+    want = np.asarray(want.astype(jnp.float32)).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(out.float().numpy(), want, atol=2e-2, rtol=2e-2)

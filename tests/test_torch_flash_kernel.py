@@ -85,6 +85,18 @@ def cuda():
         (1, 32, 512, 80, True, 128, torch.bfloat16),
         (2, 2, 200, 64, False, 0, torch.bfloat16),
         (1, 2, 150, 80, False, 64, torch.bfloat16),
+        # head dims above 128: gemma3-1b's 256 (4 heads, its local window of
+        # 512), 192, and qwen1.5-4b's prefill at 128
+        (1, 4, 512, 256, True, 0, torch.bfloat16),
+        (1, 4, 512, 256, True, 512, torch.bfloat16),
+        (1, 4, 512, 256, True, 0, torch.float32),
+        (1, 4, 512, 256, True, 512, torch.float32),
+        (1, 4, 300, 256, True, 100, torch.bfloat16),
+        (1, 2, 129, 256, True, 0, torch.float32),
+        (2, 2, 150, 256, False, 0, torch.bfloat16),
+        (1, 2, 200, 192, True, 0, torch.bfloat16),
+        (1, 2, 200, 192, True, 64, torch.float32),
+        (1, 20, 512, 128, True, 0, torch.bfloat16),
     ],
 )
 def test_kernel_matches_plain(cuda, B, H, S, HD, causal, window, dtype):
@@ -163,7 +175,9 @@ def test_bshd_wrapper_with_padding_on_card(cuda):
 
 
 @pytest.mark.gpu
-def test_kernel_raises_on_unsupported_head_dim(cuda):
-    q, k, v = _qkv(0, 1, 1, 64, 72, torch.float32, cuda)
+@pytest.mark.parametrize("HD,dtype", [(72, torch.float32), (272, torch.float32),
+                                      (144, torch.bfloat16)])
+def test_kernel_raises_on_unsupported_head_dim(cuda, HD, dtype):
+    q, k, v = _qkv(0, 1, 1, 64, HD, dtype, cuda)
     with pytest.raises(ValueError, match="head dim"):
         flash_kernel.flash_attention(q, k, v)

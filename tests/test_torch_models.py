@@ -17,13 +17,22 @@ import torch
 from repro.configs import get_config as jax_get_config
 from repro.models import common as jcommon
 from repro.models import decode_step as jax_decode_step
+from repro.models import forward_train as jax_forward_train
 from repro.models import init_params as jax_init_params
 from repro.models import prefill as jax_prefill
 from repro.models import ssm as jssm
 from repro.models import transformer as jtransformer
 from repro_torch.configs import get_config
 from repro_torch.convert import lm_params_from_reference
-from repro_torch.models import common, decode_step, init_params, prefill, ssm, transformer
+from repro_torch.models import (
+    common,
+    decode_step,
+    forward_train,
+    init_params,
+    prefill,
+    ssm,
+    transformer,
+)
 
 ARCH = "zamba2-2_7b"
 
@@ -101,7 +110,7 @@ def test_entry_points_default_to_the_card(model):
 
 def test_unported_archs_raise():
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        init_params(get_config("qwen1_5-4b").reduced(), device="cpu")
+        init_params(get_config("qwen3-moe-30b-a3b").reduced(), device="cpu")
 
 
 def test_ssm_block_train_matches_jax(model):
@@ -162,3 +171,19 @@ def test_bucketed_prefill_is_refused(model):
     cfg, _, params, _ = model
     with pytest.raises(ValueError, match="exact length"):
         prefill(cfg, params, torch.zeros((1, 8), dtype=torch.int64), true_len=torch.tensor(5))
+
+
+def test_forward_train_matches_jax(model):
+    """The hybrid's all-position logits (the forward-only oracle)."""
+    cfg, jcfg, params, jparams = model
+    toks = np.random.RandomState(6).randint(0, cfg.vocab_size, size=(2, 21)).astype(np.int32)
+    logits, _ = forward_train(cfg, params, torch.from_numpy(toks))
+    want, _ = jax_forward_train(jcfg, jparams, jnp.asarray(toks))
+    np.testing.assert_allclose(logits.numpy(), np.asarray(want), atol=2e-4)
+
+
+def test_nemotron_config_copy_matches_reference():
+    mine, ref = get_config("nemotron-4-15b"), jax_get_config("nemotron-4-15b")
+    assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+    assert dataclasses.asdict(mine.reduced()) == dataclasses.asdict(ref.reduced())
+    assert mine.param_count() == ref.param_count()

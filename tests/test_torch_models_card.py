@@ -1,0 +1,103 @@
+"""The port's dense and SSM model paths on the card against the same model
+on the CPU (marker ``gpu``: they skip without a card). This module imports
+no JAX, so that the card's run, which has no JAX, can collect it:
+
+    PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_models_card.py
+
+A small gemma3-shaped model keeps gemma3-1b's head dim of 256 (4 heads, 1
+KV head, local layers with a global one after every second) at a narrow
+width, in fp32: the card's prefill runs the fp32 flash kernel, the CPU's
+its plain version, so the logits agree to float summation order (bar
+2e-4, the prefill bar of tests/test_serve.py).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels.flash import flash_kernel
+from repro_torch.kernels.ssd import ssd_kernel
+from repro_torch.models import decode_step, forward_train, init_params, prefill
+from repro_torch.train import pooled_features
+
+
+def gemma_like():
+    return dataclasses.replace(
+        get_config("gemma3-1b").reduced(), n_layers=3, d_head=256, local_ratio=2, window=64,
+    )
+
+
+def test_gemma_like_config_is_what_the_card_tests_assume():
+    cfg = gemma_like()
+    assert cfg.head_dim == 256 and cfg.n_heads == 4 and cfg.n_kv_heads == 1
+    assert cfg.layer_kinds() == ("local", "local", "global")
+    assert cfg.dtype == "float32"
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _on(params, device):
+    if isinstance(params, dict):
+        return {k: _on(v, device) for k, v in params.items()}
+    return params.to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("true_len", [None, 150])
+def test_head_dim_256_prefill_and_decode_on_card(cuda, true_len):
+    cfg = gemma_like()
+    params = init_params(cfg, seed=0, device="cpu")
+    gparams = _on(params, cuda)
+    toks = torch.from_numpy(np.random.RandomState(0).randint(0, cfg.vocab_size, (1, 200)))
+    before = flash_kernel.flash_attention.launches
+    last, cache = prefill(cfg, gparams, toks.to(cuda), extra_len=8, true_len=true_len)
+    torch.cuda.synchronize()
+    assert flash_kernel.flash_attention.launches == before + cfg.n_layers
+    want, wcache = prefill(cfg, params, toks, extra_len=8, true_len=true_len)
+    torch.testing.assert_close(last.cpu(), want, atol=2e-4, rtol=0)
+    for t in (3, 17, 29):
+        tok = torch.tensor([t])
+        out, cache = decode_step(cfg, gparams, tok.to(cuda), cache)
+        wout, wcache = decode_step(cfg, params, tok, wcache)
+        torch.testing.assert_close(out.cpu(), wout, atol=5e-4, rtol=0)
+
+
+@pytest.mark.gpu
+def test_mamba2_layout_prefill_on_card(cuda):
+    """The pure SSM at mamba2-780m's head layout (P = 64, N = 128 cut to
+    the reduced config's 32 here) through the SSD chunk kernel."""
+    cfg = get_config("mamba2-780m").reduced()
+    params = init_params(cfg, seed=0, device="cpu")
+    gparams = _on(params, cuda)
+    toks = torch.from_numpy(np.random.RandomState(1).randint(0, cfg.vocab_size, (2, 70)))
+    before = ssd_kernel.ssd_chunk_kernel.launches
+    last, _ = prefill(cfg, gparams, toks.to(cuda), extra_len=4)
+    torch.cuda.synchronize()
+    assert ssd_kernel.ssd_chunk_kernel.launches == before + cfg.n_layers
+    want, _ = prefill(cfg, params, toks, extra_len=4)
+    torch.testing.assert_close(last.cpu(), want, atol=2e-4, rtol=0)
+
+
+@pytest.mark.gpu
+def test_forward_is_forward_only_on_card(cuda):
+    """No backward kernels: a graph-building forward on the card raises;
+    under no_grad it runs, and pooled_features always does."""
+    cfg = gemma_like()
+    params = init_params(cfg, seed=0, device=cuda)
+    toks = torch.zeros((1, 8), dtype=torch.int64, device=cuda)
+    params["embed"].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="backward"):
+        forward_train(cfg, params, toks)
+    with torch.no_grad():
+        logits, _ = forward_train(cfg, params, toks)
+    assert logits.shape == (1, 8, cfg.vocab_padded)
+    feats = pooled_features(cfg, params, toks)
+    assert feats.shape == (1, cfg.d_model) and not feats.requires_grad

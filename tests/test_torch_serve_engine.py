@@ -7,6 +7,8 @@ reasons must be identical. The scripted tests drive the slot machinery
 through stubbed ``_prefill_one`` / ``_step_call`` hooks, as
 tests/test_serve_decode.py does (no model).
 """
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -67,6 +69,35 @@ def test_engine_matches_jax_engine(eos_id):
     assert all(reason in ("eos", "length") for _, reason in out)
     if probe_eos:
         assert out[0] == (out[0][0][:2], "eos")
+
+
+def _reduced_pair(arch):
+    cfg, jcfg = get_config(arch).reduced(), jax_get_config(arch).reduced()
+    if arch == "gemma3-1b":  # 6 layers: five local ones and a global one
+        cfg, jcfg = (dataclasses.replace(c, n_layers=6) for c in (cfg, jcfg))
+    return cfg, jcfg
+
+
+@pytest.mark.parametrize("arch", ["qwen1_5-4b", "mamba2-780m", "gemma3-1b"])
+def test_dense_and_ssm_engines_match_jax_engine(arch):
+    """A dense arch (bucketed, pad-masked prefill into a stacked uniform
+    cache), the pure SSM (exact-length prefill) and gemma3 (local ring
+    buffers, decoded past the window of 32): the same greedy streams as
+    the JAX engine, the third request in a recycled slot."""
+    cfg, jcfg = _reduced_pair(arch)
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(0))
+    params = lm_params_from_reference(cfg, jax.tree.map(np.asarray, jparams), device="cpu")
+    rs = np.random.RandomState(2)
+    prompts = [rs.randint(2, cfg.vocab_size, size=n).astype(np.int32) for n in (9, 21, 5)]
+    budgets = [6, 3, 40] if arch == "gemma3-1b" else [6, 3, 5]
+    scfg = dict(batch=2, max_len=64, bucket_min=8, eos_id=-1)
+    jax_out = _stream(JaxServingEngine(jcfg, jparams, JaxServeConfig(**scfg)), JaxRequest,
+                      prompts, budgets)
+    eng = ServingEngine(cfg, params, ServeConfig(**scfg), device="cpu")
+    out = _stream(eng, Request, prompts, budgets)
+    assert out == jax_out
+    assert [len(o) for o, _ in out] == budgets
+    assert isinstance(eng._cache.layers, dict) == (arch != "gemma3-1b")
 
 
 # ---------------------------------------------------------------------------
@@ -180,3 +211,14 @@ def test_warmup_allocates_the_batch_state():
     assert tuple(eng._token.shape) == (3,)
     with pytest.raises(ValueError, match="no decode room"):
         eng.warmup([64])
+
+
+def test_warmup_allocates_the_stacked_cache_of_a_uniform_arch():
+    """A uniform arch's batch cache keeps the stacked (n_layers, B, ...)
+    layout: the batch axis is 1 there, and the slot insert writes it."""
+    cfg = get_config("qwen1_5-4b").reduced()
+    eng = ServingEngine(cfg, None, ServeConfig(batch=3, max_len=64, bucket_min=8), device="cpu")
+    eng.warmup([8])
+    k = eng._cache.layers["k"]
+    assert tuple(k.shape) == (cfg.n_layers, 3, 64, cfg.n_kv_heads, cfg.head_dim)
+    assert tuple(eng._cache.position.shape) == (3,)
