@@ -19,7 +19,11 @@ Phases, each printing its own lines:
               with and without a 128 window, timed beside
               scaled_dot_product_attention, and at gemma3-1b's (1, 4, 512,
               256; bf16 and fp32, causal and its 512 window) and
-              qwen1.5-4b's (1, 20, 512, 128; bf16); the SSD chunk with dt
+              qwen1.5-4b's (1, 20, 512, 128; bf16), qwen3-moe's (1, 32,
+              512, 128; bf16), chameleon-34b's and kimi-k2's (1, 64, 512,
+              128; bf16) and whisper-tiny's non-causal calls (1, 6, 1500,
+              64) in fp32 and bf16 and (1, 6, 512, 64) against 1500 keys
+              in fp32; the SSD chunk with dt
               and A in the model's ranges, per head in the chunked layout
               (1, 80, 8, 64, 64, 64), in Zamba2's own layout (bf16 views of
               the conv output, one B/C group) and in mamba2-780m's (48
@@ -76,7 +80,19 @@ Phases, each printing its own lines:
               gemma3-1b's pooled features of 6 band tasks x 256 sequences
               x 64 tokens: K3 in the backbone, K1 24 times in the fit, the
               features against the plain attention, the fit against
-              block_gram on the same features, the test error.
+              block_gram on the same features, the test error;
+  9. the rest of the zoo — phase 5's engine and requests (bf16, random
+              weights from seed 0) at full width: (a) qwen3-moe-30b-a3b
+              cut to 8 of 48 layers (128 experts top-8), K3 8 times a
+              prefill, each prefill's drop_frac; in fp32 at lossless
+              capacity 256 + 3 decode steps against prefills of 257 ..
+              259 and bucketed against exact-length prefills; (b)
+              kimi-k2-1t-a32b cut to 1 of 61 layers (384 experts, one
+              shared), K3 once; (c) chameleon-34b cut to 4 of 48, K3 4
+              times; (d) whisper-tiny whole, 1500 frames a request, exact
+              length, K3 12 times (4 encoder layers non-causal, 4 decoder
+              layers, 4 cross-attentions) and its fp32 state (256 + 3
+              against 257 .. 259).
 
 It exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository. The line before the last is a JSON object with
@@ -87,6 +103,7 @@ stream, so they are device times, not the host's launch pace.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -132,6 +149,11 @@ SSD_H, SSD_NC, SSD_Q, SSD_P, SSD_N = 80, 8, 64, 64, 64
 # mamba2-780m layer's SSD chunks (48 heads, P = 64, N = 128, one group)
 GEMMA_HEADS, GEMMA_HD, GEMMA_WINDOW = 4, 256, 512
 QWEN_HEADS, QWEN_HD = 20, 128
+# the rest of the zoo (phase 9): qwen3-moe's attention (32 heads of 128),
+# chameleon-34b's and kimi-k2's (64 heads of 128), whisper-tiny's (6 heads
+# of 64; the encoder over its 1500 frames, cross-attention against them)
+MOE_HEADS, WIDE_HEADS, ZOO_HD = 32, 64, 128
+WHISPER_HEADS, WHISPER_HD, WHISPER_FRAMES = 6, 64, 1500
 MAMBA_H, MAMBA_P, MAMBA_N = 48, 64, 128
 # flash attention and the SSD chunk against their plain versions. Flash:
 # the JAX package's bars (tests/test_kernels.py: fp32 1e-5, bf16 2e-2);
@@ -185,6 +207,18 @@ LM_FAMILIES = ("gemma3-1b", "qwen1.5-4b", "nemotron-4-15b", "mamba2-780m")
 NEMOTRON_LAYERS = 4
 RING_S, RING_STEPS = 508, 8
 BUCKET_LENS = (300, 129, 17)  # bucketed (512, 256, 32) against exact-length prefills
+# the rest of the zoo (phase 9), each at full width behind phase 5's engine
+# and requests: qwen3-moe cut to 8 of its 48 layers (every layer is the
+# same MoE block), kimi-k2 to 1 of 61 (its 19.4e9 parameters a layer with
+# the embeddings take 38.9 GB in bf16: 2 layers would be 73.1 GB),
+# chameleon-34b to 4 of 48; whisper-tiny whole (4 encoder and 4 decoder
+# layers over 1500 frames a request)
+ZOO_FAMILIES = ("qwen3-moe-30b-a3b", "kimi-k2-1t-a32b", "chameleon-34b", "whisper-tiny")
+ZOO_LAYERS = {"qwen3-moe-30b-a3b": 8, "kimi-k2-1t-a32b": 1, "chameleon-34b": 4}
+# an fp32 bucketed MoE prefill at lossless capacity against exact length:
+# the same rows through the same kernels, where the expert products' and
+# the buffers' shapes follow the bucket (C = S K cf / E)
+TOL_BUCKET = 1e-5
 # 8e, the backbone -> DMTRL bridge: examples/train_lm_mtl.py's band recipe
 # at 6 tasks x 256 sequences x 64 tokens (seed 0 train, seed 1 test), heads
 # fitted on gemma3-1b's pooled features (d = 1152) through K1
@@ -225,6 +259,17 @@ def cuda_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_events(prof) -> list:
+    """The profile's device-side entries (kernels, copies, memsets), each
+    counted once. An operator's entry also carries its kernels' time as
+    its own self device time, so a sum over every entry would count each
+    kernel twice."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS):
@@ -277,50 +322,64 @@ def lm_kernel_checks(torch, dev, card: str) -> dict:
     print(f"[2 flash_fwd] bf16 {tuple(q.shape)} causal: {ms_flash:.4f} ms/call (plain "
           f"{plain_flash:.3f} ms, scaled_dot_product_attention {lib_flash:.4f} ms), "
           f"bound {b_flash:.5f} ms by {by_flash} on {card}")
-    flash_shapes = [dict(shape=list(q.shape), dtype="bf16", window=0, max_abs_err=err_flash,
+    flash_shapes = [dict(shape=list(q.shape), keys=S, causal=True, dtype="bf16", window=0,
+                         max_abs_err=err_flash,
                          ms=ms_flash, plain_ms=plain_flash, bound_ms=b_flash,
                          bound_by=by_flash, library_ms=lib_flash)]
     del qkv32, q, k, v
 
-    # gemma3-1b (head dim 256, bf16 and fp32, causal and its window) and
-    # qwen1.5-4b (head dim 128, bf16), each timed beside
-    # scaled_dot_product_attention where it computes the same function (a
-    # window that covers the whole prompt is the causal mask)
-    for H_, HD_, dtype, window in (
-        (GEMMA_HEADS, GEMMA_HD, torch.bfloat16, 0),
-        (GEMMA_HEADS, GEMMA_HD, torch.bfloat16, GEMMA_WINDOW),
-        (GEMMA_HEADS, GEMMA_HD, torch.float32, 0),
-        (GEMMA_HEADS, GEMMA_HD, torch.float32, GEMMA_WINDOW),
-        (QWEN_HEADS, QWEN_HD, torch.bfloat16, 0),
+    # gemma3-1b (head dim 256, bf16 and fp32, causal and its window),
+    # qwen1.5-4b (head dim 128, bf16), qwen3-moe (32 heads of 128),
+    # chameleon-34b and kimi-k2 (64 heads of 128), and whisper-tiny's
+    # non-causal calls (6 heads of 64 over its 1500 frames: the encoder's
+    # self-attention in fp32, as the bf16 model runs its encoder, and in
+    # bf16; cross-attention's 512 decoder rows against the frames in fp32),
+    # each timed beside scaled_dot_product_attention where it computes the
+    # same function (a window that covers the whole prompt is the causal mask)
+    for H_, S_, Sk_, HD_, dtype, causal, window in (
+        (GEMMA_HEADS, S, S, GEMMA_HD, torch.bfloat16, True, 0),
+        (GEMMA_HEADS, S, S, GEMMA_HD, torch.bfloat16, True, GEMMA_WINDOW),
+        (GEMMA_HEADS, S, S, GEMMA_HD, torch.float32, True, 0),
+        (GEMMA_HEADS, S, S, GEMMA_HD, torch.float32, True, GEMMA_WINDOW),
+        (QWEN_HEADS, S, S, QWEN_HD, torch.bfloat16, True, 0),
+        (MOE_HEADS, S, S, ZOO_HD, torch.bfloat16, True, 0),
+        (WIDE_HEADS, S, S, ZOO_HD, torch.bfloat16, True, 0),
+        (WHISPER_HEADS, WHISPER_FRAMES, WHISPER_FRAMES, WHISPER_HD, torch.float32, False, 0),
+        (WHISPER_HEADS, WHISPER_FRAMES, WHISPER_FRAMES, WHISPER_HD, torch.bfloat16, False, 0),
+        (WHISPER_HEADS, S, WHISPER_FRAMES, WHISPER_HD, torch.float32, False, 0),
     ):
         bf16 = dtype == torch.bfloat16
         name, tol = ("bf16", TOL_FLASH_BF16) if bf16 else ("fp32", TOL_FLASH_F32)
-        label = f"{name} (1, {H_}, {S}, {HD_})" + (f" window {window}" if window else "")
-        q, k, v = (torch.from_numpy(rs.randn(1, H_, S, HD_).astype(np.float32)).to(dev, dtype)
-                   for _ in range(3))
-        out = flash_kernel.flash_attention(q, k, v, True, window)
+        label = (f"{name} (1, {H_}, {S_}, {HD_})" + (f" x {Sk_} keys" if Sk_ != S_ else "")
+                 + ("" if causal else " non-causal") + (f" window {window}" if window else ""))
+        q = torch.from_numpy(rs.randn(1, H_, S_, HD_).astype(np.float32)).to(dev, dtype)
+        k, v = (torch.from_numpy(rs.randn(1, H_, Sk_, HD_).astype(np.float32)).to(dev, dtype)
+                for _ in range(2))
+        out = flash_kernel.flash_attention(q, k, v, causal, window)
         torch.cuda.synchronize()
-        want = flash_ref.attention_ref(q, k, v, True, window)
+        want = flash_ref.attention_ref(q, k, v, causal, window)
         check(bool(torch.isfinite(out).all()), f"flash {label}: non-finite output")
         e = (out.float() - want.float()).abs().max().item()
         check(e <= tol, f"flash {label} disagrees with its plain version: {e:.3e}")
         err_flash = max(err_flash, e)
-        ms = cuda_ms(torch, lambda: flash_kernel.flash_attention(q, k, v, True, window), reps=50)
-        plain = cuda_ms(torch, lambda: flash_ref.attention_ref(q, k, v, True, window), reps=10)
+        ms = cuda_ms(torch, lambda: flash_kernel.flash_attention(q, k, v, causal, window),
+                     reps=50)
+        plain = cuda_ms(torch, lambda: flash_ref.attention_ref(q, k, v, causal, window), reps=10)
         lib = None
-        if window == 0 or window >= S:
-            lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+        if window == 0 or window >= S_:
+            lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal),
                           reps=50)
-        pairs = sum(min(i + 1, window or S) for i in range(S))  # (query, key) pairs kept
-        b, by = bound_ms(4 * q.numel() * q.element_size(), 4.0 * H_ * HD_ * pairs,
-                         PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS)
+        # (query, key) pairs kept: the causal triangle (within the window), or all
+        pairs = (sum(min(i + 1, window or S_) for i in range(S_)) if causal else S_ * Sk_)
+        b, by = bound_ms((2 * q.numel() + 2 * k.numel()) * q.element_size(),
+                         4.0 * H_ * HD_ * pairs, PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS)
         lib_txt = f"{lib:.4f} ms" if lib is not None else "n/a (window)"
         print(f"[2 flash_fwd {label}] max|out - plain| = {e:.3e} (tolerance {tol:.0e}); "
               f"{ms:.4f} ms/call (plain {plain:.3f} ms, scaled_dot_product_attention "
               f"{lib_txt}), bound {b:.5f} ms by {by} on {card}")
-        flash_shapes.append(dict(shape=[1, H_, S, HD_], dtype=name, window=window,
-                                 max_abs_err=e, ms=ms, plain_ms=plain, bound_ms=b,
-                                 bound_by=by, library_ms=lib))
+        flash_shapes.append(dict(shape=[1, H_, S_, HD_], keys=Sk_, causal=causal, dtype=name,
+                                 window=window, max_abs_err=e, ms=ms, plain_ms=plain,
+                                 bound_ms=b, bound_by=by, library_ms=lib))
         del q, k, v, out, want
 
     Hs, nc, Q, P, N = SSD_H, SSD_NC, SSD_Q, SSD_P, SSD_N
@@ -436,19 +495,44 @@ def lm_kernel_checks(torch, dev, card: str) -> dict:
     )
 
 
+@contextlib.contextmanager
+def moe_drop_fracs():
+    """Record the drop_frac of every MoE layer a prefill runs (S > 1), as
+    device scalars, by wrapping models.mlp.moe_ffn while the block runs."""
+    from repro_torch.models import mlp as mlp_mod
+
+    moe, layers = mlp_mod.moe_ffn, []
+
+    def recording(x, p, cfg):
+        y, aux = moe(x, p, cfg)
+        if x.shape[1] > 1:
+            layers.append(aux["drop_frac"])
+        return y, aux
+
+    mlp_mod.moe_ffn = recording
+    try:
+        yield layers
+    finally:
+        mlp_mod.moe_ffn = moe
+
+
 def serve_lm(torch, dev, card: str, cfg, tag: str, per_prefill) -> tuple:
     """``cfg`` at full width (random bf16 weights from seed 0) behind
     ServingEngine(batch=4, max_len=1024), answering the 6 greedy requests
-    of PROMPT_LENS; every prefill must launch flash attention and the SSD
-    chunk ``per_prefill`` = (flash, ssd) times, decode ticks neither.
-    Prints inject and tick times, and where the device time of a warm
-    prefill and decode step goes. Returns (flash, SSD) launches of the run,
-    each counted from 0."""
+    of PROMPT_LENS (an encoder-decoder's each with its own frames from
+    embedding_side_inputs); every prefill must launch flash attention and
+    the SSD chunk ``per_prefill`` = (flash, ssd) times, decode ticks
+    neither. Prints the init's peak memory, each MoE prefill's drop_frac,
+    inject and tick times, and where the device time of a warm prefill and
+    decode step goes. Returns (flash, SSD) launches of the run, each
+    counted from 0."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.data.tokens import embedding_side_inputs
     from repro_torch.kernels.flash import flash_kernel
     from repro_torch.kernels.ssd import ssd_kernel
     from repro_torch.models import decode_step, init_decode_cache, init_params, prefill
+    from repro_torch.models.mlp import _capacity
     from repro_torch.serve import Request, ServeConfig, ServingEngine
 
     t0 = time.perf_counter()
@@ -457,13 +541,18 @@ def serve_lm(torch, dev, card: str, cfg, tag: str, per_prefill) -> tuple:
     torch.cuda.synchronize()
     print(f"[{tag} init] {cfg.name}: {cfg.param_count() / 1e9:.3f}e9 parameters "
           f"({cfg.dtype}, {cfg.n_layers} layers, d_model {cfg.d_model}), "
-          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card (init peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB), "
           f"{time.perf_counter() - t0:.1f} s")
     eng = ServingEngine(cfg, params, ServeConfig(batch=SERVE_BATCH, max_len=SERVE_MAX_LEN),
                         device=dev)
     rs = np.random.RandomState(0)
+    frames = [None] * len(PROMPT_LENS)
+    if cfg.is_encoder_decoder:
+        frames = list(embedding_side_inputs("audio", len(PROMPT_LENS), cfg.d_model, seed=0,
+                                            frames=cfg.enc_frames))
     reqs = [Request(prompt=rs.randint(2, cfg.vocab_size, size=n).astype(np.int32),
-                    max_new_tokens=NEW_TOKENS) for n in PROMPT_LENS]
+                    max_new_tokens=NEW_TOKENS, side=f) for n, f in zip(PROMPT_LENS, frames)]
     for r in reqs:
         eng.admit(r)
 
@@ -472,14 +561,19 @@ def serve_lm(torch, dev, card: str, cfg, tag: str, per_prefill) -> tuple:
 
     inject_ms, tick_ms, done = [], [], []
     tick_launches = 0
+    drops = []  # each MoE prefill's drop_frac per layer
 
     def inject(r):
         before = counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        eng.inject([r])
-        torch.cuda.synchronize()
+        with moe_drop_fracs() as layers:
+            eng.inject([r])
+            torch.cuda.synchronize()
         inject_ms.append((time.perf_counter() - t) * 1e3)
+        if cfg.arch_type == "moe":
+            drops.append([float(f) for f in layers])
+            check(len(layers) == cfg.n_layers, f"{len(layers)} MoE layers in a prefill")
         after = counts()
         check((after[0] - before[0], after[1] - before[1]) == tuple(per_prefill),
               f"{cfg.name}: prefill of {len(r.prompt)} tokens launched flash "
@@ -509,11 +603,14 @@ def serve_lm(torch, dev, card: str, cfg, tag: str, per_prefill) -> tuple:
     print(f"[{tag} serve] {len(reqs)} requests x {NEW_TOKENS} new tokens, batch "
           f"{SERVE_BATCH}, max_len {SERVE_MAX_LEN}: {run_s:.2f} s wall, {len(tick_ms)} decode "
           f"ticks; prefill {'in power-of-two buckets' if eng._maskable else 'at exact length'}")
-    for r, ms in zip(reqs, inject_ms):
+    for i, (r, ms) in enumerate(zip(reqs, inject_ms)):
+        drop_txt = (f"; drop_frac by layer {[round(f, 4) for f in drops[i]]} (capacity "
+                    f"{_capacity(eng._bucket_for(len(r.prompt)), cfg)} a group)"
+                    if drops else "")
         print(f"[{tag} serve]   prompt {len(r.prompt):4d} (prefill length "
               f"{eng._bucket_for(len(r.prompt))}): inject (prefill + slot insert) "
               f"{ms:8.2f} ms; {r.finish_reason} after {len(r.output)} tokens: "
-              f"{r.output[:8]}...")
+              f"{r.output[:8]}...{drop_txt}")
     ticks = np.asarray(tick_ms)
     print(f"[{tag} serve] decode tick (batch {SERVE_BATCH}, host clock): mean "
           f"{ticks.mean():.2f} ms, median {np.median(ticks):.2f} ms, first {ticks[0]:.2f} ms, "
@@ -536,12 +633,15 @@ def serve_lm(torch, dev, card: str, cfg, tag: str, per_prefill) -> tuple:
     # where the device time of one prefill (the longest prompt) and of one
     # decode step of the full batch goes, warm
     toks = torch.from_numpy(reqs[0].prompt[None]).to(dev)
+    side = None if frames[0] is None else torch.from_numpy(frames[0][None]).to(dev)
     cache = init_decode_cache(cfg, SERVE_BATCH, SERVE_MAX_LEN, device=dev)
     cache.position = torch.full((SERVE_BATCH,), 600, dtype=torch.int32, device=dev)
+    if cache.cross is not None:  # the served cache's: fp32 frames make fp32 cross k/v
+        cache.cross = [(k.float(), v.float()) for k, v in cache.cross]
     step_toks = torch.arange(2, 2 + SERVE_BATCH, device=dev)
     for label, run in (
         (f"prefill of {toks.shape[1]} tokens",
-         lambda: prefill(cfg, params, toks, extra_len=SERVE_MAX_LEN - toks.shape[1])),
+         lambda: prefill(cfg, params, toks, side, extra_len=SERVE_MAX_LEN - toks.shape[1])),
         (f"decode step of batch {SERVE_BATCH}", lambda: decode_step(cfg, params, step_toks, cache)),
     ):
         run()
@@ -551,7 +651,7 @@ def serve_lm(torch, dev, card: str, cfg, tag: str, per_prefill) -> tuple:
             run()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t) * 1e3
-        events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        events = device_events(prof)
         if not events:
             print(f"[{tag} profile] {label}: the profiler saw no device time "
                   f"({wall_ms:.1f} ms wall)")
@@ -559,7 +659,7 @@ def serve_lm(torch, dev, card: str, cfg, tag: str, per_prefill) -> tuple:
         busy_ms = sum(e.self_device_time_total for e in events) / 1e3
         print(f"[{tag} profile] warm {label}: {wall_ms:.1f} ms wall (profiler on), device "
               f"busy {busy_ms:.2f} ms = {busy_ms / wall_ms:.1%} of wall, "
-              f"{sum(e.count for e in events)} profiler events with device time")
+              f"{sum(e.count for e in events)} device events")
         for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
             dms = e.self_device_time_total / 1e3
             print(f"[{tag} profile]   {dms:8.3f} ms {dms / busy_ms:6.1%}  x{e.count:<5d} "
@@ -580,20 +680,26 @@ def consistency(torch, dev, cfg, tag: str, S: int = CONSIST_S, steps: int = 3) -
     """In fp32, prefill of S tokens plus ``steps`` decode steps tracks the
     last logits of prefills over S+1 .. S+steps tokens (the invariant of
     tests/test_serve.py), holding the kernel prefill against the plain
-    decode path."""
+    decode path. An encoder-decoder prefills with the same frames each
+    time."""
     import dataclasses
 
+    from repro_torch.data.tokens import embedding_side_inputs
     from repro_torch.models import decode_step, init_params, prefill
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params = init_params(cfg32, seed=0, device=dev)
     rs = np.random.RandomState(5)
     toks = torch.from_numpy(rs.randint(2, cfg.vocab_size, size=(1, S + steps))).to(dev)
-    _, cache = prefill(cfg32, params, toks[:, :S], extra_len=8)
+    side = None
+    if cfg.is_encoder_decoder:
+        side = torch.from_numpy(embedding_side_inputs("audio", 1, cfg.d_model, seed=5,
+                                                      frames=cfg.enc_frames)).to(dev)
+    _, cache = prefill(cfg32, params, toks[:, :S], side, extra_len=8)
     errs, scale = [], 0.0
     for t in range(steps):
         out, cache = decode_step(cfg32, params, toks[:, S + t], cache)
-        want, _ = prefill(cfg32, params, toks[:, :S + t + 1], extra_len=8)
+        want, _ = prefill(cfg32, params, toks[:, :S + t + 1], side, extra_len=8)
         check(bool(torch.isfinite(out).all()), "decode logits not finite")
         errs.append((out - want).abs().max().item())
         scale = max(scale, want.abs().max().item())
@@ -618,9 +724,10 @@ def serve_main_path(torch, dev, card: str):
     return serve_lm(torch, dev, card, cfg, "5", per_prefill) + (cfg,)
 
 
-def bucketed_prefill(torch, dev, cfg, tag: str) -> float:
+def bucketed_prefill(torch, dev, cfg, tag: str, tol: float = TOL_CONSIST) -> float:
     """In fp32, a right-padded power-of-two bucket (``true_len``) gives the
-    last logits of an exact-length prefill of the same prompt."""
+    last logits of an exact-length prefill of the same prompt, within
+    ``tol``."""
     import dataclasses
 
     from repro_torch.models import init_params, prefill
@@ -642,8 +749,8 @@ def bucketed_prefill(torch, dev, cfg, tag: str) -> float:
         errs.append((L, S, (got - want).abs().max().item()))
     print(f"[{tag}] fp32 {cfg.name}: bucketed against exact-length prefill, max|logits| "
           "difference " + ", ".join(f"{L} in {S}: {e:.3e}" for L, S, e in errs)
-          + f" (tolerance {TOL_CONSIST:.0e})")
-    check(max(e for _, _, e in errs) <= TOL_CONSIST, "bucketed prefill disagrees")
+          + f" (tolerance {tol:.0e})")
+    check(max(e for _, _, e in errs) <= tol, "bucketed prefill disagrees")
     del params
     torch.cuda.empty_cache()
     return max(e for _, _, e in errs)
@@ -780,6 +887,47 @@ def lm_families(torch, dev, card: str) -> dict:
     t0 = time.perf_counter()
     launches["8e bridge"] = bridge(torch, dev, card)
     print(f"[8e bridge] {time.perf_counter() - t0:.1f} s wall")
+    return launches
+
+
+def lm_zoo(torch, dev, card: str) -> dict:
+    """Phase 9: the MoE, VLM and encoder-decoder families at full width
+    behind the engine (depth cut as ZOO_LAYERS says), the MoE's fp32
+    checks at lossless capacity and the encoder-decoder's fp32 state.
+    Returns launches by path."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    launches = {}
+    for sub, name in zip("abcd", ZOO_FAMILIES):
+        tag = f"9{sub} {name}"
+        cfg = get_config(name)
+        if name in ZOO_LAYERS:
+            full = cfg.n_layers
+            cfg = dataclasses.replace(cfg, n_layers=ZOO_LAYERS[name])
+            moe = (f", {cfg.n_experts} experts top-{cfg.top_k} of {cfg.d_ff}"
+                   + (f", {cfg.n_shared_experts} shared" if cfg.n_shared_experts else "")
+                   + f", capacity factor {cfg.capacity_factor}" if cfg.n_experts else "")
+            print(f"[{tag}] depth cut: {cfg.n_layers} of {full} layers, full width (d_model "
+                  f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV heads of "
+                  f"{cfg.head_dim}, d_ff {cfg.d_ff}{moe}{', q/k norms' if cfg.qk_norm else ''})")
+        t0 = time.perf_counter()
+        # K3 once a layer; the encoder-decoder also once an encoder layer
+        # (non-causal over the frames) and once a cross-attention
+        per_prefill = cfg.n_layers + (cfg.n_enc_layers + cfg.n_layers
+                                      if cfg.is_encoder_decoder else 0)
+        launches[tag] = serve_lm(torch, dev, card, cfg, tag, (per_prefill, 0))
+        if cfg.arch_type == "moe" and name == ZOO_FAMILIES[0]:
+            # lossless capacity (the reduced configs' rule, E / K): no token
+            # is dropped, so a bucket and decode steps see what a longer
+            # exact-length prefill sees
+            lossless = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+            consistency(torch, dev, lossless, f"{tag} consistency")
+            bucketed_prefill(torch, dev, lossless, f"{tag} bucket", tol=TOL_BUCKET)
+        if cfg.is_encoder_decoder:
+            consistency(torch, dev, cfg, f"{tag} consistency")
+        print(f"[{tag}] {time.perf_counter() - t0:.1f} s wall")
     return launches
 
 
@@ -1245,7 +1393,7 @@ def parameter_server_path(torch, dev, card: str, train, syn) -> None:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, sp, _, _ = run(train, "threaded", PS_WORKERS)
-    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    busy_ms = sum(e.self_device_time_total for e in device_events(prof)) / 1e3
     switch = sys.getswitchinterval()
     sys.setswitchinterval(1e-4)
     try:
@@ -1647,16 +1795,15 @@ def main() -> int:
         est.partial_fit(train)
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
-    events = prof.key_averages()
+    events = device_events(prof)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     print(f"[3 profile] warm partial_fit: {warm_s * 1e3 / n_rounds:.1f} ms/round wall "
           f"(profiler on), device busy {busy_ms / n_rounds:.1f} ms/round = "
           f"{busy_ms / (warm_s * 1e3):.1%} of wall; gap "
           f"{est.history['gap'][-1]:.5f}")
     for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:6]:
-        if e.self_device_time_total:
-            print(f"[3 profile]   {e.self_device_time_total / 1e3 / n_rounds:9.3f} "
-                  f"ms/round  x{e.count / n_rounds:g}  {e.key[:90]}")
+        print(f"[3 profile]   {e.self_device_time_total / 1e3 / n_rounds:9.3f} "
+              f"ms/round  x{e.count / n_rounds:g}  {e.key[:90]}")
 
     # -- phase 4: the per-block kernel on Synthetic-1 --------------------------
     cfg4 = dict(loss="hinge", lam=1e-3, outer_iters=2, rounds=5, local_iters=0,
@@ -1708,6 +1855,10 @@ def main() -> int:
     t8 = time.perf_counter()
     by_path = lm_families(torch, dev, card)
     print(f"[8] {time.perf_counter() - t8:.1f} s wall")
+    # -- phase 9: the MoE, VLM and encoder-decoder LM families -------------
+    t9 = time.perf_counter()
+    by_path.update(lm_zoo(torch, dev, card))
+    print(f"[9] {time.perf_counter() - t9:.1f} s wall")
     flash_by_path = {"5 zamba2-2.7b": launches_flash, **{
         k: (v["flash"] if isinstance(v, dict) else v[0]) for k, v in by_path.items()}}
     ssd_by_path = {"5 zamba2-2.7b": launches_ssd, **{

@@ -85,7 +85,9 @@ def lm_params_from_reference(cfg, params_np: Mapping, device="cuda") -> Dict:
     with its leaves as numpy arrays (``jax.tree.map(np.asarray, params)``):
     the same keys and stacked layer axes, each leaf a tensor of the same
     dtype on ``device``. ``cfg`` names the architecture the pytree is for:
-    dense, pure SSM or hybrid (the rest raise "not ported yet")."""
+    any of ``models.transformer.PORTED_ARCHS`` (dense, MoE, pure SSM,
+    hybrid, VLM and the encoder-decoder, whose ``enc_layers``,
+    ``enc_pos``, ``dec_pos`` and ``cross_layers`` carry across as well)."""
     from .core.dmtrl import resolve_device
     from .models.transformer import _require_ported
 

@@ -1,10 +1,12 @@
-"""Model substrate of the port: decoder-only LMs of the dense (local/global
-attention), pure-SSM (Mamba2) and zamba2-style hybrid families, for
-serving and as the DMTRL heads' backbone."""
+"""Model substrate of the port: the LMs of the dense (local/global
+attention; the early-fusion VLM), MoE, pure-SSM (Mamba2), zamba2-style
+hybrid and whisper-style encoder-decoder families, for serving and as the
+DMTRL heads' backbone."""
 from . import attention, common, mlp, ssm, transformer
 from .transformer import (
     DecodeCache,
     decode_step,
+    encode_audio,
     forward_train,
     init_decode_cache,
     init_params,
@@ -19,6 +21,7 @@ __all__ = [
     "transformer",
     "DecodeCache",
     "decode_step",
+    "encode_audio",
     "forward_train",
     "init_decode_cache",
     "init_params",

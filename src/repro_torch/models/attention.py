@@ -14,8 +14,13 @@ taken and their cache slots carry ``pos = -1``). RoPE runs at the index,
 which is the position on every real row and keeps pad rows finite. Decode
 is plain torch, as it is in the JAX package.
 
-Not ported yet (a later slice): cross-attention (the encoder-decoder
-architecture).
+Non-causal calls (the encoder, cross-attention) have no pad keys to hide:
+the encoder's frames are all real and the encoder-decoder prefills at
+exact length. On the card they run K3 at their whole length (the kernel
+masks its ragged last key tile); on the CPU the plain version at their
+whole length, since ``flash_attention_bshd`` pads keys to the block and
+only a causal mask hides such pads. Cross-attention's decode is plain
+torch against the cached (B, F, H, hd) encoder k/v.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels.flash.ops import flash_attention_bshd
+from ..kernels.flash.ref import attention_ref
 from .common import apply_rope, dense_init, rms_norm
 
 Tensor = torch.Tensor
@@ -75,8 +81,24 @@ def _expand_kv(k: Tensor, n_heads: int) -> Tensor:
     return torch.repeat_interleave(k, rep, dim=2) if rep > 1 else k
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet")
+def _matmul(a: Tensor, b: Tensor) -> Tensor:
+    """a @ b in the dtype JAX's type promotion gives the pair (torch's
+    matmul takes one dtype): fp32 encoder states against bf16 weights
+    multiply in fp32."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
+def _attend(q: Tensor, k: Tensor, v: Tensor, causal: bool, window: int = 0) -> Tensor:
+    """Attention in the model layout (B, S, H, hd) through K3 on the card.
+    A non-causal call on the CPU runs the plain version at its whole length
+    (``flash_attention_bshd`` would pad the keys, which only a causal mask
+    hides)."""
+    if q.device.type == "cpu" and not causal:
+        out = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), False,
+                            window)
+        return out.transpose(1, 2)
+    return flash_attention_bshd(q, k, v, causal, window)
 
 
 def real_length(positions: Tensor) -> int:
@@ -110,7 +132,10 @@ def attention_train(
     returns the post-RoPE (KV-head) k/v for the decode cache."""
     B, S, _ = x.shape
     if real_length(positions) < S and not causal:
-        raise _not_ported("non-causal attention over pad positions")
+        raise ValueError(
+            "non-causal attention over pad positions needs a key mask, which the "
+            "kernel does not take: run it at exact length"
+        )
     q, kkv, vkv = _project_qkv(x, p, cfg)
     if cfg.rope_theta > 0:
         index = torch.arange(S, device=x.device)[None, :]
@@ -119,15 +144,42 @@ def attention_train(
     k = _expand_kv(kkv, cfg.n_heads)
     v = _expand_kv(vkv, cfg.n_heads)
     window = cfg.window if (is_local and cfg.window) else 0
-    out = flash_attention_bshd(q, k, v, causal, window)
+    out = _attend(q, k, v, causal, window)
     out = out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"]
     if return_kv:
         return out, (kkv, vkv)
     return out
 
 
-def cross_attention_train(*_args, **_kwargs):
-    raise _not_ported("cross-attention")
+def cross_kv(enc: Tensor, p: Dict[str, Tensor], cfg: ModelConfig) -> Tuple[Tensor, Tensor]:
+    """One cross-attention layer's k and v of the encoder states (B, F, d),
+    expanded to (B, F, H, hd), in the dtype JAX promotes ``enc @ wk`` to:
+    what prefill computes for attention and keeps in ``DecodeCache.cross``."""
+    B, F_ = enc.shape[:2]
+    hd = cfg.head_dim
+    k = _matmul(enc, p["wk"]).reshape(B, F_, cfg.n_kv_heads, hd)
+    v = _matmul(enc, p["wv"]).reshape(B, F_, cfg.n_kv_heads, hd)
+    return _expand_kv(k, cfg.n_heads), _expand_kv(v, cfg.n_heads)
+
+
+def cross_attend(x: Tensor, k: Tensor, v: Tensor, p: Dict[str, Tensor],
+                 cfg: ModelConfig) -> Tensor:
+    """Queries of the decoder stream x (B, S, d) against the expanded
+    encoder k/v (B, F, H, hd), non-causal, through K3 on the card. As in
+    the JAX package the scores take the promoted dtype of q and k (bf16
+    queries against fp32 keys: fp32) and the output q's dtype."""
+    B, S, _ = x.shape
+    q = _matmul(x, p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    dt = torch.promote_types(q.dtype, k.dtype)
+    out = _attend(q.to(dt), k.to(dt), v.to(dt), causal=False).to(q.dtype)
+    return _matmul(out.reshape(B, S, cfg.n_heads * cfg.head_dim), p["wo"])
+
+
+def cross_attention_train(x: Tensor, enc: Tensor, p: Dict[str, Tensor],
+                          cfg: ModelConfig) -> Tensor:
+    """Cross-attention of the decoder stream x (B, S, d) over the encoder
+    states enc (B, F, d)."""
+    return cross_attend(x, *cross_kv(enc, p, cfg), p, cfg)
 
 
 def cache_from_kv(
@@ -226,3 +278,21 @@ def attention_decode(
     out = torch.einsum("bhqk,bkhd->bqhd", w, vv)
     out = out.to(x.dtype).reshape(B, 1, cfg.n_heads * hd)
     return out @ p["wo"], cache
+
+
+def cross_attention_decode(
+    x: Tensor,  # (B, 1, d)
+    enc_kv: Tuple[Tensor, Tensor],  # the cached expanded (B, F, H, hd) k, v
+    p: Dict[str, Tensor],
+    cfg: ModelConfig,
+) -> Tensor:
+    """One token's cross-attention against the cached encoder k/v, plain
+    torch in fp32 as in the JAX package; the output in x's dtype."""
+    B = x.shape[0]
+    hd = cfg.head_dim
+    q = _matmul(x, p["wq"]).reshape(B, 1, cfg.n_heads, hd)
+    k, v = enc_kv
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(hd))
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", w, v.float())
+    return _matmul(out.to(x.dtype).reshape(B, 1, cfg.n_heads * hd), p["wo"])

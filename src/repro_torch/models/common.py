@@ -74,13 +74,36 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
 # initializers: the JAX package's std rules, drawn from a torch.Generator
 # (the draws differ from jax.random's; tests carry JAX params across)
 # ---------------------------------------------------------------------------
+# fp32 elements drawn at once: a larger leaf is drawn slab by slab along its
+# leading axis into the leaf's own dtype, so its init never holds an fp32
+# copy of the whole leaf (kimi-k2's (384, 7168, 2048) expert leaves would
+# take 22.5 GB in fp32 for an 11.3 GB bf16 leaf)
+DRAW_SLAB = 1 << 28
+
+
+def normal_init(gen: torch.Generator, shape, dtype, std: float) -> Tensor:
+    """N(0, std^2) of ``shape`` in ``dtype``, drawn in fp32 on the
+    generator's device (in slabs of at most ``DRAW_SLAB`` elements)."""
+    shape = tuple(shape)
+    numel = math.prod(shape)
+    if numel <= DRAW_SLAB or len(shape) < 2:
+        w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+        return w.mul_(std).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    rows = max(1, DRAW_SLAB // (numel // shape[0]))
+    for a in range(0, shape[0], rows):
+        b = min(a + rows, shape[0])
+        w = torch.randn((b - a,) + shape[1:], generator=gen, dtype=torch.float32,
+                        device=gen.device)
+        out[a:b] = w.mul_(std)
+    return out
+
+
 def dense_init(gen: torch.Generator, shape, dtype, scale: Optional[float] = None) -> Tensor:
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
-    return (w.mul_(std)).to(dtype)
+    return normal_init(gen, shape, dtype, std)
 
 
 def embed_init(gen: torch.Generator, shape, dtype) -> Tensor:
-    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
-    return w.mul_(0.02).to(dtype)
+    return normal_init(gen, shape, dtype, 0.02)

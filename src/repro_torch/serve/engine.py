@@ -20,13 +20,19 @@ The port of the JAX package's ``serve/engine.py``, with three differences:
     prefill cache into its row, and ``decode_step`` writes each new k/v,
     SSM state and conv window into the cache it is given, where the JAX
     engine builds updated copies with ``.at[].set``;
-  * sampling is greedy only (``temperature > 0`` is not ported yet).
+  * sampling is greedy only (``temperature > 0`` is not ported yet), and
+    over the real vocabulary: the JAX engine's argmax also ranks the
+    padded vocabulary's columns, so it can emit an id past ``vocab_size``.
 
-Attention architectures (dense: qwen1.5, nemotron-4, gemma3 with its
-local ring buffers) prefill in power-of-two buckets, right-padded, with the
-pad carried as ``prefill(..., true_len=)``. SSM / hybrid architectures
-cannot mask pad steps out of a state scan, so they prefill at EXACT prompt
-length.
+Decoder-only attention architectures (dense: qwen1.5, nemotron-4,
+gemma3 with its local ring buffers, the VLM chameleon; MoE: qwen3-moe,
+kimi-k2) prefill in power-of-two buckets, right-padded, with the pad
+carried as ``prefill(..., true_len=)``. SSM / hybrid architectures cannot
+mask pad steps out of a state scan, and the encoder-decoder (whisper)
+prefills its decoder the same way, so they prefill at EXACT prompt length.
+An encoder-decoder request carries its audio frames (``Request.side``,
+(F, d)); prefill encodes them and keeps each layer's cross-attention k/v
+in the slot's ``DecodeCache.cross``.
 """
 from __future__ import annotations
 
@@ -55,9 +61,12 @@ class ServeConfig:
     drain_every: int = 4  # decode steps between detokenize-backlog drains
 
 
-def _sample(logits: Tensor) -> Tensor:
-    """Greedy: the argmax token of each row, int32."""
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+def _sample(logits: Tensor, vocab_size: int) -> Tensor:
+    """Greedy: the argmax token of each row, int32, over the real
+    vocabulary only. The logits cover the padded vocabulary (a multiple of
+    256); the JAX engine's argmax also ranks the pad columns, which with
+    random weights can win and emit an id outside the vocabulary."""
+    return torch.argmax(logits[..., :vocab_size], dim=-1).to(torch.int32)
 
 
 @dataclasses.dataclass
@@ -67,6 +76,7 @@ class Request(ServeRequest):
     output: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
     finish_reason: Optional[str] = None  # "eos" | "length"
+    side: Optional[np.ndarray] = None  # (F, d) audio frames for enc-dec cfgs
 
 
 def _next_bucket(n: int, lo: int, hi: int) -> int:
@@ -96,7 +106,8 @@ def _map_cache(fn, *caches):
     batch axis is not uniform: uniform archs stack the layer caches as
     (n_layers, B, ...) dicts (batch at axis 1), the others keep per-layer
     lists of (B, ...) leaves, and the position is a scalar (B=1 prefill)
-    or a (B,) vector (the batch)."""
+    or a (B,) vector (the batch). The hybrid's shared caches and the
+    encoder-decoder's cross k/v keep the batch at axis 0."""
     c0 = caches[0]
     if not isinstance(c0, DecodeCache):
         return _tree_map(lambda *ls: fn(0, *ls), *caches)
@@ -105,6 +116,7 @@ def _map_cache(fn, *caches):
         _tree_map(lambda *ls: fn(ax, *ls), *(c.layers for c in caches)),
         fn(0, *(c.position for c in caches)),
         _tree_map(lambda *ls: fn(0, *ls), *(c.shared for c in caches)),
+        _tree_map(lambda *ls: fn(0, *ls), *(c.cross for c in caches)),
     )
 
 
@@ -178,6 +190,8 @@ class ServingEngine:
                 f"prompt ({prompt.shape[0]}) + max_new_tokens ({r.max_new_tokens}) = "
                 f"{total} exceeds max_len={self.scfg.max_len} KV slots"
             )
+        if self.cfg.is_encoder_decoder and r.side is None:
+            raise ValueError("encoder-decoder configs need per-request side frames (Request.side)")
 
     def run_tile(self, requests: Sequence[Request], snapshot: ModelSnapshot) -> None:
         """Whole-generation tile hook (non-streaming schedulers); LM params
@@ -216,7 +230,7 @@ class ServingEngine:
             last_logits, one = self._prefill_one(r)
             if self._cache is None:
                 self._alloc_batch_state(one)
-            tok0 = _sample(last_logits)  # (1,)
+            tok0 = _sample(last_logits, self.cfg.vocab_size)  # (1,)
             i = self._free.pop()  # slot assigned only after prefill succeeded
             self._slots[i] = r
             self._emitted[i] = 1
@@ -238,7 +252,7 @@ class ServingEngine:
             return self._pop_finished()
         logits, cache = self._step_call(self._token, self._cache)
         self._cache = cache
-        nxt = _sample(logits)  # (B,)
+        nxt = _sample(logits, self.cfg.vocab_size)  # (B,)
         self._token = nxt
         self._backlog.append((nxt, [(i, self._slots[i]) for i in active]))
         for i in active:
@@ -270,13 +284,18 @@ class ServingEngine:
         return evicted
 
     # -- blocking surface ---------------------------------------------------
-    def run(self, requests: List[Request]) -> List[Request]:
-        """One-shot batch: inject every request, tick until all finish."""
+    def run(self, requests: List[Request], side=None) -> List[Request]:
+        """One-shot batch: inject every request, tick until all finish.
+        ``side`` optionally carries stacked (B, F, d) enc-dec frames, given
+        to the requests row by row."""
         if len(requests) > self.scfg.batch:
             raise ValueError(
                 f"{len(requests)} requests exceed the engine batch "
                 f"{self.scfg.batch}; run in tiles"
             )
+        if side is not None:
+            for i, r in enumerate(requests):
+                r.side = np.asarray(side[i])
         for r in requests:
             self.admit(r)
         if len(requests) > len(self._free):
@@ -295,7 +314,9 @@ class ServingEngine:
         """Allocate the batch state ahead of traffic and return the prefill
         lengths a JAX engine would compile (eager PyTorch compiles nothing).
         With no argument: the power-of-two ladder ``bucket_min ..
-        max_len/2``."""
+        max_len/2``. An encoder-decoder's batch state waits for its first
+        prefill, as in the JAX engine: the cross k/v take the dtype the
+        frames promote to."""
         scfg = self.scfg
         if buckets is None:
             buckets, b = [], scfg.bucket_min
@@ -307,7 +328,7 @@ class ServingEngine:
             if b >= scfg.max_len:
                 raise ValueError(f"bucket {b} leaves no decode room in max_len={scfg.max_len}")
             done.append(int(b))
-        if self._cache is None:
+        if self._cache is None and not self.cfg.is_encoder_decoder:
             self._alloc_batch_state(
                 init_decode_cache(self.cfg, 1, scfg.max_len, device=self.device)
             )
@@ -326,8 +347,11 @@ class ServingEngine:
         S = self._bucket_for(L)
         toks = np.zeros((1, S), np.int32)
         toks[0, :L] = r.prompt  # right-pad; the mask rides true_len
+        side = None
+        if self.cfg.is_encoder_decoder:
+            side = torch.as_tensor(np.asarray(r.side, np.float32))[None].to(self.device)
         return prefill(
-            self.cfg, self.params, torch.from_numpy(toks).to(self.device),
+            self.cfg, self.params, torch.from_numpy(toks).to(self.device), side,
             extra_len=self.scfg.max_len - S,
             true_len=L if self._maskable else None,
         )

@@ -181,3 +181,20 @@ def test_kernel_raises_on_unsupported_head_dim(cuda, HD, dtype):
     q, k, v = _qkv(0, 1, 1, 64, HD, dtype, cuda)
     with pytest.raises(ValueError, match="head dim"):
         flash_kernel.flash_attention(q, k, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1500, 512, 37])
+def test_non_causal_at_whisper_frames(cuda, dtype, S):
+    """whisper-tiny's non-causal calls: 1500 keys (23 full tiles of 64 and
+    a ragged one of 28), the encoder's S = 1500 and cross-attention's
+    decoder rows against them, at head dim 64."""
+    q, k, v = _qkv(S + 1500, 1, 6, S, 64, dtype, cuda, Sk=1500)
+    before = flash_kernel.flash_attention.launches
+    out = flash_kernel.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_kernel.flash_attention.launches == before + 1
+    assert bool(torch.isfinite(out).all())
+    want = ref.attention_ref(q, k, v, False, 0)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])

@@ -109,8 +109,14 @@ def test_entry_points_default_to_the_card(model):
 
 
 def test_unported_archs_raise():
+    """Every config of configs/ is ported; an unknown arch_type raises."""
+    from repro_torch.configs.base import ARCH_IDS
+    from repro_torch.models.transformer import PORTED_ARCHS
+
+    assert all(get_config(a).arch_type in PORTED_ARCHS for a in ARCH_IDS)
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b").reduced(), arch_type="retnet")
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        init_params(get_config("qwen3-moe-30b-a3b").reduced(), device="cpu")
+        init_params(cfg, device="cpu")
 
 
 def test_ssm_block_train_matches_jax(model):

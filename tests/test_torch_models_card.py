@@ -1,5 +1,5 @@
-"""The port's dense and SSM model paths on the card against the same model
-on the CPU (marker ``gpu``: they skip without a card). This module imports
+"""The port's model paths on the card against the same model on the CPU
+(marker ``gpu``: they skip without a card). This module imports
 no JAX, so that the card's run, which has no JAX, can collect it:
 
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_models_card.py
@@ -8,7 +8,9 @@ A small gemma3-shaped model keeps gemma3-1b's head dim of 256 (4 heads, 1
 KV head, local layers with a global one after every second) at a narrow
 width, in fp32: the card's prefill runs the fp32 flash kernel, the CPU's
 its plain version, so the logits agree to float summation order (bar
-2e-4, the prefill bar of tests/test_serve.py).
+2e-4, the prefill bar of tests/test_serve.py). The reduced MoE and the
+reduced whisper (its encoder and cross-attention through the kernel's
+non-causal mode) are held the same way, with decode steps at 5e-4.
 """
 import dataclasses
 
@@ -17,6 +19,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.data.tokens import embedding_side_inputs
 from repro_torch.kernels.flash import flash_kernel
 from repro_torch.kernels.ssd import ssd_kernel
 from repro_torch.models import decode_step, forward_train, init_params, prefill
@@ -101,3 +104,38 @@ def test_forward_is_forward_only_on_card(cuda):
     assert logits.shape == (1, 8, cfg.vocab_padded)
     feats = pooled_features(cfg, params, toks)
     assert feats.shape == (1, cfg.d_model) and not feats.requires_grad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "kimi-k2-1t-a32b", "whisper-tiny"])
+def test_moe_and_encdec_prefill_and_decode_on_card(cuda, arch):
+    """Reduced qwen3-moe and kimi-k2 (their dispatch and expert products on
+    the card, K3 once a layer) and whisper (K3 over 64 frames in every
+    encoder layer, causal in every decoder layer, non-causal in every
+    cross-attention): the card's prefill and decode steps against the CPU's."""
+    cfg = get_config(arch).reduced()
+    params = init_params(cfg, seed=0, device="cpu")
+    gparams = _on(params, cuda)
+    toks = torch.from_numpy(np.random.RandomState(2).randint(0, cfg.vocab_size, (2, 90)))
+    side = None
+    if cfg.is_encoder_decoder:
+        side = torch.from_numpy(embedding_side_inputs("audio", 2, cfg.d_model,
+                                                      frames=cfg.enc_frames))
+    per_prefill = cfg.n_layers + (cfg.n_enc_layers + cfg.n_layers if side is not None else 0)
+    before = flash_kernel.flash_attention.launches
+    last, cache = prefill(cfg, gparams, toks.to(cuda), None if side is None else side.to(cuda),
+                          extra_len=8)
+    torch.cuda.synchronize()
+    assert flash_kernel.flash_attention.launches == before + per_prefill
+    want, wcache = prefill(cfg, params, toks, side, extra_len=8)
+    torch.testing.assert_close(last.cpu(), want, atol=2e-4, rtol=0)
+    if side is not None:
+        for (k, _), (wk, _) in zip(cache.cross, wcache.cross):
+            torch.testing.assert_close(k.cpu(), wk, atol=2e-5, rtol=0)
+    before = flash_kernel.flash_attention.launches
+    for t in (3, 17, 29):
+        tok = torch.tensor([t, t + 1])
+        out, cache = decode_step(cfg, gparams, tok.to(cuda), cache)
+        wout, wcache = decode_step(cfg, params, tok, wcache)
+        torch.testing.assert_close(out.cpu(), wout, atol=5e-4, rtol=0)
+    assert flash_kernel.flash_attention.launches == before

@@ -2,8 +2,9 @@
 
 qwen1.5-4b (MHA, QKV bias, SwiGLU), gemma3-1b (GQA, q/k norms, GELU,
 local sliding-window layers with a global one every sixth: reduced to 6
-layers so that a global layer appears), nemotron-4-15b (squared ReLU) and
-mamba2-780m (pure SSM), each ``get_config(...).reduced()``, with the JAX
+layers so that a global layer appears), nemotron-4-15b (squared ReLU),
+chameleon-34b (the early-fusion VLM: arch_type "vlm" runs the dense path,
+GQA with q/k norms) and mamba2-780m (pure SSM), each ``get_config(...).reduced()``, with the JAX
 ``init_params`` carried across by ``convert.lm_params_from_reference``.
 Bars (tests/test_serve.py): ``prefill`` last logits 2e-4, three
 ``decode_step``s 5e-4, decode far past gemma3's window and past three SSD
@@ -37,8 +38,9 @@ from repro_torch.models import (
 )
 
 # arch -> layers of the reduced config (None: reduced()'s own 2)
-ARCHS = {"qwen1_5-4b": None, "gemma3-1b": 6, "nemotron-4-15b": None, "mamba2-780m": None}
-DENSE = ("qwen1_5-4b", "gemma3-1b", "nemotron-4-15b")
+ARCHS = {"qwen1_5-4b": None, "gemma3-1b": 6, "nemotron-4-15b": None, "chameleon-34b": None,
+         "mamba2-780m": None}
+DENSE = ("qwen1_5-4b", "gemma3-1b", "nemotron-4-15b", "chameleon-34b")
 
 
 def reduced_pair(arch):
@@ -251,7 +253,10 @@ def test_ssm_prefill_refuses_true_len():
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "whisper-tiny", "chameleon-34b"])
 def test_unported_archs_raise(arch):
-    cfg = get_config(arch).reduced()
+    """Every config of configs/ is ported now; an arch_type the port does
+    not know still raises from every entry point."""
+    assert get_config(arch).arch_type in transformer.PORTED_ARCHS
+    cfg = dataclasses.replace(get_config(arch).reduced(), arch_type="retnet")
     for call in (lambda: init_params(cfg, device="cpu"),
                  lambda: init_decode_cache(cfg, 1, 16, device="cpu"),
                  lambda: lm_params_from_reference(cfg, {}, device="cpu")):

@@ -21,6 +21,8 @@ from repro.serve import ServeConfig as JaxServeConfig
 from repro.serve import ServingEngine as JaxServingEngine
 from repro_torch.configs import get_config
 from repro_torch.convert import lm_params_from_reference
+from repro_torch.data.tokens import embedding_side_inputs
+from repro_torch.models import decode_step, init_params, prefill
 from repro_torch.serve import Request, ServeConfig, ServingEngine
 from repro_torch.serve.engine import _next_bucket
 
@@ -98,6 +100,122 @@ def test_dense_and_ssm_engines_match_jax_engine(arch):
     assert out == jax_out
     assert [len(o) for o, _ in out] == budgets
     assert isinstance(eng._cache.layers, dict) == (arch != "gemma3-1b")
+
+
+def _own_loop(cfg, params, prompt, n_new, side=None):
+    """Greedy tokens of one request through the port's own exact-length
+    prefill and decode steps, without the engine."""
+    sd = None if side is None else torch.from_numpy(side[None])
+    logits, cache = prefill(cfg, params, torch.from_numpy(prompt[None]), sd, extra_len=n_new)
+    out = [int(torch.argmax(logits[0]))]
+    while len(out) < n_new:
+        logits, cache = decode_step(cfg, params, torch.tensor([out[-1]]), cache)
+        out.append(int(torch.argmax(logits[0])))
+    return out, cache
+
+
+def _zoo_requests(cfg, seed):
+    rs = np.random.RandomState(seed)
+    prompts = [rs.randint(2, cfg.vocab_size, size=n).astype(np.int32) for n in (9, 21, 5)]
+    frames = (embedding_side_inputs("audio", 3, cfg.d_model, seed=seed, frames=cfg.enc_frames)
+              if cfg.is_encoder_decoder else None)
+    return prompts, frames
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "whisper-tiny"])
+def test_moe_and_encdec_run_matches_the_own_loop(arch):
+    """ServingEngine.run over the reduced MoE (bucketed prefill at the
+    lossless capacity) and the reduced whisper (exact length; frames given
+    to run() stacked): each request's greedy tokens are those of its own
+    prefill + decode loop."""
+    cfg = get_config(arch).reduced()
+    params = init_params(cfg, seed=0, device="cpu")
+    prompts, frames = _zoo_requests(cfg, 3)
+    budgets = [6, 3, 5]
+    eng = ServingEngine(cfg, params, ServeConfig(batch=3, max_len=64, bucket_min=8, eos_id=-1),
+                        device="cpu")
+    reqs = [Request(prompt=p, max_new_tokens=b) for p, b in zip(prompts, budgets)]
+    eng.run(reqs, side=frames)
+    for i, r in enumerate(reqs):
+        side = None if frames is None else frames[i]
+        assert r.output == _own_loop(cfg, params, prompts[i], budgets[i], side)[0], i
+        assert r.finish_reason == "length"
+    assert eng._maskable == (not cfg.is_encoder_decoder)
+
+
+def test_encdec_cross_cache_survives_the_slot_insert():
+    """Whisper behind a batch of 2: the third request enters the slot the
+    second one freed; that slot's cross k/v are then the third request's
+    own (the first's stay in place), and every stream equals its own
+    loop."""
+    cfg = get_config("whisper-tiny").reduced()
+    params = init_params(cfg, seed=0, device="cpu")
+    prompts, frames = _zoo_requests(cfg, 4)
+    budgets = [8, 2, 4]
+    eng = ServingEngine(cfg, params, ServeConfig(batch=2, max_len=64, eos_id=-1), device="cpu")
+    reqs = [Request(prompt=p, max_new_tokens=b, side=f)
+            for p, b, f in zip(prompts, budgets, frames)]
+    with pytest.raises(ValueError, match="side frames"):
+        eng.admit(Request(prompt=prompts[0], max_new_tokens=2))
+    for r in reqs:
+        eng.admit(r)
+    eng.inject(reqs[:2])
+
+    def slot_of(r):  # by identity: requests compare their arrays
+        return next(i for i, q in enumerate(eng._slots) if q is r)
+
+    first_slot = slot_of(reqs[0])
+    while not eng.free_slots:
+        eng.decode_tick()
+    assert reqs[1].done and not reqs[0].done
+    eng.inject(reqs[2:])
+    slot = slot_of(reqs[2])
+    assert slot != first_slot
+    for i, s in ((2, slot), (0, first_slot)):
+        _, own = prefill(cfg, params, torch.from_numpy(prompts[i][None]),
+                         torch.from_numpy(frames[i][None]), extra_len=1)
+        for (k, v), (ok, ov) in zip(eng._cache.cross, own.cross):
+            assert tuple(k.shape) == (2,) + tuple(ok.shape[1:]) and k.dtype == ok.dtype
+            torch.testing.assert_close(k[s], ok[0], atol=0, rtol=0)
+            torch.testing.assert_close(v[s], ov[0], atol=0, rtol=0)
+    while not all(r.done for r in reqs):
+        eng.decode_tick()
+    for i, r in enumerate(reqs):
+        assert r.output == _own_loop(cfg, params, prompts[i], budgets[i], frames[i])[0], i
+
+
+def test_encdec_warmup_waits_for_the_first_prefill():
+    """As in the JAX engine, an encoder-decoder's warmup allocates no batch
+    state: its cross k/v take the dtype the frames promote to."""
+    cfg = get_config("whisper-tiny").reduced()
+    eng = ServingEngine(cfg, None, ServeConfig(batch=2, max_len=64, bucket_min=8), device="cpu")
+    assert eng.warmup([8, 16]) == [8, 16]
+    assert eng._cache is None
+
+
+def test_greedy_samples_the_real_vocabulary():
+    """The logits cover the padded vocabulary; a pad column that would win
+    the argmax is never sampled (the tokens are those of the real
+    vocabulary's argmax)."""
+    cfg = dataclasses.replace(get_config("qwen1_5-4b").reduced(), vocab_size=1000)
+    assert cfg.vocab_padded == 1024
+    params = init_params(cfg, seed=0, device="cpu")
+    prompt = np.arange(2, 12, dtype=np.int32)
+    logits, _ = prefill(cfg, params, torch.from_numpy(prompt[None]))
+    best = int(torch.argmax(logits[0, :1000]))
+    assert float(logits[0, best]) > 0
+    # the pad columns: twice the winning column, so a pad id wins the argmax
+    params["lm_head"][:, 1000:] = 2.0 * params["lm_head"][:, best:best + 1]
+    eng = ServingEngine(cfg, params, ServeConfig(batch=1, max_len=32, eos_id=-1), device="cpu")
+    r = Request(prompt=prompt, max_new_tokens=4)
+    eng.run([r])
+    logits, cache = prefill(cfg, params, torch.from_numpy(prompt[None]), extra_len=4)
+    assert int(torch.argmax(logits[0])) >= 1000
+    want = [int(torch.argmax(logits[0, :1000]))]
+    while len(want) < 4:
+        logits, cache = decode_step(cfg, params, torch.tensor([want[-1]]), cache)
+        want.append(int(torch.argmax(logits[0, :1000])))
+    assert r.output == want and all(t < 1000 for t in r.output)
 
 
 # ---------------------------------------------------------------------------
