@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Phases, each printing its own lines:
-  1. build  — compile the four kernels (SDCA round and block, flash
-              attention, SSD chunk) from src/repro_torch/kernels/*/csrc with
-              nvcc for sm_90a (one nvcc per source, started together);
+  1. build  — compile the five kernel sources (SDCA round and block, flash
+              attention forward and backward, SSD chunk) from
+              src/repro_torch/kernels/*/csrc with nvcc for sm_90a (one nvcc
+              per source, started together);
   2. kernels against their plain PyTorch versions on the card, at their
               paths' shapes: the SDCA round at 10 tasks x 12000 rows x 784
               features, B = 64, for the hinge, squared and smoothed-hinge
@@ -28,7 +29,13 @@ Phases, each printing its own lines:
               (1, 80, 8, 64, 64, 64), in Zamba2's own layout (bf16 views of
               the conv output, one B/C group) and in mamba2-780m's (48
               heads, P = 64, N = 128), plus a ragged 17-step chunk and
-              Q = N = P = 128 in fp32 and bf16;
+              Q = N = P = 128 in fp32 and bf16; the flash backward
+              (K3-bwd) against autograd of the plain attention at the
+              training shapes: gemma3-1b's (1, 4, 1024, 256) in bf16 causal
+              and with its 512 window and in fp32, qwen1.5-4b's (1, 20,
+              512, 128) bf16, whisper-tiny's encoder (1, 6, 1500, 64) and
+              cross-attention (1, 6, 448, 64) x 1500 keys in fp32, each
+              timed beside the backward of scaled_dot_product_attention;
   3. main path — DMTRLEstimator(solver="pallas_round") fits the paper's
               MNIST-width problem (mnist_like, scale 1.0) on the card, then
               scores and predicts; the fused round kernel must carry every
@@ -92,7 +99,18 @@ Phases, each printing its own lines:
               times; (d) whisper-tiny whole, 1500 frames a request, exact
               length, K3 12 times (4 encoder layers non-causal, 4 decoder
               layers, 4 cross-attentions) and its fp32 state (256 + 3
-              against 257 .. 259).
+              against 257 .. 259);
+ 10. training — (a) gemma3-1b at full width and depth (26 layers, bf16,
+              remat, random init from seed 0) trains 10 steps through
+              train.train with AdamW(lr=1e-3, warmup_steps=2) on one
+              repeated batch of 2 x 1024 tokens: the loss falls by 0.5 nat
+              or more, K3 runs 52 and K3-bwd 26 times a step; step time,
+              tokens/s, device-busy share and peak memory; (b) one gradient
+              and AdamW step on the card against the CPU in fp32: gemma3-1b
+              at 6 layers, whisper-tiny whole and qwen3-moe reduced (the
+              MoE's custom-VJP gathers); (c) the launcher on whisper-tiny
+              (python -m repro_torch.launch.train --steps 3 --ckpt-dir ...),
+              its checkpoint reloaded bit for bit.
 
 It exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository. The line before the last is a JSON object with
@@ -171,6 +189,24 @@ MAMBA_H, MAMBA_P, MAMBA_N = 48, 64, 128
 # torch.cumsum); on |Y_intra| up to 7.2 that measured 1.43e-5 (relative
 # 2e-6). Held at 5e-5: a 3.5x margin.
 TOL_FLASH_F32, TOL_FLASH_BF16, TOL_SSD = 1e-5, 2e-2, 5e-5
+# K3-bwd (phase 2) at the training shapes: gemma3-1b's attention over a
+# sequence of 1024 (bf16, causal and its window of 512; fp32), qwen1.5-4b's
+# over 512, whisper-tiny's encoder over its 1500 frames and its decoder's
+# 448 rows across them (both fp32, non-causal). Bars relative to
+# max(1, max|plain|), as in tests/test_torch_flash_bwd_kernel.py: fp32 2e-5
+# (the same sums in another order), bf16 2e-2 (both sides round an fp32
+# value to bf16, one step of 2^-7 at the largest entry, and D = rowsum(dO o)
+# comes from K3's bf16 output)
+BWD_SHAPES = (  # (label, heads, rows, keys, head dim, bf16, causal, window)
+    ("gemma3-1b", GEMMA_HEADS, 1024, 1024, GEMMA_HD, True, True, 0),
+    ("gemma3-1b", GEMMA_HEADS, 1024, 1024, GEMMA_HD, True, True, GEMMA_WINDOW),
+    ("gemma3-1b", GEMMA_HEADS, 1024, 1024, GEMMA_HD, False, True, 0),
+    ("qwen1.5-4b", QWEN_HEADS, 512, 512, QWEN_HD, True, True, 0),
+    ("whisper-tiny encoder", WHISPER_HEADS, WHISPER_FRAMES, WHISPER_FRAMES, WHISPER_HD,
+     False, False, 0),
+    ("whisper-tiny cross", WHISPER_HEADS, 448, WHISPER_FRAMES, WHISPER_HD, False, False, 0),
+)
+TOL_BWD_F32, TOL_BWD_BF16 = 2e-5, 2e-2
 # the serving main path (phase 5) and its fp32 consistency check (5b)
 PROMPT_LENS = (512, 300, 129, 64, 200, 17)
 NEW_TOKENS, SERVE_BATCH, SERVE_MAX_LEN = 16, 4, 1024
@@ -231,6 +267,20 @@ BRIDGE_CFG = dict(loss="hinge", lam=1e-3, outer_iters=3, rounds=8, local_iters=1
 # features (entries up to 0.14). Measured on an H100: 9.8e-4 (min cosine
 # 0.999987); held at 5e-3, a 5x margin
 TOL_FEATURES = 5e-3
+# phase 10, training: (a) gemma3-1b at full width and depth in bf16 with
+# remat, AdamW(lr=1e-3, warmup_steps=2), 10 steps on one repeated batch of
+# 2 x 1024 tokens (so the local layers' window of 512 is active); each step
+# runs K3 twice per layer (forward and remat) and K3-bwd once. (b) one step
+# on the card against the same step on the CPU in fp32: gemma3-1b reduced
+# to 6 layers (a global layer among the local ones), whisper-tiny whole
+# (remat, 1500 frames) and qwen3-moe-30b-a3b reduced (the MoE gathers).
+# Bars: the loss 1e-4, every gradient leaf 2e-4 (the prefill bar), the
+# params after one update 2e-4 (a first AdamW step moves each entry by
+# lr g / (|g| + eps), at most lr = 5e-5 apart where g is near 0). (c) the
+# launcher on whisper-tiny for 3 steps with a checkpoint.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 10
+CHECK_BATCH, CHECK_SEQ, CHECK_LR = 2, 64, 5e-5
+TOL_TRAIN_LOSS, TOL_TRAIN_GRAD, TOL_TRAIN_PARAM = 1e-4, 2e-4, 2e-4
 
 
 def fail(msg: str) -> None:
@@ -493,6 +543,71 @@ def lm_kernel_checks(torch, dev, card: str) -> dict:
         ssd=dict(max_abs_err=err_ssd, ms=ms_ssd, plain_ms=plain_ssd,
                  bound_ms=b_ssd, bound_by=by_ssd, library_ms=None, shapes=ssd_shapes),
     )
+
+
+def flash_bwd_checks(torch, dev, card: str) -> dict:
+    """Phase 2 for K3-bwd: the backward kernel against autograd of the plain
+    attention at the training shapes (BWD_SHAPES), each timed beside the
+    plain backward and the backward of scaled_dot_product_attention where
+    it computes the same function (no window)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash import flash_kernel
+    from repro_torch.kernels.flash import ref as flash_ref
+
+    rs = np.random.RandomState(2)
+    shapes, err_all = [], 0.0
+    for label, H_, S_, Sk_, HD_, bf16, causal, window in BWD_SHAPES:
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        name, tol = ("bf16", TOL_BWD_BF16) if bf16 else ("fp32", TOL_BWD_F32)
+        text = (f"{label} {name} (1, {H_}, {S_}, {HD_})" + (f" x {Sk_} keys" if Sk_ != S_ else "")
+                + ("" if causal else " non-causal") + (f" window {window}" if window else ""))
+        q, do = (torch.from_numpy(rs.randn(1, H_, S_, HD_).astype(np.float32)).to(dev, dtype)
+                 for _ in range(2))
+        k, v = (torch.from_numpy(rs.randn(1, H_, Sk_, HD_).astype(np.float32)).to(dev, dtype)
+                for _ in range(2))
+        out, lse = flash_kernel.flash_attention(q, k, v, causal, window, return_lse=True)
+        got = flash_kernel.flash_attention_bwd(q, k, v, out, do, lse, causal, window)
+        torch.cuda.synchronize()
+        want = flash_ref.attention_ref_bwd(q, k, v, do, causal, window)
+        err, rel = 0.0, 0.0
+        for g_name, a, b in zip(("dq", "dk", "dv"), got, want):
+            check(bool(torch.isfinite(a).all()), f"flash_bwd {text}: non-finite {g_name}")
+            e = (a.float() - b.float()).abs().max().item()
+            err = max(err, e)
+            rel = max(rel, e / max(1.0, b.float().abs().max().item()))
+        check(rel <= tol, f"flash_bwd {text} disagrees with its plain version: {rel:.3e}")
+        err_all = max(err_all, err)
+        ms = cuda_ms(torch, lambda: flash_kernel.flash_attention_bwd(
+            q, k, v, out, do, lse, causal, window), reps=10)
+        plain = cuda_ms(torch, lambda: flash_ref.attention_ref_bwd(q, k, v, do, causal, window),
+                        reps=5)
+        lib = None
+        if window == 0:
+            qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+            o_lib = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+            lib = cuda_ms(torch, lambda: torch.autograd.grad(o_lib, (qg, kg, vg), do,
+                                                             retain_graph=True), reps=10)
+            del qg, kg, vg, o_lib
+        pairs = (sum(min(i + 1, window or S_) for i in range(S_)) if causal else S_ * Sk_)
+        # q, k, v, o, dO and lse read once, dq, dk, dv written once; five
+        # products of 2 HD flops per kept pair (S and dP recomputed, dV, dK, dQ)
+        nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + lse.numel() * 4
+        b, by = bound_ms(nbytes, 10.0 * H_ * HD_ * pairs,
+                         PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS)
+        lib_txt = f"{lib:.4f} ms" if lib is not None else "n/a (window)"
+        print(f"[2 flash_bwd {text}] max|d(q, k, v) - plain| = {err:.3e} (relative {rel:.3e}, "
+              f"tolerance {tol:.0e}); {ms:.4f} ms/call (plain {plain:.3f} ms, "
+              f"scaled_dot_product_attention backward {lib_txt}), bound {b:.5f} ms by {by} "
+              f"on {card}")
+        shapes.append(dict(shape=[1, H_, S_, HD_], keys=Sk_, causal=causal, dtype=name,
+                           window=window, max_abs_err=err, max_rel_err=rel, ms=ms,
+                           plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib))
+        del q, k, v, do, out, lse, got, want
+    head = shapes[0]  # gemma3-1b bf16 causal: the phase-10 step's shape
+    return dict(max_abs_err=err_all, ms=head["ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                library_ms=head["library_ms"], shapes=shapes)
 
 
 @contextlib.contextmanager
@@ -929,6 +1044,205 @@ def lm_zoo(torch, dev, card: str) -> dict:
             consistency(torch, dev, cfg, f"{tag} consistency")
         print(f"[{tag}] {time.perf_counter() - t0:.1f} s wall")
     return launches
+
+
+def train_main_path(torch, dev, card: str) -> dict:
+    """Phase 10a: gemma3-1b at full width and depth trains TRAIN_STEPS steps
+    through ``train.train`` (bf16, remat, random init from seed 0) on one
+    repeated batch. Checks finite losses and grad norms, a loss that falls
+    by at least 0.5 nat, and exactly 2 K3 and 1 K3-bwd launches per layer
+    and step. Prints the step's host time, tokens/s, peak memory and, from
+    one more profiled step, the device-busy share and K3 / K3-bwd's part of
+    it. Returns the launches of the 10 steps."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import SyntheticTokenPipeline, TokenPipelineConfig
+    from repro_torch.kernels.flash import flash_kernel
+    from repro_torch.train import AdamW, TrainLogger, make_train_step, train
+
+    cfg = dataclasses.replace(get_config("gemma3-1b"), remat=True)
+    opt = AdamW(lr=1e-3, warmup_steps=2)
+    batch = SyntheticTokenPipeline(TokenPipelineConfig(
+        cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)).batch(0)
+
+    def repeated():
+        while True:
+            yield batch
+
+    print(f"[10a gemma3-1b train] {cfg.n_layers} layers ({cfg.layer_kinds().count('local')} "
+          f"local, window {cfg.window}), d_model {cfg.d_model}, head dim {cfg.head_dim}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}, remat {cfg.remat}; batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"AdamW(lr={opt.lr}, warmup_steps={opt.warmup_steps})")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flash_kernel.flash_attention.launches = 0
+    flash_kernel.flash_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    params, state, hist = train(cfg, opt, repeated(), TRAIN_STEPS, seed=0,
+                                logger=TrainLogger(every=1), device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = flash_kernel.flash_attention.launches, flash_kernel.flash_attention_bwd.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in hist]
+    gnorms = [h["grad_norm"] for h in hist]
+    step_s = np.diff([h["elapsed_s"] for h in hist])[1:]  # steps 2 .. 9: warm
+    step_ms = float(np.median(step_s)) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[10a gemma3-1b train] loss per step {np.array2string(np.array(losses), precision=4)}; "
+          f"grad norm {np.array2string(np.array(gnorms), precision=3)}")
+    print(f"[10a gemma3-1b train] {TRAIN_STEPS} steps in {wall:.2f} s (init and the first "
+          f"step included); warm step host {step_ms:.1f} ms median ({step_s.min() * 1e3:.1f}-"
+          f"{step_s.max() * 1e3:.1f}), {tokens / (step_ms / 1e3):.0f} tokens/s; K3 launches "
+          f"{fwd}, K3-bwd {bwd}; peak {peak:.2f} GB on {card}")
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)), "non-finite loss or grad norm")
+    check(losses[-1] <= losses[0] - 0.5,
+          f"the loss fell from {losses[0]:.4f} to {losses[-1]:.4f}, less than 0.5 nat")
+    check(fwd == 2 * cfg.n_layers * TRAIN_STEPS,
+          f"K3 launched {fwd} times, expected {2 * cfg.n_layers} a step")
+    check(bwd == cfg.n_layers * TRAIN_STEPS,
+          f"K3-bwd launched {bwd} times, expected {cfg.n_layers} a step")
+
+    # one more step under the profiler: where its device time goes
+    step = make_train_step(cfg, opt)
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    step(params, state, tb)  # the step object's first call
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, met = step(params, state, tb)
+        float(met["loss"])
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    events = device_events(prof)
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    k3 = sum(e.self_device_time_total for e in events if "flash_fwd" in e.key) / 1e3
+    k3b = sum(e.self_device_time_total for e in events if "flash_bwd" in e.key) / 1e3
+    check(busy > 0, "the profiled training step recorded no device time")
+    print(f"[10a profile] one step {prof_ms:.1f} ms wall (profiler on), device busy "
+          f"{busy:.1f} ms = {busy / prof_ms:.1%}; K3 {k3:.2f} ms ({k3 / busy:.1%} of device), "
+          f"K3-bwd {k3b:.2f} ms ({k3b / busy:.1%}) on {card}")
+    for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
+        print(f"[10a profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
+              f"{e.key[:90]}")
+    del params, state, step, tb
+    torch.cuda.empty_cache()
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def train_card_against_cpu(torch, dev, card: str) -> dict:
+    """Phase 10b: one gradient and one AdamW step of each config on the card
+    and on the CPU in fp32, from the same params and batch: the loss, every
+    gradient leaf and the updated params. Returns the card's launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import (
+        SyntheticTokenPipeline, TokenPipelineConfig, embedding_side_inputs,
+    )
+    from repro_torch.kernels.flash import flash_kernel
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.train import AdamW
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+
+    configs = (
+        ("gemma3-1b 6 layers", dataclasses.replace(get_config("gemma3-1b").reduced(),
+                                                   n_layers=6)),
+        ("whisper-tiny", dataclasses.replace(get_config("whisper-tiny"), dtype="float32")),
+        ("qwen3-moe-30b-a3b reduced", get_config("qwen3-moe-30b-a3b").reduced()),
+    )
+    launches = {}
+    for label, cfg in configs:
+        tag = f"10b {label}"
+        params = init_params(cfg, seed=0, device="cpu")
+        b = SyntheticTokenPipeline(TokenPipelineConfig(
+            cfg.vocab_size, CHECK_SEQ, CHECK_BATCH, seed=1)).batch(0)
+        if cfg.is_encoder_decoder:
+            b["frames"] = embedding_side_inputs("audio", CHECK_BATCH, cfg.d_model, 1,
+                                                cfg.enc_frames)
+        out = {}
+        for where in ("cpu", dev):
+            # a copy on either side: the update below works in place
+            live = tree_map(lambda t: t.detach().to(where, copy=True).requires_grad_(True),
+                            params)
+            flash_kernel.flash_attention.launches = 0
+            flash_kernel.flash_attention_bwd.launches = 0
+            t0 = time.perf_counter()
+            loss, parts = loss_fn(cfg, live, {k: torch.from_numpy(v).to(where)
+                                              for k, v in b.items()})
+            loss.backward()
+            grads = tree_map(lambda t: t.grad, live)
+            opt = AdamW(lr=CHECK_LR, warmup_steps=1)
+            new, _, met = opt.update(grads, opt.init(live), tree_map(lambda t: t.detach(), live))
+            float(met["grad_norm"])
+            secs = time.perf_counter() - t0
+            counts = (flash_kernel.flash_attention.launches,
+                      flash_kernel.flash_attention_bwd.launches)
+            out[str(where)] = (loss.item(), [g.cpu() for g in tree_leaves(grads)],
+                               [p.cpu() for p in tree_leaves(new)], float(met["grad_norm"]),
+                               secs, counts)
+        cpu, gpu = out["cpu"], out[str(dev)]
+        d_loss = abs(cpu[0] - gpu[0])
+        d_grad = max((a - b_).abs().max().item() for a, b_ in zip(cpu[1], gpu[1]))
+        g_max = max(a.abs().max().item() for a in cpu[1])
+        d_par = max((a - b_).abs().max().item() for a, b_ in zip(cpu[2], gpu[2]))
+        launches[tag] = {"fwd": gpu[5][0], "bwd": gpu[5][1]}
+        print(f"[{tag}] loss card {gpu[0]:.6f} cpu {cpu[0]:.6f} (|d| {d_loss:.2e}, tolerance "
+              f"{TOL_TRAIN_LOSS:.0e}); max|d grad| {d_grad:.2e} over {len(cpu[1])} leaves (max|grad| "
+              f"{g_max:.3f}; tolerance {TOL_TRAIN_GRAD:.0e}); max|d param| after one step "
+              f"{d_par:.2e} (tolerance {TOL_TRAIN_PARAM:.0e}); grad norm {gpu[3]:.4f}; "
+              f"card {gpu[4]:.2f} s, cpu {cpu[4]:.2f} s; K3 {gpu[5][0]}, K3-bwd {gpu[5][1]} "
+              f"on {card}")
+        check(np.isfinite(gpu[0]) and d_loss <= TOL_TRAIN_LOSS, f"{tag}: loss disagrees")
+        check(d_grad <= TOL_TRAIN_GRAD, f"{tag}: gradients disagree ({d_grad:.3e})")
+        check(d_par <= TOL_TRAIN_PARAM, f"{tag}: updated params disagree ({d_par:.3e})")
+        n_attn = cfg.n_layers + (cfg.n_enc_layers + cfg.n_layers if cfg.is_encoder_decoder
+                                 else 0)
+        check(gpu[5] == ((2 if cfg.remat else 1) * n_attn, n_attn),
+              f"{tag}: K3 / K3-bwd launched {gpu[5]}, expected {n_attn} attentions")
+        check(cpu[5] == (0, 0), f"{tag}: the CPU run launched a kernel")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_launcher(torch, dev, card: str) -> dict:
+    """Phase 10c: ``python -m repro_torch.launch.train --arch whisper-tiny
+    --steps 3`` with a checkpoint after step 3, run in this process; the
+    checkpoint reloads bit for bit. Returns the launches."""
+    import shutil
+
+    from repro_torch.kernels.flash import flash_kernel
+    from repro_torch.launch import train as launcher
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+
+    ck = ROOT / "build" / "phase10_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    flash_kernel.flash_attention.launches = 0
+    flash_kernel.flash_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    argv = ["--arch", "whisper-tiny", "--steps", "3", "--batch", "2", "--seq", "64",
+            "--log-every", "1", "--ckpt-dir", str(ck), "--ckpt-every", "3",
+            "--history-out", str(ck / "history.json")]
+    params, _, hist = launcher.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    fwd, bwd = flash_kernel.flash_attention.launches, flash_kernel.flash_attention_bwd.launches
+    back = ckpt.load(str(ck / "step_3"), tree_map(torch.zeros_like, params))
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(back), tree_leaves(params)))
+    saved = json.loads((ck / "history.json").read_text())
+    print(f"[10c launcher] python -m repro_torch.launch.train {' '.join(argv)}: losses "
+          f"{[round(h['loss'], 4) for h in hist]}, {secs:.2f} s; checkpoint step "
+          f"{ckpt.latest_step(str(ck / 'step_3'))} reloads bit for bit: {same}; K3 {fwd}, "
+          f"K3-bwd {bwd} on {card}")
+    check(same, "the launcher's checkpoint did not reload bit for bit")
+    check(len(saved) == 3 and all(np.isfinite(h["loss"]) for h in saved),
+          "the launcher's history is not 3 finite steps")
+    shutil.rmtree(ck, ignore_errors=True)
+    return {"fwd": fwd, "bwd": bwd}
 
 
 def test_rows(test):
@@ -1748,6 +2062,7 @@ def main() -> int:
     del shapes, sx, sy, s_alpha, s_w, s_r
     del alpha, w, u, r_state
     lm = lm_kernel_checks(torch, dev, card)
+    lm["flash_bwd"] = flash_bwd_checks(torch, dev, card)
 
     # -- phase 3: the main path at MNIST width -------------------------------
     cfg = dict(solver="pallas_round", loss="hinge", lam=1e-4, outer_iters=2,
@@ -1859,8 +2174,15 @@ def main() -> int:
     t9 = time.perf_counter()
     by_path.update(lm_zoo(torch, dev, card))
     print(f"[9] {time.perf_counter() - t9:.1f} s wall")
+    # -- phase 10: training (the LM families whose layers reach only K3) ----
+    t10 = time.perf_counter()
+    train_by_path = {"10a gemma3-1b train": train_main_path(torch, dev, card)}
+    train_by_path.update(train_card_against_cpu(torch, dev, card))
+    train_by_path["10c launcher whisper-tiny"] = train_launcher(torch, dev, card)
+    print(f"[10] {time.perf_counter() - t10:.1f} s wall")
     flash_by_path = {"5 zamba2-2.7b": launches_flash, **{
-        k: (v["flash"] if isinstance(v, dict) else v[0]) for k, v in by_path.items()}}
+        k: (v["flash"] if isinstance(v, dict) else v[0]) for k, v in by_path.items()},
+        **{k: v["fwd"] for k, v in train_by_path.items()}}
     ssd_by_path = {"5 zamba2-2.7b": launches_ssd, **{
         k: v[1] for k, v in by_path.items() if not isinstance(v, dict)}}
 
@@ -1886,6 +2208,13 @@ def main() -> int:
              source="src/repro_torch/kernels/ssd/csrc/ssd_chunk.cu",
              replaces="src/repro/kernels/ssd/ssd_kernel.py:70",
              launches=launches_ssd, launches_by_path=ssd_by_path, **lm["ssd"]),
+        # no TPU kernel: the JAX package differentiates its jnp attention
+        dict(name="flash_bwd", route="cuda",
+             source="src/repro_torch/kernels/flash/csrc/flash_bwd.cu",
+             replaces="src/repro/models/attention.py:68",
+             launches=train_by_path["10a gemma3-1b train"]["bwd"],
+             launches_by_path={k: v["bwd"] for k, v in train_by_path.items()},
+             **lm["flash_bwd"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

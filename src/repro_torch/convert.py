@@ -106,3 +106,20 @@ def lm_params_from_reference(cfg, params_np: Mapping, device="cuda") -> Dict:
         return leaf(node)
 
     return tree(params_np)
+
+
+def adamw_state_from_reference(state_np, device="cuda"):
+    """The port's ``train.AdamWState`` from the JAX package's, its leaves as
+    numpy arrays (``jax.tree.map(np.asarray, opt_state)``): the step and
+    the fp32 moment trees on ``device``, so ``AdamW.update`` continues from
+    exactly that state."""
+    from .core.dmtrl import resolve_device
+    from .train.optimizer import AdamWState, tree_map
+
+    device = resolve_device(device)
+    moments = lambda tree: tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(state_np.step)), dtype=torch.int32, device=device),
+        mu=moments(state_np.mu),
+        nu=moments(state_np.nu),
+    )

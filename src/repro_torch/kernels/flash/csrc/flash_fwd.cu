@@ -53,6 +53,12 @@
 // last tile) score -inf and their rows are zero-filled, so they add
 // nothing to l or acc.
 //
+// For training, a caller may also ask for each row's log-sum-exp (lse, in
+// log2 units of the scaled scores), which the backward (flash_bwd.cu) needs
+// to recompute P without a second softmax pass. The store is compiled into
+// kernel instantiations of its own (template LSE), chosen when lse is not
+// null, so the serving kernels are the same code as without it.
+//
 // Bound. At the prefill shape (B=1, H=32, S=512, HD=80, causal) the work
 // is 4*H*HD*S(S+1)/2 = 1.35 GFLOP and the bytes are q, k, v, o once each
 // (10.5 MB in bf16); on an H100 the bytes bound it (3.1 us at 3.35 TB/s
@@ -106,12 +112,14 @@ __device__ __forceinline__ void kv_range(int q0, int rows, int Sk, int causal, i
   }
 }
 
-// MJ: the most output columns a thread keeps (HD / 16 <= MJ)
-template <typename T, int MJ>
+// MJ: the most output columns a thread keeps (HD / 16 <= MJ); LSE: store
+// each row's log-sum-exp (an instantiation of its own, so the serving
+// kernel's code stays as it was)
+template <typename T, int MJ, bool LSE>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int S, int Sk, int HD, int causal, int window,
-    float scale, Strides st) {
+    T* __restrict__ o, float* __restrict__ lse, int S, int Sk, int HD, int causal,
+    int window, float scale, Strides st) {
   extern __shared__ float smem[];
   float* Qs = smem;                 // [BQ][HD]
   float* Kt = Qs + BQ * HD;         // [HD][KT_STRIDE]
@@ -247,6 +255,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     const int r = ty + 16 * i;
     if (q0 + r >= S) continue;
     const float denom = fmaxf(l_s[r], 1e-30f);
+    if (LSE && tx == 0)  // log2 of the row's sum, in scaled-score units
+      lse[((long long)b * gridDim.y + h) * S + q0 + r] = m_s[r] * LOG2E + log2f(denom);
 #pragma unroll
     for (int j = 0; j < MJ; ++j)
       if (j < nj) og[(q0 + r) * st.os + tx + 16 * j] = from_f<T>(acc[i][j] / denom);
@@ -330,11 +340,11 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
-template <int HD>
+template <int HD, bool LSE>
 __global__ void __launch_bounds__(BF16_THREADS) flash_fwd_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int S, int Sk,
-    int causal, int window, float scale, Strides st) {
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int S, int Sk, int causal, int window, float scale, Strides st) {
   constexpr int LD = HD + 8;  // shared row stride (elements)
   constexpr int KS = HD / 16; // k-steps of Q K^T
   constexpr int NT = HD / 8;  // n-tiles of P V
@@ -501,6 +511,8 @@ __global__ void __launch_bounds__(BF16_THREADS) flash_fwd_bf16_kernel(
     const int row = row_a + 8 * i;
     if (row >= S) continue;
     const float denom = fmaxf(l, 1e-30f);
+    if (LSE && tig == 0)  // m_r is already in log2 units
+      lse[((long long)b * gridDim.x + h) * S + row] = m_r[i] + log2f(denom);
     __nv_bfloat16* orow = og + row * st.os + tig * 2;
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -509,42 +521,42 @@ __global__ void __launch_bounds__(BF16_THREADS) flash_fwd_bf16_kernel(
   }
 }
 
-template <int MJ>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int S,
-               int Sk, int HD, int causal, int window, float scale, const Strides& st,
-               cudaStream_t stream) {
+template <int MJ, bool LSE>
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+               int H, int S, int Sk, int HD, int causal, int window, float scale,
+               const Strides& st, cudaStream_t stream) {
   const size_t smem =
       (size_t)(BQ * HD + HD * KT_STRIDE + BK * HD + BQ * S_STRIDE + 3 * BQ) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<float, MJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_kernel<float, MJ, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<float, MJ><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_kernel<float, MJ, LSE><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, Sk, HD, causal, window,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, Sk, HD, causal, window,
       scale, st);
   return cudaGetLastError();
 }
 
-template <int HD>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H, int S,
-                int Sk, int causal, int window, float scale, const Strides& st,
+template <int HD, bool LSE>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                int H, int S, int Sk, int causal, int window, float scale, const Strides& st,
                 cudaStream_t stream) {
   const size_t smem = (size_t)(BQ + 2 * STAGES * BK) * (HD + 8) * sizeof(__nv_bfloat16);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_bf16_kernel<HD, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   // all of the SM's unified memory as shared memory, so two or three CTAs
   // fit on an SM (the default split may leave room for one)
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<HD>,
+    err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<HD, LSE>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   const dim3 grid(H, (S + BQ - 1) / BQ, B);
-  flash_fwd_bf16_kernel<HD><<<grid, BF16_THREADS, smem, stream>>>(
+  flash_fwd_bf16_kernel<HD, LSE><<<grid, BF16_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, Sk, causal,
-      window, scale, st);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, S, Sk,
+      causal, window, scale, st);
   return cudaGetLastError();
 }
 
@@ -554,21 +566,31 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
 // the head dim contiguous: HD a multiple of 16 up to 256 in fp32; 16 .. 128,
 // 192 or 256 in bf16. strides: 12 element strides, (batch, head, row)
 // of q, k, v and o in that order; for bf16 each must be a multiple of 8 and
-// each base 16-byte aligned (cp.async moves 16 bytes). Returns the launch's
-// cudaError_t (0 on success).
+// each base 16-byte aligned (cp.async moves 16 bytes). lse: null, or a
+// contiguous (B, H, S) fp32 output that receives each row's log-sum-exp in
+// the units the backward (flash_bwd.cu) recomputes P in: log2 of
+// sum_k 2^(s_k scale log2(e)), so P = 2^(s scale log2(e) - lse). Returns the
+// launch's cudaError_t (0 on success).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
                                 int B, int H, int S, int Sk, int HD, int causal,
                                 int window, float scale, int is_bf16,
-                                const long long* strides, void* stream) {
+                                const long long* strides, float* lse, void* stream) {
   if (HD <= 0 || HD % 16 != 0 || HD > MAX_HD || S <= 0 || Sk <= 0)
     return cudaErrorInvalidValue;
   const Strides st{strides[0], strides[1], strides[2], strides[3], strides[4],  strides[5],
                    strides[6], strides[7], strides[8], strides[9], strides[10], strides[11]};
   cudaStream_t sm = static_cast<cudaStream_t>(stream);
-  if (!is_bf16)
-    return HD <= 128
-               ? launch_f32<8>(q, k, v, o, B, H, S, Sk, HD, causal, window, scale, st, sm)
-               : launch_f32<16>(q, k, v, o, B, H, S, Sk, HD, causal, window, scale, st, sm);
+  if (!is_bf16) {
+    if (HD <= 128)
+      return lse ? launch_f32<8, true>(q, k, v, o, lse, B, H, S, Sk, HD, causal, window, scale,
+                                       st, sm)
+                 : launch_f32<8, false>(q, k, v, o, lse, B, H, S, Sk, HD, causal, window,
+                                        scale, st, sm);
+    return lse ? launch_f32<16, true>(q, k, v, o, lse, B, H, S, Sk, HD, causal, window, scale,
+                                      st, sm)
+               : launch_f32<16, false>(q, k, v, o, lse, B, H, S, Sk, HD, causal, window, scale,
+                                       st, sm);
+  }
   for (int i = 0; i < 12; ++i)
     if (strides[i] % 8 != 0) return cudaErrorInvalidValue;
   for (int i = 2; i < 12; i += 3)  // 64 rows of offsets within a tile fit 32 bits
@@ -578,7 +600,10 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, voi
     return cudaErrorInvalidValue;
 #define FLASH_BF16_CASE(D) \
   case D:                  \
-    return launch_bf16<D>(q, k, v, o, B, H, S, Sk, causal, window, scale, st, sm);
+    return lse ? launch_bf16<D, true>(q, k, v, o, lse, B, H, S, Sk, causal, window, scale, st, \
+                                      sm)                                                      \
+               : launch_bf16<D, false>(q, k, v, o, lse, B, H, S, Sk, causal, window, scale,   \
+                                       st, sm);
   switch (HD) {
     FLASH_BF16_CASE(16)
     FLASH_BF16_CASE(32)

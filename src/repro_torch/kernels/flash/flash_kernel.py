@@ -1,6 +1,6 @@
-"""Hopper CUDA kernel for the flash-attention forward, bound with ctypes.
+"""Hopper CUDA kernels for flash attention, forward and backward, bound with ctypes.
 
-``flash_attention`` — csrc/flash_fwd.cu: causal or sliding-window softmax
+``flash_attention`` (K3) — csrc/flash_fwd.cu: causal or sliding-window softmax
 attention over (B, H, S, HD) views in one launch (one CTA per 64-row query
 block, head and batch); replaces the TPU kernel ``flash_attention`` of
 ``repro/kernels/flash/flash_kernel.py`` (the source says how they differ).
@@ -8,13 +8,20 @@ bf16 calls run the tensor-core kernel (``mma.sync``, bf16 P V), fp32 calls
 the fp32-FMA kernel. The tensors may be strided views (the model's
 (B, S, H, HD) layout transposed, for one): only the head dim must be
 contiguous; for bf16 every other stride must be a multiple of 8 elements
-and each base 16-byte aligned. The output has q's layout.
+and each base 16-byte aligned. The output has q's layout. With
+``return_lse`` it also returns each row's log-sum-exp (B, H, S) fp32, which
+the backward needs.
 
-The source has a plain C interface and is compiled on first use by
-``repro_torch.kernels.nvcc``. The wrapper checks device, dtype, shape and
-layout, allocates the output, launches on PyTorch's current stream,
-raises if the launch returned a CUDA error, and only then adds one to its
-``launches`` count.
+``flash_attention_bwd`` (K3-bwd) — csrc/flash_bwd.cu: dQ, dK and dV of the
+same attention from q, k, v, the forward's output and lse, and the output's
+gradient, over the same views and masks. The JAX package has no such
+kernel (it differentiates its jnp attention); the source says how it works.
+
+Each source has a plain C interface and is compiled on first use by
+``repro_torch.kernels.nvcc``. Each wrapper checks device, dtype, shape and
+layout, allocates its outputs (and K3-bwd's scratch), launches on
+PyTorch's current stream, raises if the launch returned a CUDA error, and
+only then adds one to its ``launches`` count.
 """
 from __future__ import annotations
 
@@ -26,8 +33,9 @@ import torch
 from ..nvcc import FLOAT, INT, VP, launcher, raise_on
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "flash_fwd.cu",)
-_ARGTYPES = [VP] * 4 + [INT] * 7 + [FLOAT, INT, VP, VP]
+SOURCES = (CSRC / "flash_fwd.cu", CSRC / "flash_bwd.cu")
+_ARGTYPES = [VP] * 4 + [INT] * 7 + [FLOAT, INT, VP, VP, VP]
+_BWD_ARGTYPES = [VP] * 10 + [INT] * 7 + [FLOAT, INT, VP, VP]
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
 # the bf16 kernel is built per head dim: every multiple of 16 up to 128, and
@@ -41,16 +49,79 @@ def flash_attention(
     v: torch.Tensor,  # (B, H, Sk, HD)
     causal: bool = True,
     window: int = 0,
-) -> torch.Tensor:
-    """Attention output (B, H, S, HD) in q's dtype; fp32 math inside.
+    return_lse: bool = False,
+):
+    """Attention output (B, H, S, HD) in q's dtype; fp32 math inside. With
+    ``return_lse``, ``(out, lse)``: lse (B, H, S) fp32 is each row's
+    log2-sum-exp2 of the scaled scores (``flash_attention_bwd``'s input).
 
     The kernel tiles by 64 rows and keys itself and masks the ragged edge,
     so S and Sk need not be multiples of a block. HD must be a multiple of
     16 up to 256, and in bf16 one of ``BF16_HEAD_DIMS``. A causal call
     needs Sk >= S (every row keeps its diagonal key, which lets the kernel
     skip fully masked key blocks)."""
+    B, H, S, HD, Sk = _check_call(q, k, v, causal)
+    out = torch.empty_like(q)  # q's layout: (B, S, H, HD) memory stays so
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if return_lse else None
+    strides = (ctypes.c_longlong * 12)(
+        *(s for t in (q, k, v, out) for s in t.stride()[:3]))
+    err = launcher(SOURCES[0], _ARGTYPES)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, S, Sk, HD,
+        int(causal), int(window), 1.0 / HD**0.5, int(q.dtype == torch.bfloat16),
+        strides, None if lse is None else lse.data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    raise_on(err, "flash_fwd")
+    flash_attention.launches += 1
+    return (out, lse) if return_lse else out
+
+
+flash_attention.launches = 0
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,  # (B, H, S, HD)
+    k: torch.Tensor,  # (B, H, Sk, HD)
+    v: torch.Tensor,  # (B, H, Sk, HD)
+    out: torch.Tensor,  # (B, H, S, HD): the forward's output
+    dout: torch.Tensor,  # (B, H, S, HD): the loss's gradient at out
+    lse: torch.Tensor,  # (B, H, S) fp32: the forward's return_lse
+    causal: bool = True,
+    window: int = 0,
+):
+    """(dq, dk, dv) of ``flash_attention(q, k, v, causal, window)``, each in
+    the layout and dtype of its input; fp32 math inside. Takes the views and
+    head dims the forward takes and raises on the rest."""
+    B, H, S, HD, Sk = _check_call(q, k, v, causal)
+    for name, t in (("out", out), ("dout", dout)):
+        _check_view(name, t, (B, H, S, HD), q.dtype, q.device)
+    if (lse.device != q.device or lse.dtype != torch.float32
+            or tuple(lse.shape) != (B, H, S) or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous ({B}, {H}, {S}) fp32 tensor on "
+                         f"{q.device}, got {lse.dtype} {tuple(lse.shape)} on {lse.device}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    D = torch.empty((B, H, S), dtype=torch.float32, device=q.device)  # rowsum(dout * out)
+    strides = (ctypes.c_longlong * 24)(
+        *(s for t in (q, k, v, out, dout, dq, dk, dv) for s in t.stride()[:3]))
+    err = launcher(SOURCES[1], _BWD_ARGTYPES)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), D.data_ptr(),
+        B, H, S, Sk, HD, int(causal), int(window), 1.0 / HD**0.5,
+        int(q.dtype == torch.bfloat16), strides,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    raise_on(err, "flash_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+def _check_call(q, k, v, causal: bool):
+    """(B, H, S, HD, Sk) of a call both kernels take; raises on the rest."""
     if q.device.type != "cuda":
-        raise ValueError(f"the flash kernel runs on CUDA tensors, got {q.device}")
+        raise ValueError(f"the flash kernels run on CUDA tensors, got {q.device}")
     B, H, S, HD = q.shape
     Sk = k.shape[2]
     if q.dtype not in DTYPES:
@@ -64,20 +135,7 @@ def flash_attention(
     for name, t, shape in (("q", q, (B, H, S, HD)), ("k", k, (B, H, Sk, HD)),
                            ("v", v, (B, H, Sk, HD))):
         _check_view(name, t, shape, q.dtype, q.device)
-    out = torch.empty_like(q)  # q's layout: (B, S, H, HD) memory stays so
-    strides = (ctypes.c_longlong * 12)(
-        *(s for t in (q, k, v, out) for s in t.stride()[:3]))
-    err = launcher(SOURCES[0], _ARGTYPES)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, S, Sk, HD,
-        int(causal), int(window), 1.0 / HD**0.5, int(q.dtype == torch.bfloat16),
-        strides, torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    raise_on(err, "flash_fwd")
-    flash_attention.launches += 1
-    return out
-
-
-flash_attention.launches = 0
+    return B, H, S, HD, Sk
 
 
 def _check_view(name: str, t: torch.Tensor, shape, dtype, device) -> None:

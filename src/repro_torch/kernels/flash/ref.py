@@ -30,3 +30,19 @@ def attention_ref(
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def attention_ref_bwd(
+    q: Tensor,  # (B, H, S, HD)
+    k: Tensor,  # (B, H, Sk, HD)
+    v: Tensor,
+    dout: Tensor,  # (B, H, S, HD): the gradient at attention_ref's output
+    causal: bool = True,
+    window: int = 0,
+):
+    """Plain version of the flash backward: (dq, dk, dv) of ``attention_ref``
+    by torch autograd, each in its input's dtype."""
+    with torch.enable_grad():
+        qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = attention_ref(*qkv, causal, window)
+        return torch.autograd.grad(out, qkv, dout)

@@ -1,7 +1,7 @@
 """Model substrate of the port: the LMs of the dense (local/global
 attention; the early-fusion VLM), MoE, pure-SSM (Mamba2), zamba2-style
-hybrid and whisper-style encoder-decoder families, for serving and as the
-DMTRL heads' backbone."""
+hybrid and whisper-style encoder-decoder families, for serving, training
+and as the DMTRL heads' backbone."""
 from . import attention, common, mlp, ssm, transformer
 from .transformer import (
     DecodeCache,
@@ -10,6 +10,7 @@ from .transformer import (
     forward_train,
     init_decode_cache,
     init_params,
+    loss_fn,
     prefill,
 )
 
@@ -25,5 +26,6 @@ __all__ = [
     "forward_train",
     "init_decode_cache",
     "init_params",
+    "loss_fn",
     "prefill",
 ]

@@ -1,16 +1,21 @@
 """Feed-forward blocks: dense (SwiGLU / squared-ReLU / GELU) and the
 Mixture-of-Experts with capacity-based dispatch.
 
-The MoE is the JAX package's sort-free cumsum dispatch, forward only: a
-token's slot in each expert's buffer is a running count over the tokens
-of its group (a batch row), int32 slot maps say which token fills each
-(expert, slot), gathers move the d-vectors into a (B, E, C, d) buffer,
-every expert runs as one batched product over its C slots, and a gather
-brings the outputs back weighted by the renormalised top-k gates. Tokens
-past an expert's capacity are dropped (Switch-style) and counted in the
-aux metrics. The expert products are plain ``torch.matmul`` calls, as the
-JAX package leaves its einsums to XLA outside any Pallas kernel. The JAX
-package's custom-VJP gathers (its backward) come with training.
+The MoE is the JAX package's sort-free cumsum dispatch: a token's slot in
+each expert's buffer is a running count over the tokens of its group (a
+batch row), int32 slot maps say which token fills each (expert, slot),
+gathers move the d-vectors into an expert-major (E, B, C, d) buffer, every
+expert runs as one batched product over its C slots, and a gather brings
+the outputs back weighted by the renormalised top-k gates. Tokens past an
+expert's capacity are dropped (Switch-style) and counted in the aux
+metrics. The expert products are plain ``torch.matmul`` calls, as the JAX
+package leaves its einsums to XLA outside any Pallas kernel.
+
+Dispatch and combine are the JAX package's custom-VJP gathers
+(``_moe_dispatch`` / ``_moe_combine``) as ``torch.autograd.Function``s:
+the (token, k) -> (expert, slot) assignment is a partial bijection, so the
+backward of each gather is a gather too (through the other slot map),
+not the scatter-add autograd would make of an indexing.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from ..configs.base import ModelConfig
 from .common import activation, dense_init
@@ -83,6 +89,60 @@ def _top_k(probs: Tensor, k: int) -> Tuple[Tensor, Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+class MoeDispatch(torch.autograd.Function):
+    """buf (E, B, C, d) of x (B, S, d): slot (e, b, c) holds token
+    ``slot_src[b, e, c]`` of row b, zeros where it is S (empty). The
+    backward gathers each (token, k)'s slot gradient (``e_flat``,
+    ``pos_clip``; dropped entries point at the zero column C) and sums over
+    k. The JAX package's ``_moe_dispatch``, expert-major."""
+
+    @staticmethod
+    def forward(ctx, x, slot_src, e_flat, pos_clip):
+        B, S, d = x.shape
+        x_pad = torch.cat([x, x.new_zeros((B, 1, d))], dim=1)
+        rows = torch.arange(B, device=x.device)
+        ctx.save_for_backward(e_flat, pos_clip)
+        ctx.S = S
+        return x_pad[rows[None, :, None], slot_src.transpose(0, 1)]
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        e_flat, pos_clip = ctx.saved_tensors
+        E, B, C, d = g.shape
+        K = e_flat.shape[1] // ctx.S
+        g_pad = torch.cat([g, g.new_zeros((E, B, 1, d))], dim=2)
+        rows = torch.arange(B, device=g.device)
+        gx = g_pad[e_flat, rows[:, None], pos_clip]  # (B, S K, d)
+        return gx.view(B, ctx.S, K, d).sum(dim=2), None, None, None
+
+
+class MoeCombine(torch.autograd.Function):
+    """y_flat (B, S K, d) of out_buf (E, B, C, d): (token, k) takes its
+    slot's output, zeros where it was dropped (``pos_clip`` == C). The
+    backward gathers each slot's gradient from the (token, k) that filled
+    it (``slot_sk``, S K where empty). The JAX package's ``_moe_combine``."""
+
+    @staticmethod
+    def forward(ctx, out_buf, e_flat, pos_clip, slot_sk):
+        C = out_buf.shape[2]
+        rows = torch.arange(out_buf.shape[1], device=out_buf.device)
+        ctx.save_for_backward(slot_sk)
+        # the gather from the zero-padded buffer, without copying the buffer
+        # (E C slots can far outnumber the S K entries, as in a decode step)
+        y = out_buf[e_flat, rows[:, None], pos_clip.clamp(max=C - 1)]
+        return y.masked_fill_((pos_clip == C)[..., None], 0)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (slot_sk,) = ctx.saved_tensors
+        B, SK, d = g.shape
+        g_pad = torch.cat([g, g.new_zeros((B, 1, d))], dim=1)
+        rows = torch.arange(B, device=g.device)
+        return g_pad[rows[None, :, None], slot_sk.transpose(0, 1)], None, None, None
+
+
 def moe_ffn(x: Tensor, p: Dict[str, Tensor], cfg: ModelConfig) -> Tuple[Tensor, Dict[str, Tensor]]:
     """x: (B, S, d). Returns (out (B, S, d), aux) with aux's ``aux_loss``
     (Switch load balance), ``drop_frac`` and ``router_entropy``, and the
@@ -111,18 +171,22 @@ def moe_ffn(x: Tensor, p: Dict[str, Tensor], cfg: ModelConfig) -> Tuple[Tensor, 
     dropped = pos >= C
     pos_clip = torch.where(dropped, torch.full_like(pos, C), pos)
 
-    # int slot map: the source token of each (expert, slot), S where empty;
-    # dropped entries land in column C, which is cut off
-    src_tok = (torch.arange(S * K, device=dev) // K).expand(B, S * K)
-    slot_src = torch.full((B, E * (C + 1)), S, dtype=torch.long, device=dev)
-    slot_src.scatter_(1, e_flat * (C + 1) + pos_clip, src_tok)
-    slot_src = slot_src.view(B, E, C + 1)[:, :, :C]
-    rows = torch.arange(B, device=dev)
-    x_pad = torch.cat([x, x.new_zeros((B, 1, d))], dim=1)
-    buf = x_pad[rows[:, None, None], slot_src]  # (B, E, C, d)
+    # int slot maps: the source token and the source (token, k) of each
+    # (expert, slot), S and S K where empty; dropped entries land in column
+    # C, which is cut off
+    sk = torch.arange(S * K, device=dev).expand(B, S * K)
+
+    def slot_map(fill, vals):
+        m = torch.full((B, E * (C + 1)), fill, dtype=torch.long, device=dev)
+        m.scatter_(1, e_flat * (C + 1) + pos_clip, vals)
+        return m.view(B, E, C + 1)[:, :, :C]
+
+    slot_src = slot_map(S, sk // K)
+    slot_sk = slot_map(S * K, sk)
+    buf = MoeDispatch.apply(x, slot_src, e_flat, pos_clip)  # (E, B, C, d)
 
     # every expert over its C slots of every group, one batched product
-    xb = buf.transpose(0, 1).reshape(E, B * C, d)
+    xb = buf.reshape(E, B * C, d)
     if cfg.act == "swiglu":
         h = F.silu(torch.matmul(xb, p["w_gate"])) * torch.matmul(xb, p["w_up"])
     else:
@@ -131,8 +195,7 @@ def moe_ffn(x: Tensor, p: Dict[str, Tensor], cfg: ModelConfig) -> Tuple[Tensor, 
 
     # combine: each (token, k) gathers its slot's output (zero where
     # dropped), weighted by its renormalised gate
-    y_flat = out_buf[e_flat, rows[:, None], pos_clip.clamp(max=C - 1)]  # (B, SK, d)
-    y_flat = torch.where(dropped[..., None], torch.zeros_like(y_flat), y_flat)
+    y_flat = MoeCombine.apply(out_buf, e_flat, pos_clip, slot_sk)  # (B, SK, d)
     w = (gates.reshape(B, S * K) * (~dropped)).to(x.dtype)
     y = (y_flat * w[..., None]).reshape(B, S, K, d).sum(dim=2)
 

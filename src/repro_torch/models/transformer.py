@@ -9,7 +9,8 @@ decoder with learned positions and cross-attention after every layer).
 
 Entry points:
     init_params(cfg, seed, device)               -> param dict
-    forward_train(cfg, params, tokens, side)     -> (logits, aux), forward only
+    forward_train(cfg, params, tokens, side)     -> (logits, aux)
+    loss_fn(cfg, params, batch)                  -> (loss, {"ce", "aux_loss"})
     encode_audio(cfg, params, frames)            -> encoder states (B, F, d)
     prefill(cfg, params, tokens, side)           -> (last_logits, DecodeCache)
     decode_step(cfg, params, token, cache)       -> (logits, DecodeCache)
@@ -24,15 +25,26 @@ the shared block, every encoder layer and every cross-attention; the SSD
 chunk in every Mamba2 layer); decode is plain torch, as in the JAX
 package, and updates the cache in place.
 
+Training differentiates ``forward_train`` with torch autograd. On the card
+every attention runs K3 forward and K3-bwd backward
+(``kernels.flash.ops.FlashAttention``), and the MoE's dispatch and combine
+are the JAX package's custom-VJP gathers (``mlp.MoeDispatch``,
+``mlp.MoeCombine``). With ``cfg.remat`` each scanned body (a layer; a
+hybrid's period; an encoder layer; a decoder layer with its
+cross-attention) runs under ``torch.utils.checkpoint``, as the JAX package
+wraps it in ``jax.checkpoint``: its activations are recomputed in the
+backward pass, so K3 runs twice per attention layer and step.
+
 Mixed dtypes follow JAX's type promotion, made explicit (torch does not
 promote inside a matmul): fp32 audio frames plus a bf16 model run the
 encoder in fp32 against the bf16 weights, so the cross-attention k/v and
 their cache are fp32, while the decoder stream, its kv cache and the
 logits stay bf16.
 
-Not ported yet: training (``loss_fn``; ``forward_train`` has no backward
-pass on the card: the kernels have no backward kernels, and the MoE has
-no custom-VJP gathers).
+Not ported yet: a gradient through the Mamba2 layers on the card (the
+ssm and hybrid archs): the SSD chunk kernel (K4) has no backward kernel, so
+``forward_train`` refuses to build a graph there. On the CPU every arch
+trains.
 """
 from __future__ import annotations
 
@@ -40,6 +52,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.dmtrl import resolve_device
@@ -150,6 +163,25 @@ def _layer_params_at(params, i: int, key: str = "layers") -> Dict[str, Any]:
     return _tree_map(lambda a: a[i], params[key])
 
 
+def _layers_of(params, n: int, key: str = "layers") -> List[Dict[str, Any]]:
+    """The ``n`` layers' params of the stacked tree ``params[key]``: views
+    from one ``unbind`` of each leaf, whose backward stacks the layers'
+    gradients at once (indexing layer by layer would add one full-size
+    gradient per layer)."""
+    parts = _tree_map(lambda a: a.unbind(0), params[key])
+    return [_tree_map(lambda t, i=i: t[i], parts) for i in range(n)]
+
+
+def _maybe_remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, under activation checkpointing when ``cfg.remat`` is
+    set and autograd is recording: the JAX package's ``jax.checkpoint``
+    (``nothing_saveable``) around a scanned body. Serving (no graph) calls
+    ``fn`` directly."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _is_local(cfg: ModelConfig, kind: str) -> bool:
     return cfg.local_ratio > 0 and kind == "local"
 
@@ -187,6 +219,15 @@ def _dense_block(cfg: ModelConfig, lp, h: Tensor, positions: Tensor, is_local: b
     return h + y, kv
 
 
+def _dense_layer(cfg: ModelConfig, lp, h: Tensor, positions: Tensor, is_local: bool):
+    """``_dense_block`` with the MoE's aux_loss returned (None for an MLP
+    block), for a scanned body: remat runs a body twice, so it must not
+    append to a list outside."""
+    aux: List[Tensor] = []
+    h, kv = _dense_block(cfg, lp, h, positions, is_local, aux)
+    return h, kv, (aux[0] if aux else None)
+
+
 def _ssm_block(cfg: ModelConfig, lp, h: Tensor):
     """(h + Mamba2(h), (state, conv_window))."""
     out, state, conv = ssm_mod.ssm_block_train(
@@ -212,24 +253,34 @@ def _scan_layers(cfg: ModelConfig, params, h: Tensor, positions: Tensor):
     layer, the (k, v) of each attention layer, and for the hybrid
     ``(ssm material, shared-block (k, v) per period)``."""
     aux_losses: List[Tensor] = []
+    layers = _layers_of(params, cfg.n_layers)
     if cfg.arch_type == "hybrid":
         every = cfg.hybrid_attn_every
+
+        def period(hh, lps):
+            sc = []
+            for lp in lps:
+                hh, c = _ssm_block(cfg, lp, hh)
+                sc.append(c)
+            hh, kv = _shared_block(cfg, params["shared"], hh, positions)
+            return hh, sc, kv
+
         ssm_out, shared_kv = [], []
         for pi in range(cfg.n_layers // every):
-            for li in range(every):
-                h, sc = _ssm_block(cfg, _layer_params_at(params, pi * every + li), h)
-                ssm_out.append(sc)
-            h, kv = _shared_block(cfg, params["shared"], h, positions)
+            h, sc, kv = _maybe_remat(cfg, period, h, layers[pi * every:(pi + 1) * every])
+            ssm_out.extend(sc)
             shared_kv.append(kv)
         collected: Any = (ssm_out, shared_kv)
     else:
         collected = []
-        for i, kind in enumerate(cfg.layer_kinds()):
-            lp = _layer_params_at(params, i)
+        for lp, kind in zip(layers, cfg.layer_kinds()):
             if cfg.arch_type == "ssm":
-                h, c = _ssm_block(cfg, lp, h)
+                h, c = _maybe_remat(cfg, _ssm_block, cfg, lp, h)
             else:
-                h, c = _dense_block(cfg, lp, h, positions, _is_local(cfg, kind), aux_losses)
+                h, c, aux_loss = _maybe_remat(cfg, _dense_layer, cfg, lp, h, positions,
+                                              _is_local(cfg, kind))
+                if aux_loss is not None:
+                    aux_losses.append(aux_loss)
             collected.append(c)
     aux = (torch.stack(aux_losses).sum() if aux_losses
            else torch.zeros((), dtype=torch.float32, device=h.device))
@@ -244,13 +295,17 @@ def encode_audio(cfg: ModelConfig, params, frames: Tensor) -> Tensor:
     F_ = frames.shape[1]
     h = frames + params["enc_pos"][None, :F_]
     positions = _host_positions(F_, None)
-    for i in range(cfg.n_enc_layers):
-        lp = _promoted(_layer_params_at(params, i, "enc_layers"), h.dtype)
-        h = h + attn_mod.attention_train(
-            rms_norm(h, lp["ln1"], cfg.norm_eps), lp["attn"], cfg, positions, False,
+
+    def layer(hh, lp):
+        lp = _promoted(lp, hh.dtype)
+        hh = hh + attn_mod.attention_train(
+            rms_norm(hh, lp["ln1"], cfg.norm_eps), lp["attn"], cfg, positions, False,
             causal=False,
         )
-        h = h + mlp_mod.mlp(rms_norm(h, lp["ln2"], cfg.norm_eps), lp["mlp"], cfg)
+        return hh + mlp_mod.mlp(rms_norm(hh, lp["ln2"], cfg.norm_eps), lp["mlp"], cfg)
+
+    for lp in _layers_of(params, cfg.n_enc_layers, "enc_layers"):
+        h = _maybe_remat(cfg, layer, h, lp)
     return rms_norm(h, params["enc_norm"], cfg.norm_eps)
 
 
@@ -272,15 +327,19 @@ def _forward(cfg: ModelConfig, params, tokens: Tensor, side: Optional[Tensor],
     if side is None:
         raise ValueError(f"{cfg.name} is an encoder-decoder: it needs its encoder frames (side=)")
     enc = encode_audio(cfg, params, side)
-    cross = [attn_mod.cross_kv(enc, _layer_params_at(params, i, "cross_layers")["attn"], cfg)
-             for i in range(cfg.n_layers)]
+    cross_layers = _layers_of(params, cfg.n_layers, "cross_layers")
+    cross = [attn_mod.cross_kv(enc, cp["attn"], cfg) for cp in cross_layers]
     del enc
+
+    def layer(hh, lp, cp, ck, cv):
+        hh, kv = _dense_block(cfg, lp, hh, positions, False)
+        hh = hh + attn_mod.cross_attend(rms_norm(hh, cp["ln"], cfg.norm_eps), ck, cv,
+                                        cp["attn"], cfg)
+        return hh, kv
+
     collected = []
-    for i in range(cfg.n_layers):
-        h, kv = _dense_block(cfg, _layer_params_at(params, i), h, positions, False)
-        cp = _layer_params_at(params, i, "cross_layers")
-        h = h + attn_mod.cross_attend(rms_norm(h, cp["ln"], cfg.norm_eps), *cross[i],
-                                      cp["attn"], cfg)
+    for lp, cp, (ck, cv) in zip(_layers_of(params, cfg.n_layers), cross_layers, cross):
+        h, kv = _maybe_remat(cfg, layer, h, lp, cp, ck, cv)
         collected.append(kv)
     return h, collected, torch.zeros((), dtype=torch.float32, device=h.device), cross
 
@@ -294,10 +353,12 @@ def _host_positions(S: int, true_len: Optional[int]) -> Tensor:
     return pos
 
 
-def _forbid_grad_on_card(params, tokens: Tensor) -> None:
-    """The kernels have no backward pass: refuse a graph-building forward
-    on the card rather than give gradients that silently miss them."""
-    if tokens.device.type != "cuda" or not torch.is_grad_enabled():
+def _forbid_grad_on_card(cfg: ModelConfig, params, tokens: Tensor) -> None:
+    """The SSD chunk kernel (K4) has no backward kernel: refuse a
+    graph-building forward through Mamba2 layers on the card rather than
+    give gradients that silently miss them."""
+    if (cfg.arch_type not in ("ssm", "hybrid") or tokens.device.type != "cuda"
+            or not torch.is_grad_enabled()):
         return
 
     def leaves(node):
@@ -309,14 +370,15 @@ def _forbid_grad_on_card(params, tokens: Tensor) -> None:
 
     if any(t.requires_grad for t in leaves(params)):
         raise NotImplementedError(
-            "forward_train on the card is forward only: the flash-attention and SSD "
-            "kernels have no backward kernels yet (run under torch.no_grad())"
+            f"training {cfg.name} on the card needs a backward kernel for the SSD chunk "
+            f"kernel (K4) of its Mamba2 layers, which is not written yet; forward_train "
+            f"runs under torch.no_grad() there"
         )
 
 
 def _trunk(cfg: ModelConfig, params, tokens: Tensor, side: Optional[Tensor]):
     _require_ported(cfg)
-    _forbid_grad_on_card(params, tokens)
+    _forbid_grad_on_card(cfg, params, tokens)
     h, _, aux, _ = _forward(cfg, params, tokens, side, _host_positions(tokens.shape[1], None))
     return rms_norm(h, params["final_norm"], cfg.norm_eps), aux
 
@@ -330,11 +392,31 @@ def forward_train(
     cfg: ModelConfig, params, tokens: Tensor, side: Optional[Tensor] = None
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Logits (B, S, Vp) of every position and ``{"aux_loss": ...}`` (the
-    MoE's load-balance loss summed over layers, 0 for the other archs):
-    the JAX package's ``forward_train`` as a forward-only oracle. ``side``
+    MoE's load-balance loss summed over layers, 0 for the other archs): the
+    JAX package's ``forward_train``, differentiable by autograd. ``side``
     carries an encoder-decoder's frames (B, F, d)."""
     h, aux = _trunk(cfg, params, tokens, side)
     return h @ params["lm_head"], {"aux_loss": aux}
+
+
+def loss_fn(cfg: ModelConfig, params, batch: Dict[str, Tensor]
+            ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """The JAX package's ``loss_fn``: the masked mean next-token cross
+    entropy in fp32 (labels clipped into the padded vocabulary) plus
+    ``router_aux_coef`` times the MoE's aux loss. ``batch`` holds
+    ``tokens`` and ``labels`` (B, S), optionally ``mask`` (B, S) and an
+    encoder-decoder's ``frames``. Returns ``(total, {"ce", "aux_loss"})``."""
+    logits, aux = forward_train(cfg, params, batch["tokens"], batch.get("frames"))
+    logits = logits.float()
+    labels = batch["labels"].long().clamp(0, cfg.vocab_padded - 1)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = lse - gold
+    mask = batch.get("mask")
+    mask = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)
+    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    total = loss + cfg.router_aux_coef * aux["aux_loss"]
+    return total, {"ce": loss, "aux_loss": aux["aux_loss"]}
 
 
 # ---------------------------------------------------------------------------

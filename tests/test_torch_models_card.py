@@ -91,18 +91,46 @@ def test_mamba2_layout_prefill_on_card(cuda):
 
 @pytest.mark.gpu
 def test_forward_is_forward_only_on_card(cuda):
-    """No backward kernels: a graph-building forward on the card raises;
-    under no_grad it runs, and pooled_features always does."""
+    """The gemma-shaped model trains on the card (K3 forward with lse, then
+    K3-bwd, once per layer), its gradient against the CPU's autograd of the
+    plain attention (bar 2e-4, the prefill bar); a Mamba2 model's graph on
+    the card is refused, since the SSD chunk kernel (K4) has no backward
+    kernel. Under no_grad both run, and pooled_features always does."""
+    from repro_torch.models import loss_fn
+
     cfg = gemma_like()
-    params = init_params(cfg, seed=0, device=cuda)
-    toks = torch.zeros((1, 8), dtype=torch.int64, device=cuda)
-    params["embed"].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        forward_train(cfg, params, toks)
+    params = init_params(cfg, seed=0, device="cpu")
+    toks = torch.from_numpy(np.random.RandomState(4).randint(0, cfg.vocab_size, (1, 72)))
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    grads = {}
+    for dev in ("cpu", cuda):
+        live = {k: v for k, v in _on(params, dev).items()}
+        live["embed"] = live["embed"].detach().requires_grad_(True)
+        live["layers"]["attn"]["wq"] = live["layers"]["attn"]["wq"].detach().requires_grad_(True)
+        before = (flash_kernel.flash_attention.launches, flash_kernel.flash_attention_bwd.launches)
+        loss, _ = loss_fn(cfg, live, {k: v.to(dev) for k, v in batch.items()})
+        loss.backward()
+        after = (flash_kernel.flash_attention.launches, flash_kernel.flash_attention_bwd.launches)
+        grads[str(dev)] = (loss.item(), live["embed"].grad.cpu(),
+                           live["layers"]["attn"]["wq"].grad.cpu(), before, after)
+    cpu, card = grads["cpu"], grads[str(cuda)]
+    assert cpu[3] == cpu[4]
+    assert card[4] == (card[3][0] + cfg.n_layers, card[3][1] + cfg.n_layers)
+    assert abs(cpu[0] - card[0]) <= 2e-4
+    for a, b in zip(cpu[1:3], card[1:3]):
+        torch.testing.assert_close(b, a, atol=2e-4, rtol=0)
+
+    mcfg = get_config("mamba2-780m").reduced()
+    mparams = init_params(mcfg, seed=0, device=cuda)
+    mparams["embed"].requires_grad_(True)
+    mtoks = torch.zeros((1, 8), dtype=torch.int64, device=cuda)
+    with pytest.raises(NotImplementedError, match="K4"):
+        forward_train(mcfg, mparams, mtoks)
     with torch.no_grad():
-        logits, _ = forward_train(cfg, params, toks)
-    assert logits.shape == (1, 8, cfg.vocab_padded)
-    feats = pooled_features(cfg, params, toks)
+        logits, _ = forward_train(mcfg, mparams, mtoks)
+    assert logits.shape == (1, 8, mcfg.vocab_padded)
+    gparams = init_params(cfg, seed=0, device=cuda)
+    feats = pooled_features(cfg, gparams, torch.zeros((1, 8), dtype=torch.int64, device=cuda))
     assert feats.shape == (1, cfg.d_model) and not feats.requires_grad
 
 
