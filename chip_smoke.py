@@ -35,7 +35,8 @@ Phases, each printing its own lines:
               and with its 512 window and in fp32, qwen1.5-4b's (1, 20,
               512, 128) bf16, whisper-tiny's encoder (1, 6, 1500, 64) and
               cross-attention (1, 6, 448, 64) x 1500 keys in fp32, each
-              timed beside the backward of scaled_dot_product_attention;
+              called twice (the two results bit-equal) and timed beside
+              the backward of scaled_dot_product_attention;
   3. main path — DMTRLEstimator(solver="pallas_round") fits the paper's
               MNIST-width problem (mnist_like, scale 1.0) on the card, then
               scores and predicts; the fused round kernel must carry every
@@ -194,9 +195,10 @@ TOL_FLASH_F32, TOL_FLASH_BF16, TOL_SSD = 1e-5, 2e-2, 5e-5
 # over 512, whisper-tiny's encoder over its 1500 frames and its decoder's
 # 448 rows across them (both fp32, non-causal). Bars relative to
 # max(1, max|plain|), as in tests/test_torch_flash_bwd_kernel.py: fp32 2e-5
-# (the same sums in another order), bf16 2e-2 (both sides round an fp32
-# value to bf16, one step of 2^-7 at the largest entry, and D = rowsum(dO o)
-# comes from K3's bf16 output)
+# (the same sums in another order; the products are split TF32, which keeps
+# fp32's accuracy), bf16 2e-2 (both sides round an fp32 value to bf16, one
+# step of 2^-7 at the largest entry; D = rowsum(dO o) comes from K3's bf16
+# output, and P and dS are rounded to bf16 as mma operands)
 BWD_SHAPES = (  # (label, heads, rows, keys, head dim, bf16, causal, window)
     ("gemma3-1b", GEMMA_HEADS, 1024, 1024, GEMMA_HD, True, True, 0),
     ("gemma3-1b", GEMMA_HEADS, 1024, 1024, GEMMA_HD, True, True, GEMMA_WINDOW),
@@ -568,7 +570,10 @@ def flash_bwd_checks(torch, dev, card: str) -> dict:
                 for _ in range(2))
         out, lse = flash_kernel.flash_attention(q, k, v, causal, window, return_lse=True)
         got = flash_kernel.flash_attention_bwd(q, k, v, out, do, lse, causal, window)
+        again = flash_kernel.flash_attention_bwd(q, k, v, out, do, lse, causal, window)
         torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"flash_bwd {text}: two calls gave different bits")
         want = flash_ref.attention_ref_bwd(q, k, v, do, causal, window)
         err, rel = 0.0, 0.0
         for g_name, a, b in zip(("dq", "dk", "dv"), got, want):
@@ -590,20 +595,34 @@ def flash_bwd_checks(torch, dev, card: str) -> dict:
                                                              retain_graph=True), reps=10)
             del qg, kg, vg, o_lib
         pairs = (sum(min(i + 1, window or S_) for i in range(S_)) if causal else S_ * Sk_)
-        # q, k, v, o, dO and lse read once, dq, dk, dv written once; five
-        # products of 2 HD flops per kept pair (S and dP recomputed, dV, dK, dQ)
+        # q, k, v, o, dO and lse read once, dq, dk, dv written once; the
+        # function's five products of 2 HD flops per kept pair (S, dP, dV,
+        # dK, dQ). The kernel's deterministic design does seven (S and dP
+        # again in the dQ pass): its own floor is printed beside. bf16 at the
+        # tensor cores' bf16 peak; fp32 runs three TF32 passes (split TF32),
+        # and its fp32 FMA bound is printed beside
         nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + lse.numel() * 4
-        b, by = bound_ms(nbytes, 10.0 * H_ * HD_ * pairs,
-                         PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS)
+        flops = 10.0 * H_ * HD_ * pairs
+        if bf16:
+            b, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+            b7 = bound_ms(nbytes, flops * 7 / 5, PEAK_BF16_FLOPS)[0]
+            fma_txt = ""
+        else:
+            b, by = bound_ms(nbytes, 3 * flops, PEAK_TF32_FLOPS)
+            b7 = bound_ms(nbytes, 3 * flops * 7 / 5, PEAK_TF32_FLOPS)[0]
+            fma_b = bound_ms(nbytes, flops, PEAK_FP32_FLOPS)[0]
+            fma_txt = f", as fp32 FMAs {fma_b:.5f} ms"
         lib_txt = f"{lib:.4f} ms" if lib is not None else "n/a (window)"
         print(f"[2 flash_bwd {text}] max|d(q, k, v) - plain| = {err:.3e} (relative {rel:.3e}, "
-              f"tolerance {tol:.0e}); {ms:.4f} ms/call (plain {plain:.3f} ms, "
-              f"scaled_dot_product_attention backward {lib_txt}), bound {b:.5f} ms by {by} "
-              f"on {card}")
+              f"tolerance {tol:.0e}), two calls bit-equal; {ms:.4f} ms/call (plain "
+              f"{plain:.3f} ms, scaled_dot_product_attention backward {lib_txt}), bound "
+              f"{b:.5f} ms by {by} at 5 products a pair (the deterministic design's 7: "
+              f"{b7:.5f}){fma_txt} on {card}")
         shapes.append(dict(shape=[1, H_, S_, HD_], keys=Sk_, causal=causal, dtype=name,
-                           window=window, max_abs_err=err, max_rel_err=rel, ms=ms,
-                           plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib))
-        del q, k, v, do, out, lse, got, want
+                           window=window, max_abs_err=err, max_rel_err=rel, bit_equal=True,
+                           ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, bound_7_ms=b7,
+                           library_ms=lib))
+        del q, k, v, do, out, lse, got, again, want
     head = shapes[0]  # gemma3-1b bf16 causal: the phase-10 step's shape
     return dict(max_abs_err=err_all, ms=head["ms"], plain_ms=head["plain_ms"],
                 bound_ms=head["bound_ms"], bound_by=head["bound_by"],

@@ -14,8 +14,10 @@ the backward needs.
 
 ``flash_attention_bwd`` (K3-bwd) — csrc/flash_bwd.cu: dQ, dK and dV of the
 same attention from q, k, v, the forward's output and lse, and the output's
-gradient, over the same views and masks. The JAX package has no such
-kernel (it differentiates its jnp attention); the source says how it works.
+gradient, over the same views and masks, on the tensor cores (bf16
+``mma.sync``; fp32 in split TF32), with the same bits from call to call.
+The JAX package has no such kernel (it differentiates its jnp attention);
+the source says how it works. Both sources include csrc/flash_common.cuh.
 
 Each source has a plain C interface and is compiled on first use by
 ``repro_torch.kernels.nvcc``. Each wrapper checks device, dtype, shape and
@@ -90,8 +92,10 @@ def flash_attention_bwd(
     window: int = 0,
 ):
     """(dq, dk, dv) of ``flash_attention(q, k, v, causal, window)``, each in
-    the layout and dtype of its input; fp32 math inside. Takes the views and
-    head dims the forward takes and raises on the rest."""
+    the layout and dtype of its input; fp32 accumulation inside. Takes the
+    views and head dims the forward takes and raises on the rest; an fp32
+    q, k, v or dout whose strides or base are not whole 16-byte units is
+    copied to a dense tensor first (bf16 views must be so already)."""
     B, H, S, HD, Sk = _check_call(q, k, v, causal)
     for name, t in (("out", out), ("dout", dout)):
         _check_view(name, t, (B, H, S, HD), q.dtype, q.device)
@@ -101,6 +105,7 @@ def flash_attention_bwd(
                          f"{q.device}, got {lse.dtype} {tuple(lse.shape)} on {lse.device}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     D = torch.empty((B, H, S), dtype=torch.float32, device=q.device)  # rowsum(dout * out)
+    q, k, v, dout = (_staged(t) for t in (q, k, v, dout))
     strides = (ctypes.c_longlong * 24)(
         *(s for t in (q, k, v, out, dout, dq, dk, dv) for s in t.stride()[:3]))
     err = launcher(SOURCES[1], _BWD_ARGTYPES)(
@@ -116,6 +121,18 @@ def flash_attention_bwd(
 
 
 flash_attention_bwd.launches = 0
+
+
+def _staged(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as K3-bwd stages it with cp.async: itself if ``_cp_async_view``,
+    else (an fp32 view; ``_check_view`` refused such bf16 ones) a dense copy."""
+    return t if _cp_async_view(t) else t.clone(memory_format=torch.contiguous_format)
+
+
+def _cp_async_view(t: torch.Tensor) -> bool:
+    """Whether cp.async (16 bytes a copy) can read ``t`` in place: batch,
+    head and row strides in whole 16-byte units from a 16-byte aligned base."""
+    return t.data_ptr() % 16 == 0 and all(s * t.element_size() % 16 == 0 for s in t.stride()[:3])
 
 
 def _check_call(q, k, v, causal: bool):
@@ -140,8 +157,9 @@ def _check_call(q, k, v, causal: bool):
 
 def _check_view(name: str, t: torch.Tensor, shape, dtype, device) -> None:
     """Raise unless ``t`` is a view the kernel reads in place: the device,
-    dtype and shape, a contiguous head dim and, for bf16, strides of whole
-    16-byte units from a 16-byte aligned base (cp.async moves 16 bytes)."""
+    dtype and shape, a contiguous head dim and, for bf16, ``_cp_async_view``
+    (fp32 views that are not are copied by ``flash_attention_bwd`` and read
+    as they are by the forward's FMA kernel)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -150,6 +168,6 @@ def _check_view(name: str, t: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if t.stride(3) != 1:
         raise ValueError(f"{name} must have a contiguous head dim, strides {t.stride()}")
-    if dtype == torch.bfloat16 and (any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16):
+    if dtype == torch.bfloat16 and not _cp_async_view(t):
         raise ValueError(f"bf16 {name} needs strides in multiples of 8 elements and a "
                          f"16-byte aligned base, got strides {t.stride()}")

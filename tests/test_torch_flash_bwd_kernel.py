@@ -4,13 +4,17 @@ On the CPU: the plain backward is torch autograd through the plain
 forward, the differentiable entry point routes CPU tensors to it, and the
 backward kernel refuses CPU tensors. On a CUDA card (marker ``gpu``; they
 skip here): K3-bwd against ``ref.attention_ref_bwd`` over every head dim,
-causal, windowed, non-causal, Sk != S, ragged tiles and strided views, and
+causal, windowed, non-causal, Sk != S, ragged tiles and strided views; the
+edges of its tiles (64 resident rows, 64, 32 or 16 streamed rows), several
+batches and heads in one grid, misaligned views and bit-determinism; and
 K3's row log-sum-exp against the plain one. Bars, relative to
 max(1, max|plain|): fp32 2e-5 (the same sums in another order over at
-most a few hundred terms); bf16 2e-2 (both sides round an fp32 value to
-bf16, at most one step of 2^-7 at the largest entry, and D comes from the
-kernel's bf16 output). This module imports no JAX, so that the card's run
-can collect it:
+most a few thousand terms; the kernel's products are split TF32, which
+keeps fp32's accuracy); bf16 2e-2 (both sides round an fp32 value to
+bf16, at most one step of 2^-7 at the largest entry; D comes from the
+kernel's bf16 output, and P and dS are rounded to bf16 as mma operands,
+at most 2^-9 relative each, as K3's forward rounds P). This module imports
+no JAX, so that the card's run can collect it:
 
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_flash_bwd_kernel.py
 """
@@ -186,3 +190,89 @@ def test_backward_kernel_refuses_what_it_does_not_take(cuda):
         flash_kernel.flash_attention_bwd(q2, k2, v2, q2, g2, lse)
     with pytest.raises(ValueError, match="Sk >= S"):
         flash_kernel.flash_attention_bwd(q, k[:, :, :32], v[:, :, :32], out, g, lse)
+
+
+# the tiles' edges: S and Sk one short of and one past a multiple of the
+# resident block (64) and of the streamed tiles (64, 32, 16), and windows
+# that end inside a block
+EDGE_CASES = (  # (S, Sk, causal, window)
+    (63, 63, True, 0),
+    (65, 65, True, 0),
+    (127, 129, True, 0),
+    (129, 127, False, 0),
+    (97, 161, False, 0),
+    (31, 33, False, 0),
+    (17, 15, False, 0),
+    (150, 150, True, 40),
+    (200, 200, True, 33),
+    (129, 129, False, 40),
+)
+EDGE_DIMS = ([("fp32", torch.float32, hd) for hd in (64, 128, 144, 256)]
+             + [("bf16", torch.bfloat16, hd) for hd in (64, 128, 256)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,dtype,HD", EDGE_DIMS, ids=[f"{n}-{h}" for n, _, h in EDGE_DIMS])
+@pytest.mark.parametrize("S,Sk,causal,window", EDGE_CASES,
+                         ids=[f"{s}x{k}-{'c' if c else 'n'}{w}" for s, k, c, w in EDGE_CASES])
+def test_backward_matches_plain_at_tile_edges(cuda, name, dtype, HD, S, Sk, causal, window):
+    _check_bwd(*_tensors(8, 1, 2, S, HD, dtype, cuda, Sk=Sk), causal, window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("HD", [64, 256])
+@pytest.mark.parametrize("S,Sk,causal,window", [(130, 130, True, 0), (150, 150, True, 48),
+                                                (37, 300, False, 0)])
+def test_backward_matches_plain_over_batches_and_heads(cuda, dtype, HD, S, Sk, causal, window):
+    """B = 3 and H = 5: one grid of (heads, dK/dV and dQ blocks, batches)."""
+    _check_bwd(*_tensors(9, 3, 5, S, HD, dtype, cuda, Sk=Sk), causal, window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("HD", [64, 128, 256])
+def test_backward_is_bit_deterministic(cuda, dtype, HD):
+    """No atomics: two calls give the same bits."""
+    for S, Sk, causal, window in ((200, 200, True, 0), (200, 200, True, 48), (70, 150, False, 0)):
+        q, k, v, g = _tensors(10, 2, 3, S, HD, dtype, cuda, Sk=Sk)
+        out, lse = flash_kernel.flash_attention(q, k, v, causal, window, return_lse=True)
+        first = flash_kernel.flash_attention_bwd(q, k, v, out, g, lse, causal, window)
+        second = flash_kernel.flash_attention_bwd(q, k, v, out, g, lse, causal, window)
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+def _shifted(t, elements):
+    """A copy of ``t`` whose base sits ``elements`` past an aligned one."""
+    buf = torch.empty(t.numel() + elements, dtype=t.dtype, device=t.device)
+    view = buf[elements:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.gpu
+def test_backward_copies_misaligned_fp32_views(cuda):
+    """An fp32 input 4 bytes off a 16-byte boundary, or with a row stride
+    that is not whole 16-byte units, is copied before the kernel stages
+    it: the gradients are the plain ones, in the inputs' layout."""
+    q, k, v, g = _tensors(11, 1, 2, 100, 64, torch.float32, cuda)
+    _check_bwd(_shifted(q, 1), k, v, _shifted(g, 3), True, 0)
+    wide = torch.zeros(1, 2, 100, 66, device=cuda)  # row stride 66 floats: 264 bytes
+    wide[..., :64] = k
+    k_view = wide[..., :64]  # not dense, so dk comes back dense
+    out, lse = flash_kernel.flash_attention(q, k_view, v, True, 0, return_lse=True)
+    got = flash_kernel.flash_attention_bwd(q, k_view, v, out, g, lse, True, 0)
+    torch.cuda.synchronize()
+    want = ref.attention_ref_bwd(q, k, v, g, True, 0)
+    for a, w in zip(got, want):
+        assert _err(a, w) <= TOL[torch.float32]
+
+
+@pytest.mark.gpu
+def test_backward_refuses_misaligned_bf16_views(cuda):
+    q, k, v, g = _tensors(12, 1, 2, 64, 64, torch.bfloat16, cuda)
+    out, lse = flash_kernel.flash_attention(q, k, v, True, 0, return_lse=True)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_kernel.flash_attention_bwd(_shifted(q, 4), k, v, out, g, lse)
