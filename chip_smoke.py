@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Phases, each printing its own lines:
-  1. build  — compile the five kernel sources (SDCA round and block, flash
-              attention forward and backward, SSD chunk) from
+  1. build  — compile the six kernel sources (SDCA round and block, flash
+              attention forward and backward, SSD chunk forward and
+              backward) from
               src/repro_torch/kernels/*/csrc with nvcc for sm_90a (one nvcc
               per source, started together);
   2. kernels against their plain PyTorch versions on the card, at their
@@ -36,7 +37,12 @@ Phases, each printing its own lines:
               512, 128) bf16, whisper-tiny's encoder (1, 6, 1500, 64) and
               cross-attention (1, 6, 448, 64) x 1500 keys in fp32, each
               called twice (the two results bit-equal) and timed beside
-              the backward of scaled_dot_product_attention;
+              the backward of scaled_dot_product_attention; the SSD chunk
+              backward (K4-bwd) against the plain backward at mamba2-780m's
+              training layout (2 x 1024 tokens, 48 heads, N = 128) in bf16
+              views and fp32, zamba2-2.7b's (80 heads, N = 64), a ragged
+              L = 1000, Q = 17, 4 groups of 8 heads and a chunk whose decay
+              overflows exp, each called twice (bit-equal) and timed;
   3. main path — DMTRLEstimator(solver="pallas_round") fits the paper's
               MNIST-width problem (mnist_like, scale 1.0) on the card, then
               scores and predicts; the fused round kernel must carry every
@@ -52,6 +58,10 @@ Phases, each printing its own lines:
               times, decode ticks neither;
   5b. consistency — the same model in fp32: prefill of 256 tokens plus 3
               decode steps against prefills of 257, 258 and 259 tokens;
+  5c. streaming — phase 5's engine behind ContinuousBatchingScheduler: 8
+              requests arriving over the run, at temperature 0.8 (seed 0)
+              twice (the same tokens) and at temperature 0 (the tokens of
+              engine.run); time to first token, ticks, tokens/s;
   6. MTL serving — (a) phase 3's estimator behind scoring_engine(batch=256)
               (warmup() captures the score tile as a CUDA graph) scores the
               20 000 test rows against decision_function, then the same
@@ -109,9 +119,14 @@ Phases, each printing its own lines:
               tokens/s, device-busy share and peak memory; (b) one gradient
               and AdamW step on the card against the CPU in fp32: gemma3-1b
               at 6 layers, whisper-tiny whole and qwen3-moe reduced (the
-              MoE's custom-VJP gathers); (c) the launcher on whisper-tiny
-              (python -m repro_torch.launch.train --steps 3 --ckpt-dir ...),
-              its checkpoint reloaded bit for bit.
+              MoE's custom-VJP gathers), mamba2-780m reduced with chunks of
+              64 (its last head's decay overflows exp) and zamba2-2.7b
+              reduced (K3, K3-bwd, K4 and K4-bwd in one step); (c) the
+              launcher on whisper-tiny (python -m repro_torch.launch.train
+              --steps 3 --ckpt-dir ...), its checkpoint reloaded bit for
+              bit; (d) mamba2-780m at full width and depth (48 layers, bf16,
+              remat) trains 10 steps as (a) does: the loss is finite and
+              falls, K4 runs 96 and K4-bwd 48 times a step.
 
 It exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository. The line before the last is a JSON object with
@@ -283,6 +298,29 @@ TOL_FEATURES = 5e-3
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 10
 CHECK_BATCH, CHECK_SEQ, CHECK_LR = 2, 64, 5e-5
 TOL_TRAIN_LOSS, TOL_TRAIN_GRAD, TOL_TRAIN_PARAM = 1e-4, 2e-4, 2e-4
+# K4-bwd (phase 2) at the training layouts: mamba2-780m's (2 x 1024 tokens,
+# 48 heads, P = 64, N = 128, one group) with x, B and C as bf16 views of the
+# conv output and in fp32, zamba2-2.7b's (80 heads, N = 64), a ragged last
+# chunk (L = 1000), a 17-step chunk, 4 groups of 8 heads, and the chunk whose
+# decay passes exp's range (dt = 0.1, A down to -16: RC5). Bars relative to
+# max(1, max|plain|), as K3-bwd's: outputs in fp32 2e-5 (the same sums in
+# another order, the products in split TF32), outputs rounded to bf16 2e-2
+# (one bf16 step where the two fp32 values straddle a rounding boundary)
+SSD_BWD_SHAPES = (  # (label, B, L, H, G, P, N, chunk, bf16, overflow)
+    ("mamba2-780m bf16", 2, 1024, MAMBA_H, 1, MAMBA_P, MAMBA_N, 64, True, False),
+    ("mamba2-780m fp32", 2, 1024, MAMBA_H, 1, MAMBA_P, MAMBA_N, 64, False, False),
+    ("zamba2-2.7b bf16", 2, 1024, SSD_H, 1, SSD_P, SSD_N, 64, True, False),
+    ("ragged L=1000 bf16", 1, 1000, MAMBA_H, 1, MAMBA_P, MAMBA_N, 64, True, False),
+    ("Q=17 fp32", 1, 100, 8, 1, 64, 64, 17, False, False),
+    ("G=4 of H=8 fp32", 2, 256, 8, 4, 64, 64, 64, False, False),
+    ("overflow fp32", 1, 256, MAMBA_H, 1, MAMBA_P, MAMBA_N, 64, False, True),
+)
+TOL_SSD_BWD_F32, TOL_SSD_BWD_BF16 = 2e-5, 2e-2
+# phase 5c: phase 5's zamba2 engine behind the streaming scheduler, 8
+# requests of 16 tokens arriving two at first and then one every second
+# decode step; at temperature 0.8 (seed 0) twice and at temperature 0
+STREAM_LENS = (512, 300, 129, 64, 200, 17, 90, 256)
+STREAM_TEMPERATURE = 0.8
 
 
 def fail(msg: str) -> None:
@@ -629,6 +667,88 @@ def flash_bwd_checks(torch, dev, card: str) -> dict:
                 library_ms=head["library_ms"], shapes=shapes)
 
 
+def ssd_bwd_checks(torch, dev, card: str) -> dict:
+    """Phase 2 for K4-bwd: the backward kernel against the plain backward
+    (ref.chunk_bwd_ref) on the same card tensors at SSD_BWD_SHAPES, called
+    twice (the two results bit-equal), timed beside the plain version, with
+    the bound of the work the function needs."""
+    from repro_torch.kernels.ssd import ref as ssd_ref
+    from repro_torch.kernels.ssd import ssd_kernel
+
+    names = ("dx", "ddt", "dA", "dB", "dC")
+    shapes, err_all = [], 0.0
+    for label, B_, L, H_, G_, P_, N_, chunk, bf16, overflow in SSD_BWD_SHAPES:
+        rs = np.random.RandomState(L + H_ + N_)
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        xbc = np.concatenate([rs.randn(B_, L, H_ * P_), 0.3 * rs.randn(B_, L, 2 * G_ * N_)], -1)
+        xbc = torch.from_numpy(xbc.astype(np.float32)).to(device=dev, dtype=dtype)
+        x = xbc[..., : H_ * P_].reshape(B_, L, H_, P_)
+        Bm = xbc[..., H_ * P_: H_ * P_ + G_ * N_].reshape(B_, L, G_, N_)
+        Cm = xbc[..., H_ * P_ + G_ * N_:].reshape(B_, L, G_, N_)
+        A = -torch.linspace(1.0, 16.0, H_, device=dev)
+        dt0 = np.exp(np.linspace(np.log(1e-3), np.log(1e-1), H_))
+        dtv = np.logaddexp(0.0, rs.randn(B_, L, H_) + dt0 + np.log(-np.expm1(-dt0)))
+        if overflow:
+            dtv = np.full_like(dtv, 0.1)
+        dt = torch.from_numpy(dtv.astype(np.float32)).to(dev)
+        Q = min(chunk, L)
+        nc = -(-L // Q)
+        dY, dS, da = (torch.from_numpy(rs.randn(*s).astype(np.float32)).to(dev)
+                      for s in ((B_, L, H_, P_), (B_, nc, H_, N_, P_), (B_, nc, H_)))
+        args = (x, dt, A, Bm, Cm, dY, dS, da)
+        got = ssd_kernel.ssd_chunk_bwd_kernel(*args, chunk=chunk)
+        again = ssd_kernel.ssd_chunk_bwd_kernel(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"ssd_chunk_bwd {label}: two calls gave different bits")
+        want = ssd_ref.chunk_bwd_ref(*args, chunk)
+        if overflow:
+            decay = float(-(dt[0, :Q, -1] * A[-1]).sum())
+            check(decay > 88.7, f"ssd_chunk_bwd {label}: the decay {decay:.1f} does not overflow")
+            check(all(bool(torch.isfinite(w).all()) for w in want),
+                  f"ssd_chunk_bwd {label}: the plain backward is not finite")
+        err, rel, parts = 0.0, 0.0, []
+        for name, a, b in zip(names, got, want):
+            check(bool(torch.isfinite(a).all()), f"ssd_chunk_bwd {label}: non-finite {name}")
+            e = (a.float() - b.float()).abs().max().item()
+            r = e / max(1.0, b.float().abs().max().item())
+            tol = TOL_SSD_BWD_BF16 if a.dtype == torch.bfloat16 else TOL_SSD_BWD_F32
+            check(r <= tol, f"ssd_chunk_bwd {label} {name} disagrees with its plain version: "
+                  f"{r:.3e} relative (tolerance {tol:.0e})")
+            parts.append(f"{name} {r:.2e}")
+            err, rel = max(err, e), max(rel, r)
+        err_all = max(err_all, err)
+        ms = cuda_ms(torch, lambda: ssd_kernel.ssd_chunk_bwd_kernel(*args, chunk=chunk), reps=20)
+        plain = cuda_ms(torch, lambda: ssd_ref.chunk_bwd_ref(*args, chunk), reps=3)
+        # the products the function needs: C B^T and the (dG o M) terms of
+        # dC and dB once per group (B and C are a group's), dY u^T and G^T dY
+        # per head over the causal triangle, u dS^T and B dS per head over
+        # the chunk; three TF32 passes. Bytes: x, dt, B, C, dY, dS and da
+        # read once, dx, d(dt), dA, dB and dC written once
+        tri = Q * (Q + 1) / 2
+        flops = B_ * nc * (G_ * 3 * 2.0 * tri * N_ + H_ * (2 * 2.0 * tri * P_ + 2 * 2.0 * Q * N_ * P_))
+        es = x.element_size()
+        nbytes = (2 * B_ * L * H_ * P_ * es + 4 * B_ * L * G_ * N_ * es + 2 * B_ * L * H_ * 4
+                  + 2 * H_ * 4 + B_ * L * H_ * P_ * 4 + dS.numel() * 4 + da.numel() * 4)
+        b, by = bound_ms(nbytes, 3 * flops, PEAK_TF32_FLOPS)
+        print(f"[2 ssd_chunk_bwd {label}] (B={B_}, L={L}, H={H_}, G={G_}, P={P_}, N={N_}, "
+              f"Q={Q}): relative max|d - plain| {', '.join(parts)} (tolerance "
+              f"{TOL_SSD_BWD_F32:.0e} fp32, {TOL_SSD_BWD_BF16:.0e} bf16), two calls bit-equal"
+              f"{', finite where exp overflows' if overflow else ''}; {ms:.4f} ms/call (plain "
+              f"{plain:.3f} ms), bound {b:.5f} ms by {by} ({flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB) on {card}")
+        shapes.append(dict(label=label, shape=[B_, L, H_, P_], G=G_, N=N_, Q=Q,
+                           dtype="bf16" if bf16 else "fp32", max_abs_err=err, max_rel_err=rel,
+                           bit_equal=True, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                           library_ms=None))
+        del xbc, x, Bm, Cm, dt, dY, dS, da, args, got, again, want
+    torch.cuda.empty_cache()
+    head = shapes[0]  # mamba2-780m bf16: the phase-10d step's shape
+    return dict(max_abs_err=err_all, ms=head["ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=None,
+                shapes=shapes)
+
+
 @contextlib.contextmanager
 def moe_drop_fracs():
     """Record the drop_frac of every MoE layer a prefill runs (S > 1), as
@@ -858,6 +978,89 @@ def serve_main_path(torch, dev, card: str):
     return serve_lm(torch, dev, card, cfg, "5", per_prefill) + (cfg,)
 
 
+def serve_streaming(torch, dev, card: str, cfg) -> dict:
+    """Phase 5c: phase 5's engine (``cfg`` at full width, random bf16
+    weights from seed 0, batch 4, max_len 1024) behind the streaming
+    ContinuousBatchingScheduler: STREAM_LENS requests of NEW_TOKENS tokens,
+    two queued at first and one more before every second step, at
+    temperature 0.8 (seed 0) twice and at temperature 0. Checks: every
+    request completes with its budget, every id in the vocabulary, the two
+    sampled runs give the same tokens, and the greedy run's tokens equal
+    ``engine.run``'s on the same prompts. Returns the kernels' launches of
+    the first run."""
+    from repro_torch.models import init_params
+    from repro_torch.serve import (
+        ContinuousBatchingScheduler, Request, ServeConfig, ServingEngine,
+    )
+
+    params = init_params(cfg, seed=0, device=dev)
+    rs = np.random.RandomState(7)
+    prompts = [rs.randint(2, cfg.vocab_size, size=n).astype(np.int32) for n in STREAM_LENS]
+    kernels = lm_kernels()
+
+    def engine(temperature):
+        return ServingEngine(cfg, params, ServeConfig(
+            batch=SERVE_BATCH, max_len=SERVE_MAX_LEN, temperature=temperature, seed=0,
+            eos_id=-1), device=dev)
+
+    def stream(temperature):
+        eng = engine(temperature)
+        sched = ContinuousBatchingScheduler(eng, policy="fifo")
+        reqs = [Request(prompt=p, max_new_tokens=NEW_TOKENS) for p in prompts]
+        arriving = list(reqs)
+        for r in arriving[:2]:
+            sched.submit(r)
+        arriving = arriving[2:]
+        for k in kernels.values():
+            k.launches = 0
+        steps, peak = 0, 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while arriving or sched.pending or sched.in_flight:
+            if arriving and steps % 2 == 0:
+                sched.submit(arriving.pop(0))
+            sched.step()
+            steps += 1
+            peak = max(peak, eng.active)
+            check(steps < 20 * NEW_TOKENS * len(reqs), "the streaming scheduler does not finish")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in kernels.items()}
+        ttft = np.array([r.ttft_s for r in reqs]) * 1e3
+        m = sched.metrics
+        print(f"[5c stream T={temperature}] {len(reqs)} requests x {NEW_TOKENS} tokens "
+              f"(prompts {list(STREAM_LENS)}), batch {SERVE_BATCH}: {wall:.2f} s wall, "
+              f"{steps} scheduler steps, {m.decode_steps} decode ticks, "
+              f"{len(reqs) * NEW_TOKENS / wall:.1f} tokens/s, time to first token p50 "
+              f"{np.median(ttft):.1f} ms (max {ttft.max():.1f}), peak {peak} of {SERVE_BATCH} "
+              f"slots occupied (occupancy {m.slot_occupancy():.2f}); launches "
+              + ", ".join(f"{k} {v}" for k, v in launches.items() if v) + f" on {card}")
+        for r in reqs:
+            check(r.status == "done" and len(r.output) == NEW_TOKENS,
+                  f"a streamed request ended {r.status} with {len(r.output)} tokens")
+            check(all(0 <= t < cfg.vocab_size for t in r.output),
+                  f"a streamed token outside [0, {cfg.vocab_size}): {r.output}")
+        return [r.output for r in reqs], launches
+
+    hot, launches = stream(STREAM_TEMPERATURE)
+    again, _ = stream(STREAM_TEMPERATURE)
+    check(again == hot, "two sampled runs with the same seed gave different tokens")
+    greedy, _ = stream(0.0)
+    check(greedy != hot, "the sampled tokens are the greedy ones")
+    blocking = []
+    for i in range(0, len(prompts), SERVE_BATCH):
+        reqs = [Request(prompt=p, max_new_tokens=NEW_TOKENS) for p in prompts[i:i + SERVE_BATCH]]
+        engine(0.0).run(reqs)
+        blocking += [r.output for r in reqs]
+    check(greedy == blocking, "the greedy streamed tokens differ from engine.run's")
+    print(f"[5c stream] T={STREAM_TEMPERATURE}: a second run gave the same tokens; T=0: the "
+          f"streamed tokens equal engine.run's; first request sampled {hot[0][:8]}..., greedy "
+          f"{greedy[0][:8]}...")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def bucketed_prefill(torch, dev, cfg, tag: str, tol: float = TOL_CONSIST) -> float:
     """In fp32, a right-padded power-of-two bucket (``true_len``) gives the
     last logits of an exact-length prefill of the same prompt, within
@@ -1065,65 +1268,94 @@ def lm_zoo(torch, dev, card: str) -> dict:
     return launches
 
 
-def train_main_path(torch, dev, card: str) -> dict:
-    """Phase 10a: gemma3-1b at full width and depth trains TRAIN_STEPS steps
-    through ``train.train`` (bf16, remat, random init from seed 0) on one
-    repeated batch. Checks finite losses and grad norms, a loss that falls
-    by at least 0.5 nat, and exactly 2 K3 and 1 K3-bwd launches per layer
-    and step. Prints the step's host time, tokens/s, peak memory and, from
-    one more profiled step, the device-busy share and K3 / K3-bwd's part of
-    it. Returns the launches of the 10 steps."""
+def attention_and_ssm_layers(cfg) -> tuple:
+    """(attention calls, Mamba2 layers) of one forward pass of ``cfg``: a
+    hybrid's shared block runs once per period, an encoder-decoder attends
+    in its encoder, its decoder and across."""
+    if cfg.arch_type == "ssm":
+        return 0, cfg.n_layers
+    if cfg.arch_type == "hybrid":
+        return cfg.n_layers // cfg.hybrid_attn_every, cfg.n_layers
+    if cfg.is_encoder_decoder:
+        return cfg.n_enc_layers + 2 * cfg.n_layers, 0
+    return cfg.n_layers, 0
+
+
+def lm_kernels():
+    """The LM kernels' wrappers by name, whose ``launches`` the paths count."""
+    from repro_torch.kernels.flash import flash_kernel
+    from repro_torch.kernels.ssd import ssd_kernel
+
+    return {"K3": flash_kernel.flash_attention, "K3-bwd": flash_kernel.flash_attention_bwd,
+            "K4": ssd_kernel.ssd_chunk_kernel, "K4-bwd": ssd_kernel.ssd_chunk_bwd_kernel}
+
+
+def train_main_path(torch, dev, card: str, arch: str, tag: str, min_drop: float) -> dict:
+    """Phases 10a and 10d: ``arch`` at full width and depth trains
+    TRAIN_STEPS steps through ``train.train`` (bf16, remat, random init
+    from seed 0) on one repeated batch. Checks finite losses and grad
+    norms, a loss that falls by more than ``min_drop`` nat, and per layer
+    and step 2 K3 and 1 K3-bwd launches for each attention, 2 K4 and 1
+    K4-bwd for each Mamba2 layer. Prints the step's host time, tokens/s,
+    peak memory and, from one more profiled step, the device-busy share and
+    each kernel's part of it. Returns the launches of the 10 steps."""
     import dataclasses
 
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import SyntheticTokenPipeline, TokenPipelineConfig
-    from repro_torch.kernels.flash import flash_kernel
     from repro_torch.train import AdamW, TrainLogger, make_train_step, train
 
-    cfg = dataclasses.replace(get_config("gemma3-1b"), remat=True)
+    cfg = dataclasses.replace(get_config(arch), remat=True)
     opt = AdamW(lr=1e-3, warmup_steps=2)
     batch = SyntheticTokenPipeline(TokenPipelineConfig(
         cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)).batch(0)
+    n_attn, n_ssm = attention_and_ssm_layers(cfg)
+    per_step = {"K3": 2 * n_attn, "K3-bwd": n_attn, "K4": 2 * n_ssm, "K4-bwd": n_ssm}
 
     def repeated():
         while True:
             yield batch
 
-    print(f"[10a gemma3-1b train] {cfg.n_layers} layers ({cfg.layer_kinds().count('local')} "
-          f"local, window {cfg.window}), d_model {cfg.d_model}, head dim {cfg.head_dim}, vocab "
+    shape = (f"{cfg.layer_kinds().count('local')} local, window {cfg.window}, head dim "
+             f"{cfg.head_dim}" if n_attn else
+             f"{cfg.ssm_heads} heads of {cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+             f"{cfg.ssm_chunk}")
+    print(f"[{tag} {arch} train] {cfg.n_layers} layers ({shape}), d_model {cfg.d_model}, vocab "
           f"{cfg.vocab_size}, {cfg.dtype}, remat {cfg.remat}; batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
           f"AdamW(lr={opt.lr}, warmup_steps={opt.warmup_steps})")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    flash_kernel.flash_attention.launches = 0
-    flash_kernel.flash_attention_bwd.launches = 0
+    kernels = lm_kernels()
+    for k in kernels.values():
+        k.launches = 0
     t0 = time.perf_counter()
     params, state, hist = train(cfg, opt, repeated(), TRAIN_STEPS, seed=0,
                                 logger=TrainLogger(every=1), device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    fwd, bwd = flash_kernel.flash_attention.launches, flash_kernel.flash_attention_bwd.launches
+    launches = {name: k.launches for name, k in kernels.items()}
     peak = torch.cuda.max_memory_allocated() / 1e9
     losses = [h["loss"] for h in hist]
     gnorms = [h["grad_norm"] for h in hist]
     step_s = np.diff([h["elapsed_s"] for h in hist])[1:]  # steps 2 .. 9: warm
     step_ms = float(np.median(step_s)) * 1e3
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    print(f"[10a gemma3-1b train] loss per step {np.array2string(np.array(losses), precision=4)}; "
-          f"grad norm {np.array2string(np.array(gnorms), precision=3)}")
-    print(f"[10a gemma3-1b train] {TRAIN_STEPS} steps in {wall:.2f} s (init and the first "
+    print(f"[{tag} {arch} train] loss per step "
+          f"{np.array2string(np.array(losses), precision=4)}; grad norm "
+          f"{np.array2string(np.array(gnorms), precision=3)}")
+    print(f"[{tag} {arch} train] {TRAIN_STEPS} steps in {wall:.2f} s (init and the first "
           f"step included); warm step host {step_ms:.1f} ms median ({step_s.min() * 1e3:.1f}-"
-          f"{step_s.max() * 1e3:.1f}), {tokens / (step_ms / 1e3):.0f} tokens/s; K3 launches "
-          f"{fwd}, K3-bwd {bwd}; peak {peak:.2f} GB on {card}")
+          f"{step_s.max() * 1e3:.1f}), {tokens / (step_ms / 1e3):.0f} tokens/s; launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items())
+          + f"; peak {peak:.2f} GB on {card}")
     check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)), "non-finite loss or grad norm")
-    check(losses[-1] <= losses[0] - 0.5,
-          f"the loss fell from {losses[0]:.4f} to {losses[-1]:.4f}, less than 0.5 nat")
-    check(fwd == 2 * cfg.n_layers * TRAIN_STEPS,
-          f"K3 launched {fwd} times, expected {2 * cfg.n_layers} a step")
-    check(bwd == cfg.n_layers * TRAIN_STEPS,
-          f"K3-bwd launched {bwd} times, expected {cfg.n_layers} a step")
+    check(losses[-1] < losses[0] - min_drop,
+          f"the loss fell from {losses[0]:.4f} to {losses[-1]:.4f}, not more than {min_drop} nat")
+    for name, n in per_step.items():
+        check(launches[name] == n * TRAIN_STEPS,
+              f"{name} launched {launches[name]} times, expected {n} a step")
 
     # one more step under the profiler: where its device time goes
     step = make_train_step(cfg, opt)
@@ -1138,18 +1370,21 @@ def train_main_path(torch, dev, card: str) -> dict:
         prof_ms = (time.perf_counter() - t0) * 1e3
     events = device_events(prof)
     busy = sum(e.self_device_time_total for e in events) / 1e3
-    k3 = sum(e.self_device_time_total for e in events if "flash_fwd" in e.key) / 1e3
-    k3b = sum(e.self_device_time_total for e in events if "flash_bwd" in e.key) / 1e3
     check(busy > 0, "the profiled training step recorded no device time")
-    print(f"[10a profile] one step {prof_ms:.1f} ms wall (profiler on), device busy "
-          f"{busy:.1f} ms = {busy / prof_ms:.1%}; K3 {k3:.2f} ms ({k3 / busy:.1%} of device), "
-          f"K3-bwd {k3b:.2f} ms ({k3b / busy:.1%}) on {card}")
-    for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
-        print(f"[10a profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
+    parts = []
+    for name, key in (("K3", "flash_fwd"), ("K3-bwd", "flash_bwd"), ("K4", "ssd_chunk_kernel"),
+                      ("K4-bwd", "ssd_chunk_bwd_kernel"), ("K4-bwd sum", "ssd_bwd_reduce")):
+        dms = sum(e.self_device_time_total for e in events if key in e.key) / 1e3
+        if per_step[name.split()[0]]:
+            parts.append(f"{name} {dms:.2f} ms ({dms / busy:.1%})")
+    print(f"[{tag} profile] one step {prof_ms:.1f} ms wall (profiler on), device busy "
+          f"{busy:.1f} ms = {busy / prof_ms:.1%}; " + ", ".join(parts) + f" on {card}")
+    for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]:
+        print(f"[{tag} profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
               f"{e.key[:90]}")
     del params, state, step, tb
     torch.cuda.empty_cache()
-    return {"fwd": fwd, "bwd": bwd}
+    return launches
 
 
 def train_card_against_cpu(torch, dev, card: str) -> dict:
@@ -1162,7 +1397,6 @@ def train_card_against_cpu(torch, dev, card: str) -> dict:
     from repro_torch.data.tokens import (
         SyntheticTokenPipeline, TokenPipelineConfig, embedding_side_inputs,
     )
-    from repro_torch.kernels.flash import flash_kernel
     from repro_torch.models import init_params, loss_fn
     from repro_torch.train import AdamW
     from repro_torch.train.optimizer import tree_leaves, tree_map
@@ -1172,7 +1406,13 @@ def train_card_against_cpu(torch, dev, card: str) -> dict:
                                                    n_layers=6)),
         ("whisper-tiny", dataclasses.replace(get_config("whisper-tiny"), dtype="float32")),
         ("qwen3-moe-30b-a3b reduced", get_config("qwen3-moe-30b-a3b").reduced()),
+        # chunks of 64 over the 64 tokens: the last head (A = -16, dt0 = 0.1)
+        # decays past exp's range within the chunk (RC5)
+        ("mamba2-780m reduced, chunk 64", dataclasses.replace(
+            get_config("mamba2-780m").reduced(), ssm_chunk=64)),
+        ("zamba2-2.7b reduced", get_config("zamba2-2.7b").reduced()),
     )
+    kernels = lm_kernels()
     launches = {}
     for label, cfg in configs:
         tag = f"10b {label}"
@@ -1187,8 +1427,8 @@ def train_card_against_cpu(torch, dev, card: str) -> dict:
             # a copy on either side: the update below works in place
             live = tree_map(lambda t: t.detach().to(where, copy=True).requires_grad_(True),
                             params)
-            flash_kernel.flash_attention.launches = 0
-            flash_kernel.flash_attention_bwd.launches = 0
+            for k in kernels.values():
+                k.launches = 0
             t0 = time.perf_counter()
             loss, parts = loss_fn(cfg, live, {k: torch.from_numpy(v).to(where)
                                               for k, v in b.items()})
@@ -1198,8 +1438,7 @@ def train_card_against_cpu(torch, dev, card: str) -> dict:
             new, _, met = opt.update(grads, opt.init(live), tree_map(lambda t: t.detach(), live))
             float(met["grad_norm"])
             secs = time.perf_counter() - t0
-            counts = (flash_kernel.flash_attention.launches,
-                      flash_kernel.flash_attention_bwd.launches)
+            counts = {name: k.launches for name, k in kernels.items()}
             out[str(where)] = (loss.item(), [g.cpu() for g in tree_leaves(grads)],
                                [p.cpu() for p in tree_leaves(new)], float(met["grad_norm"]),
                                secs, counts)
@@ -1208,21 +1447,24 @@ def train_card_against_cpu(torch, dev, card: str) -> dict:
         d_grad = max((a - b_).abs().max().item() for a, b_ in zip(cpu[1], gpu[1]))
         g_max = max(a.abs().max().item() for a in cpu[1])
         d_par = max((a - b_).abs().max().item() for a, b_ in zip(cpu[2], gpu[2]))
-        launches[tag] = {"fwd": gpu[5][0], "bwd": gpu[5][1]}
+        finite = all(bool(torch.isfinite(g).all()) for side in (cpu, gpu) for g in side[1])
+        launches[tag] = gpu[5]
         print(f"[{tag}] loss card {gpu[0]:.6f} cpu {cpu[0]:.6f} (|d| {d_loss:.2e}, tolerance "
               f"{TOL_TRAIN_LOSS:.0e}); max|d grad| {d_grad:.2e} over {len(cpu[1])} leaves (max|grad| "
               f"{g_max:.3f}; tolerance {TOL_TRAIN_GRAD:.0e}); max|d param| after one step "
               f"{d_par:.2e} (tolerance {TOL_TRAIN_PARAM:.0e}); grad norm {gpu[3]:.4f}; "
-              f"card {gpu[4]:.2f} s, cpu {cpu[4]:.2f} s; K3 {gpu[5][0]}, K3-bwd {gpu[5][1]} "
-              f"on {card}")
+              f"card {gpu[4]:.2f} s, cpu {cpu[4]:.2f} s; every gradient finite on both: "
+              f"{finite}; launches " + ", ".join(f"{k} {v}" for k, v in gpu[5].items())
+              + f" on {card}")
+        check(finite, f"{tag}: a gradient is not finite")
         check(np.isfinite(gpu[0]) and d_loss <= TOL_TRAIN_LOSS, f"{tag}: loss disagrees")
         check(d_grad <= TOL_TRAIN_GRAD, f"{tag}: gradients disagree ({d_grad:.3e})")
         check(d_par <= TOL_TRAIN_PARAM, f"{tag}: updated params disagree ({d_par:.3e})")
-        n_attn = cfg.n_layers + (cfg.n_enc_layers + cfg.n_layers if cfg.is_encoder_decoder
-                                 else 0)
-        check(gpu[5] == ((2 if cfg.remat else 1) * n_attn, n_attn),
-              f"{tag}: K3 / K3-bwd launched {gpu[5]}, expected {n_attn} attentions")
-        check(cpu[5] == (0, 0), f"{tag}: the CPU run launched a kernel")
+        n_attn, n_ssm = attention_and_ssm_layers(cfg)
+        fwd = 2 if cfg.remat else 1
+        want = {"K3": fwd * n_attn, "K3-bwd": n_attn, "K4": fwd * n_ssm, "K4-bwd": n_ssm}
+        check(gpu[5] == want, f"{tag}: launched {gpu[5]}, expected {want}")
+        check(not any(cpu[5].values()), f"{tag}: the CPU run launched a kernel")
     torch.cuda.empty_cache()
     return launches
 
@@ -1233,15 +1475,15 @@ def train_launcher(torch, dev, card: str) -> dict:
     checkpoint reloads bit for bit. Returns the launches."""
     import shutil
 
-    from repro_torch.kernels.flash import flash_kernel
     from repro_torch.launch import train as launcher
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train.optimizer import tree_leaves, tree_map
 
     ck = ROOT / "build" / "phase10_ckpt"
     shutil.rmtree(ck, ignore_errors=True)
-    flash_kernel.flash_attention.launches = 0
-    flash_kernel.flash_attention_bwd.launches = 0
+    kernels = lm_kernels()
+    for k in kernels.values():
+        k.launches = 0
     t0 = time.perf_counter()
     argv = ["--arch", "whisper-tiny", "--steps", "3", "--batch", "2", "--seq", "64",
             "--log-every", "1", "--ckpt-dir", str(ck), "--ckpt-every", "3",
@@ -1249,19 +1491,19 @@ def train_launcher(torch, dev, card: str) -> dict:
     params, _, hist = launcher.main(argv)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    fwd, bwd = flash_kernel.flash_attention.launches, flash_kernel.flash_attention_bwd.launches
+    launches = {name: k.launches for name, k in kernels.items()}
     back = ckpt.load(str(ck / "step_3"), tree_map(torch.zeros_like, params))
     same = all(torch.equal(a, b) for a, b in zip(tree_leaves(back), tree_leaves(params)))
     saved = json.loads((ck / "history.json").read_text())
     print(f"[10c launcher] python -m repro_torch.launch.train {' '.join(argv)}: losses "
           f"{[round(h['loss'], 4) for h in hist]}, {secs:.2f} s; checkpoint step "
-          f"{ckpt.latest_step(str(ck / 'step_3'))} reloads bit for bit: {same}; K3 {fwd}, "
-          f"K3-bwd {bwd} on {card}")
+          f"{ckpt.latest_step(str(ck / 'step_3'))} reloads bit for bit: {same}; K3 "
+          f"{launches['K3']}, K3-bwd {launches['K3-bwd']} on {card}")
     check(same, "the launcher's checkpoint did not reload bit for bit")
     check(len(saved) == 3 and all(np.isfinite(h["loss"]) for h in saved),
           "the launcher's history is not 3 finite steps")
     shutil.rmtree(ck, ignore_errors=True)
-    return {"fwd": fwd, "bwd": bwd}
+    return launches
 
 
 def test_rows(test):
@@ -2082,6 +2324,7 @@ def main() -> int:
     del alpha, w, u, r_state
     lm = lm_kernel_checks(torch, dev, card)
     lm["flash_bwd"] = flash_bwd_checks(torch, dev, card)
+    lm["ssd_bwd"] = ssd_bwd_checks(torch, dev, card)
 
     # -- phase 3: the main path at MNIST width -------------------------------
     cfg = dict(solver="pallas_round", loss="hinge", lam=1e-4, outer_iters=2,
@@ -2169,9 +2412,12 @@ def main() -> int:
           f"sdca_block launched {launches_block} times")
     check(round_in_block == 0, "the second path launched sdca_round")
 
-    # -- phase 5: the LM serving path; 5b: its fp32 consistency ----------------
+    # -- phase 5: the LM serving path; 5b: its fp32 consistency; 5c: streaming
     launches_flash, launches_ssd, lm_cfg = serve_main_path(torch, dev, card)
     consistency(torch, dev, lm_cfg, "5b consistency")
+    t5 = time.perf_counter()
+    stream_launches = serve_streaming(torch, dev, card, lm_cfg)
+    print(f"[5c] {time.perf_counter() - t5:.1f} s wall")
 
     # -- phase 6: the MTL serving path; 6c: structured Sigma at 4096 tasks -----
     t6 = time.perf_counter()
@@ -2193,17 +2439,25 @@ def main() -> int:
     t9 = time.perf_counter()
     by_path.update(lm_zoo(torch, dev, card))
     print(f"[9] {time.perf_counter() - t9:.1f} s wall")
-    # -- phase 10: training (the LM families whose layers reach only K3) ----
+    # -- phase 10: training; 10d: mamba2-780m through K4 and K4-bwd ---------
     t10 = time.perf_counter()
-    train_by_path = {"10a gemma3-1b train": train_main_path(torch, dev, card)}
+    train_by_path = {"10a gemma3-1b train": train_main_path(torch, dev, card, "gemma3-1b",
+                                                            "10a", min_drop=0.5)}
     train_by_path.update(train_card_against_cpu(torch, dev, card))
     train_by_path["10c launcher whisper-tiny"] = train_launcher(torch, dev, card)
+    train_by_path["10d mamba2-780m train"] = train_main_path(torch, dev, card, "mamba2-780m",
+                                                             "10d", min_drop=0.0)
     print(f"[10] {time.perf_counter() - t10:.1f} s wall")
+
+    def by_kernel(name):
+        return {k: v[name] for k, v in {"5c zamba2-2.7b stream": stream_launches,
+                                         **train_by_path}.items() if v[name]}
+
     flash_by_path = {"5 zamba2-2.7b": launches_flash, **{
         k: (v["flash"] if isinstance(v, dict) else v[0]) for k, v in by_path.items()},
-        **{k: v["fwd"] for k, v in train_by_path.items()}}
+        **by_kernel("K3")}
     ssd_by_path = {"5 zamba2-2.7b": launches_ssd, **{
-        k: v[1] for k, v in by_path.items() if not isinstance(v, dict)}}
+        k: v[1] for k, v in by_path.items() if not isinstance(v, dict)}, **by_kernel("K4")}
 
     kernels = [
         dict(name="sdca_round", route="cuda",
@@ -2231,9 +2485,14 @@ def main() -> int:
         dict(name="flash_bwd", route="cuda",
              source="src/repro_torch/kernels/flash/csrc/flash_bwd.cu",
              replaces="src/repro/models/attention.py:68",
-             launches=train_by_path["10a gemma3-1b train"]["bwd"],
-             launches_by_path={k: v["bwd"] for k, v in train_by_path.items()},
-             **lm["flash_bwd"]),
+             launches=train_by_path["10a gemma3-1b train"]["K3-bwd"],
+             launches_by_path=by_kernel("K3-bwd"), **lm["flash_bwd"]),
+        # no TPU kernel: the JAX package differentiates its jnp ssd_chunked
+        dict(name="ssd_chunk_bwd", route="cuda",
+             source="src/repro_torch/kernels/ssd/csrc/ssd_chunk_bwd.cu",
+             replaces="src/repro/models/ssm.py:84",
+             launches=train_by_path["10d mamba2-780m train"]["K4-bwd"],
+             launches_by_path=by_kernel("K4-bwd"), **lm["ssd_bwd"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

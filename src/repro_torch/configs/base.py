@@ -208,7 +208,7 @@ ARCH_IDS = (
     "whisper-tiny",
 )
 
-_ALIASES = {
+ARCH_ALIASES = {
     "qwen1.5-32b": "qwen1_5-32b",
     "qwen1.5-4b": "qwen1_5-4b",
     "zamba2-2.7b": "zamba2-2_7b",
@@ -216,7 +216,7 @@ _ALIASES = {
 
 
 def get_config(arch: str) -> ModelConfig:
-    arch = _ALIASES.get(arch, arch).replace("-", "_").replace(".", "_")
+    arch = ARCH_ALIASES.get(arch, arch).replace("-", "_").replace(".", "_")
     mod = importlib.import_module(f".{arch}", __package__)
     return mod.config()
 

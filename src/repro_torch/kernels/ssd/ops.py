@@ -1,12 +1,14 @@
 """Full SSD forward through the chunk kernel, a drop-in equivalent of
 ``models.ssm.ssd_chunked`` that also takes B and C per group.
 
-The chunk-local work runs by the tensors' device: a CPU tensor takes the
-plain version (``ref.chunk_seq_ref``), a CUDA tensor launches the Hopper
-kernel, which reads x, dt, B and C in place, or raises. The inter-chunk
+The chunk-local work is the autograd Function ``SSDChunk`` and runs by the
+tensors' device: a CPU tensor takes the plain versions (``ref.chunk_seq_ref``
+forward, ``ref.chunk_bwd_ref`` backward), a CUDA tensor launches the Hopper
+kernels (K4 forward, K4-bwd backward), which read x, dt, B and C in place,
+or raises. The inter-chunk
 recurrence over (a_tot, S_local), which the JAX package leaves to XLA's
 associative scan, is a plain loop over the chunks here: nc is the prompt
-length over 64.
+length over 64. It stays under autograd, as does ``Y_inter``.
 """
 from __future__ import annotations
 
@@ -15,8 +17,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from .ref import chunk_ref, chunk_seq_ref
-from .ssd_kernel import ssd_chunk_kernel
+from .ref import chunk_bwd_ref, chunk_ref, chunk_seq_ref
+from .ssd_kernel import check_bwd_shape, ssd_chunk_bwd_kernel, ssd_chunk_kernel
 
 Tensor = torch.Tensor
 
@@ -60,6 +62,35 @@ def seq_out_as_chunked(y: Tensor, s: Tensor, a_tot: Tensor, Q: int):
             a_tot.transpose(1, 2))
 
 
+class SSDChunk(torch.autograd.Function):
+    """The chunk-local SSD, (Y_intra, S_local, a_tot) = f(x, dt, A, B, C),
+    in the kernel's sequence-major layout: on the card K4 forward and K4-bwd
+    backward, on the CPU their plain versions. The inputs are saved as they
+    are (x, B and C may be bf16 views of the conv output); the backward
+    returns dx, dB and dC in their dtypes, B and C's summed per group."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk: int):
+        Q = min(chunk, x.shape[1])
+        if _on_card(x):
+            if any(ctx.needs_input_grad[:5]):
+                check_bwd_shape(Q, x.shape[-1], Bm.shape[-1])
+            outs = ssd_chunk_kernel(x, dt, A, Bm, Cm, chunk=Q)
+        else:
+            outs = chunk_seq_ref(x, dt, A, Bm, Cm, Q)
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.chunk = Q
+        return outs
+
+    @staticmethod
+    def backward(ctx, dY, dS, da):
+        x, dt, A, Bm, Cm = ctx.saved_tensors
+        bwd = ssd_chunk_bwd_kernel if _on_card(x) else chunk_bwd_ref
+        grads = bwd(x, dt, A, Bm, Cm, dY.contiguous(), dS.contiguous(), da.contiguous(),
+                    ctx.chunk)
+        return grads + (None,)
+
+
 def ssd_forward(
     x: Tensor,  # (B, L, H, P) fp32 or bf16
     dt: Tensor,  # (B, L, H) fp32
@@ -75,17 +106,17 @@ def ssd_forward(
         raise ValueError(f"{G} groups of B and C do not divide {H} heads")
     Q = min(chunk, L)
     nc = -(-L // Q)
-    if _on_card(x):
-        Y_intra, S_local, a_tot = ssd_chunk_kernel(x, dt, A, Bm, Cm, chunk=Q)
-    else:
-        Y_intra, S_local, a_tot = chunk_seq_ref(x, dt, A, Bm, Cm, Q)
+    Y_intra, S_local, a_tot = SSDChunk.apply(x, dt, A, Bm, Cm, Q)
 
-    # inter-chunk: S_prev[:, c] is the state entering chunk c
-    S_prev = torch.empty_like(S_local)  # (B, nc, H, N, P)
-    state = torch.zeros_like(S_local[:, 0])
-    for c in range(nc):
-        S_prev[:, c] = state
-        state = a_tot[:, c, :, None, None] * state + S_local[:, c]
+    # inter-chunk: S_prev[:, c] is the state entering chunk c. unbind and
+    # stack, not slices and slice assignment: their backward passes are one
+    # stack and one unbind, where a slice's would add a zero-filled copy of
+    # all of S_local per chunk
+    states = [torch.zeros_like(S_local[:, 0])]
+    for a_c, s_c in zip(a_tot.unbind(1), S_local.unbind(1)):
+        states.append(a_c[..., None, None] * states[-1] + s_c)
+    S_prev = torch.stack(states[:-1], dim=1)  # (B, nc, H, N, P)
+    state = states[-1]
 
     pad = nc * Q - L
     cum = torch.cumsum(F.pad(dt.float(), (0, 0, 0, pad)).reshape(B_, nc, Q, H) * A, dim=2)

@@ -2,13 +2,18 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b --reduced \
         --steps 50 --batch 8 --seq 128 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b --steps 10 \
+        --batch 2 --seq 1024
 
 The JAX package's launcher with the same flags, plus ``--device`` (the
 card by default): random params from ``--seed``, the synthetic token
 pipeline (and an encoder-decoder's stub frames), AdamW with a warmup of a
 tenth of the steps (at least 5), params saved every ``--ckpt-every``
 steps under ``--ckpt-dir/step_<n>``, and the logged history written to
-``--history-out`` as JSON.
+``--history-out`` as JSON. Every arch of ``configs/`` trains on the card:
+the Mamba2 archs (mamba2-780m, zamba2-2.7b) through K4 and K4-bwd, the
+attention layers through K3 and K3-bwd. ``--arch`` also takes the configs'
+dotted names (zamba2-2.7b, qwen1.5-4b, qwen1.5-32b).
 """
 from __future__ import annotations
 
@@ -17,7 +22,7 @@ import json
 import os
 import time
 
-from ..configs import ARCH_IDS, get_config
+from ..configs import ARCH_ALIASES, ARCH_IDS, get_config
 from ..data.tokens import SyntheticTokenPipeline, TokenPipelineConfig, embedding_side_inputs
 from ..train import AdamW, TrainLogger, train
 from ..train import checkpoint as ckpt
@@ -26,7 +31,7 @@ from ..train import checkpoint as ckpt
 def main(argv=None):
     """Run the CLI; returns ``(params, opt_state, history)``."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, choices=list(ARCH_IDS))
+    ap.add_argument("--arch", required=True, choices=[*ARCH_IDS, *ARCH_ALIASES])
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)

@@ -27,24 +27,21 @@ package, and updates the cache in place.
 
 Training differentiates ``forward_train`` with torch autograd. On the card
 every attention runs K3 forward and K3-bwd backward
-(``kernels.flash.ops.FlashAttention``), and the MoE's dispatch and combine
+(``kernels.flash.ops.FlashAttention``), every Mamba2 layer's chunk-local
+SSD runs K4 forward and K4-bwd backward (``kernels.ssd.ops.SSDChunk``),
+and the MoE's dispatch and combine
 are the JAX package's custom-VJP gathers (``mlp.MoeDispatch``,
 ``mlp.MoeCombine``). With ``cfg.remat`` each scanned body (a layer; a
 hybrid's period; an encoder layer; a decoder layer with its
 cross-attention) runs under ``torch.utils.checkpoint``, as the JAX package
 wraps it in ``jax.checkpoint``: its activations are recomputed in the
-backward pass, so K3 runs twice per attention layer and step.
+backward pass, so K3 and K4 run twice per layer and step.
 
 Mixed dtypes follow JAX's type promotion, made explicit (torch does not
 promote inside a matmul): fp32 audio frames plus a bf16 model run the
 encoder in fp32 against the bf16 weights, so the cross-attention k/v and
 their cache are fp32, while the decoder stream, its kv cache and the
 logits stay bf16.
-
-Not ported yet: a gradient through the Mamba2 layers on the card (the
-ssm and hybrid archs): the SSD chunk kernel (K4) has no backward kernel, so
-``forward_train`` refuses to build a graph there. On the CPU every arch
-trains.
 """
 from __future__ import annotations
 
@@ -353,32 +350,8 @@ def _host_positions(S: int, true_len: Optional[int]) -> Tensor:
     return pos
 
 
-def _forbid_grad_on_card(cfg: ModelConfig, params, tokens: Tensor) -> None:
-    """The SSD chunk kernel (K4) has no backward kernel: refuse a
-    graph-building forward through Mamba2 layers on the card rather than
-    give gradients that silently miss them."""
-    if (cfg.arch_type not in ("ssm", "hybrid") or tokens.device.type != "cuda"
-            or not torch.is_grad_enabled()):
-        return
-
-    def leaves(node):
-        if isinstance(node, dict):
-            for v in node.values():
-                yield from leaves(v)
-        else:
-            yield node
-
-    if any(t.requires_grad for t in leaves(params)):
-        raise NotImplementedError(
-            f"training {cfg.name} on the card needs a backward kernel for the SSD chunk "
-            f"kernel (K4) of its Mamba2 layers, which is not written yet; forward_train "
-            f"runs under torch.no_grad() there"
-        )
-
-
 def _trunk(cfg: ModelConfig, params, tokens: Tensor, side: Optional[Tensor]):
     _require_ported(cfg)
-    _forbid_grad_on_card(cfg, params, tokens)
     h, _, aux, _ = _forward(cfg, params, tokens, side, _host_positions(tokens.shape[1], None))
     return rms_norm(h, params["final_norm"], cfg.norm_eps), aux
 

@@ -19,7 +19,7 @@ with a ``0xFFFFFFFF`` mask (torch has no full uint32 arithmetic).
 from __future__ import annotations
 
 import math
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -99,6 +99,22 @@ def random_bits(key: torch.Tensor, shape: Shape, device=None) -> torch.Tensor:
     return b1 ^ b2
 
 
+def _unit_floats(key: torch.Tensor, shape: Shape, dtype: torch.dtype, device) -> torch.Tensor:
+    """Floats in [0, 1) as ``jax.random.uniform`` forms them before scaling:
+    the top mantissa bits of the random bits under the exponent of 1.0,
+    minus 1. float32 takes 23 of 32 bits; bfloat16, with 7 mantissa bits,
+    takes 7 of 8 (JAX draws at least 8 bits an element: the low byte of the
+    32-bit word)."""
+    bits = random_bits(key, shape, device)
+    if dtype == torch.float32:
+        fbits = (bits >> 9) | 0x3F800000
+        return fbits.to(torch.int32).view(torch.float32) - 1.0
+    if dtype == torch.bfloat16:
+        fbits = ((bits & 0xFF) >> 1) | 0x3F80
+        return fbits.to(torch.int16).view(torch.bfloat16) - 1.0
+    raise TypeError(f"draws float32 or bfloat16 only, got {dtype}")
+
+
 def uniform(
     key: torch.Tensor,
     shape: Shape = (),
@@ -112,15 +128,39 @@ def uniform(
     [minval, maxval). ``device`` places the draw (default: the key's)."""
     if dtype != torch.float32:
         raise TypeError(f"uniform draws float32 only, got {dtype}")
-    bits = random_bits(key, shape, device)
-    fbits = (bits >> 9) | 0x3F800000
-    floats = fbits.to(torch.int32).view(torch.float32) - 1.0
+    floats = _unit_floats(key, shape, dtype, device)
     lo = torch.tensor(minval, dtype=dtype, device=floats.device)
     scale = torch.tensor(maxval, dtype=dtype, device=floats.device) - lo
     # XLA fuses floats * scale + lo into one fused multiply-add: the
     # float32 product is exact in float64, so one rounding matches it
     fused = (floats.double() * scale.double() + lo.double()).to(dtype)
     return torch.maximum(lo, fused)
+
+
+def gumbel(
+    key: torch.Tensor, shape: Shape = (), dtype: torch.dtype = torch.float32, device=None
+) -> torch.Tensor:
+    """``jax.random.gumbel`` in its default mode ("low"):
+    -log(-log(u)), u = uniform(key, shape, dtype, tiny, 1). In float32 and
+    bfloat16 the uniform's scaling into [tiny, 1) leaves every nonzero draw
+    as it is and lifts 0 to tiny, so u is bit-equal to JAX's; the logs are
+    torch's in ``dtype`` (bfloat16 rounded after each one, as XLA rounds
+    them), equal to JAX's to the last bit or one float32 ulp."""
+    u = torch.clamp_min(_unit_floats(key, shape, dtype, device), torch.finfo(dtype).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor, vocab: Optional[int] = None
+                ) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last axis: the argmax
+    of ``logits + gumbel(key, logits.shape, logits.dtype)``, int64. With
+    ``vocab``, only the first ``vocab`` columns may win; the noise is still
+    drawn over every column, so the draws are JAX's and the ids equal its
+    wherever one of those columns wins."""
+    z = logits + gumbel(key, tuple(logits.shape), logits.dtype, logits.device)
+    if vocab is not None:
+        z = z[..., :vocab]
+    return torch.argmax(z, dim=-1)
 
 
 def randint(

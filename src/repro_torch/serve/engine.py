@@ -20,9 +20,13 @@ The port of the JAX package's ``serve/engine.py``, with three differences:
     prefill cache into its row, and ``decode_step`` writes each new k/v,
     SSM state and conv window into the cache it is given, where the JAX
     engine builds updated copies with ``.at[].set``;
-  * sampling is greedy only (``temperature > 0`` is not ported yet), and
-    over the real vocabulary: the JAX engine's argmax also ranks the
-    padded vocabulary's columns, so it can emit an id past ``vocab_size``.
+  * sampling ranks the real vocabulary only: the JAX engine's argmax (and
+    its Gumbel-max draw at ``temperature > 0``) also ranks the padded
+    vocabulary's columns, so it can emit an id past ``vocab_size``. At
+    ``temperature > 0`` the port draws JAX's noise (``prng.categorical``
+    over every column, the key split once per injected request and once
+    per tick, as the JAX engine splits it) and masks the pad columns
+    afterwards, so its tokens equal JAX's wherever a real column wins.
 
 Decoder-only attention architectures (dense: qwen1.5, nemotron-4,
 gemma3 with its local ring buffers, the VLM chameleon; MoE: qwen3-moe,
@@ -42,6 +46,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import prng
 from ..configs.base import ModelConfig
 from ..core.dmtrl import resolve_device
 from ..models import decode_step, init_decode_cache, prefill
@@ -55,18 +60,24 @@ Tensor = torch.Tensor
 class ServeConfig:
     batch: int = 8        # decode slots
     max_len: int = 2048   # KV slots per sequence: prompt + generated tokens
-    temperature: float = 0.0  # 0 => greedy (the only mode ported)
+    temperature: float = 0.0  # 0 => greedy
     eos_id: int = 1
+    seed: int = 0         # the sampling key at temperature > 0
     bucket_min: int = 16  # smallest prefill bucket (buckets are powers of 2)
     drain_every: int = 4  # decode steps between detokenize-backlog drains
 
 
-def _sample(logits: Tensor, vocab_size: int) -> Tensor:
-    """Greedy: the argmax token of each row, int32, over the real
-    vocabulary only. The logits cover the padded vocabulary (a multiple of
-    256); the JAX engine's argmax also ranks the pad columns, which with
+def _sample(logits: Tensor, vocab_size: int, temperature: float = 0.0,
+            key: Optional[Tensor] = None) -> Tensor:
+    """The token of each row, int32, over the real vocabulary only: the
+    argmax (greedy, temperature <= 0), or the Gumbel-max draw of
+    ``jax.random.categorical(key, logits / temperature)`` with the noise
+    drawn over every column. The logits cover the padded vocabulary (a
+    multiple of 256); the JAX engine also ranks the pad columns, which with
     random weights can win and emit an id outside the vocabulary."""
-    return torch.argmax(logits[..., :vocab_size], dim=-1).to(torch.int32)
+    if temperature <= 0.0:
+        return torch.argmax(logits[..., :vocab_size], dim=-1).to(torch.int32)
+    return prng.categorical(key, logits / temperature, vocab=vocab_size).to(torch.int32)
 
 
 @dataclasses.dataclass
@@ -141,10 +152,9 @@ class ServingEngine:
             raise ValueError(f"batch must be >= 1, got {scfg.batch}")
         if scfg.drain_every < 1:
             raise ValueError(f"drain_every must be >= 1, got {scfg.drain_every}")
-        if scfg.temperature > 0.0:
-            raise NotImplementedError("sampling with temperature > 0 is not ported yet")
         self.cfg, self.params, self.scfg = cfg, params, scfg
         self.device = resolve_device(device)
+        self._key = prng.PRNGKey(scfg.seed)
         # one stable snapshot object: LM params never change
         self._snapshot = ModelSnapshot(version=0)
         # pad-masked bucketed prefill needs attention-only archs; state
@@ -230,7 +240,7 @@ class ServingEngine:
             last_logits, one = self._prefill_one(r)
             if self._cache is None:
                 self._alloc_batch_state(one)
-            tok0 = _sample(last_logits, self.cfg.vocab_size)  # (1,)
+            tok0 = self._next_tokens(last_logits)  # (1,)
             i = self._free.pop()  # slot assigned only after prefill succeeded
             self._slots[i] = r
             self._emitted[i] = 1
@@ -252,7 +262,7 @@ class ServingEngine:
             return self._pop_finished()
         logits, cache = self._step_call(self._token, self._cache)
         self._cache = cache
-        nxt = _sample(logits, self.cfg.vocab_size)  # (B,)
+        nxt = self._next_tokens(logits)  # (B,)
         self._token = nxt
         self._backlog.append((nxt, [(i, self._slots[i]) for i in active]))
         for i in active:
@@ -355,6 +365,14 @@ class ServingEngine:
             extra_len=self.scfg.max_len - S,
             true_len=L if self._maskable else None,
         )
+
+    def _next_tokens(self, logits: Tensor) -> Tensor:
+        """Sample each row's next token; at temperature > 0 the key splits
+        first (the JAX engine splits it for greedy too, unused)."""
+        sub = None
+        if self.scfg.temperature > 0.0:
+            self._key, sub = prng.split(self._key)
+        return _sample(logits, self.cfg.vocab_size, self.scfg.temperature, sub)
 
     # -- internals: batch state / insert / decode ---------------------------
     def _alloc_batch_state(self, one) -> None:

@@ -24,10 +24,11 @@ as a *stream*, and the scheduler is the piece in between:
 The scheduler is engine-agnostic: anything with ``batch``,
 ``admit(req)``, ``model_snapshot()`` and ``run_tile(reqs, snapshot)``
 (plus optional ``task_key(req)`` for per-task metrics) can sit behind it
-— ``serve/mtl.py`` (MTL scoring) does. The JAX package's scheduler also
-drives streaming engines (one decode step per ``step()``, through
-``decode_tick``); that path is not ported yet, so an engine with
-``decode_tick`` (the LM ``ServingEngine``) is refused. Time is injectable (``clock=``), so tests and the load bench
+— ``serve/mtl.py`` (MTL scoring) and ``serve/engine.py`` (LM decode)
+both do. A streaming engine (one with ``decode_tick``, the LM
+``ServingEngine``) runs one decode STEP per ``step()``: finished requests
+drain out, queued ones are injected into free slots of the running batch,
+and every occupied slot advances one token. Time is injectable (``clock=``), so tests and the load bench
 drive it with a virtual clock; ``submit``/``publish`` are thread-safe so
 a training loop (``DMTRLEstimator.partial_fit`` or a transport
 subscription) can push snapshots while another thread serves.
@@ -207,11 +208,6 @@ class ContinuousBatchingScheduler:
             raise ValueError(f"policy must be one of {_POLICIES}, got {policy!r}")
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
-        if hasattr(engine, "decode_tick"):
-            raise NotImplementedError(
-                "streaming engines (decode_tick) behind the scheduler are not "
-                "ported yet; drive ServingEngine.run directly"
-            )
         self.engine = engine
         self.policy = policy
         self.max_queue = max_queue
@@ -229,6 +225,10 @@ class ContinuousBatchingScheduler:
         self._engine_snap: ModelSnapshot = self._snapshot
         self._queue: List[ServeRequest] = []
         self._lock = threading.Lock()
+        # streaming engines (serve/engine.py) expose a per-decode-step
+        # surface; for them one step() = one decode STEP over the running
+        # batch, not one whole-generation tile
+        self._streaming = hasattr(engine, "decode_tick")
 
     # -- introspection ------------------------------------------------------
     @property
@@ -250,8 +250,8 @@ class ContinuousBatchingScheduler:
     @property
     def in_flight(self) -> int:
         """Requests injected into a streaming engine's slot table and not
-        yet finished: always 0 for the whole-tile engines served here."""
-        return 0
+        yet finished (always 0 for whole-tile engines)."""
+        return int(getattr(self.engine, "active", 0))
 
     # -- ingress ------------------------------------------------------------
     def submit(
@@ -464,12 +464,24 @@ class ContinuousBatchingScheduler:
     def step(self) -> List[ServeRequest]:
         """Pack and run ONE tile; returns the completed requests.
 
-        Packing (under the lock) drops expired requests, orders the queue
-        by policy, takes up to ``engine.batch``, captures the current
-        snapshot; execution (outside the lock) is ``engine.run_tile`` on
-        the captured snapshot — concurrent ``publish``/``submit`` calls
-        only affect later tiles. An empty queue returns [].
+        Whole-tile engines: packing (under the lock) drops expired
+        requests, orders the queue by policy, takes up to
+        ``engine.batch``, captures the current snapshot; execution
+        (outside the lock) is ``engine.run_tile`` on the captured
+        snapshot — concurrent ``publish``/``submit`` calls only affect
+        later tiles. An empty queue returns [].
+
+        Streaming engines (``decode_tick`` present): the tile unit is one
+        decode STEP. Each step drains finished requests out of the slot
+        table, injects up to ``engine.free_slots`` queued requests into
+        the RUNNING batch (stamping time-to-first-token and the snapshot
+        version they were admitted under — a request completes on that
+        version even if a publish lands mid-generation), then advances
+        every occupied slot one token. Returns whatever finished this
+        step, possibly requests injected many steps ago.
         """
+        if self._streaming:
+            return self._step_streaming()
         with span("pack", cat="serve"), self._lock:
             now = self.clock()
             self._expire_locked(now)
@@ -516,8 +528,80 @@ class ContinuousBatchingScheduler:
             self.metrics.on_tile(len(tile), self.engine.batch)
         return tile
 
+    def _step_streaming(self) -> List[ServeRequest]:
+        # surface generations finished on earlier ticks and free their
+        # slots BEFORE packing, so this step's injection sees them
+        finished: List[ServeRequest] = list(self.engine.drain())
+        with self._lock:
+            now = self.clock()
+            self._expire_locked(now)
+            self._pickup_engine_snapshot_locked()
+            take: List[ServeRequest] = []
+            free = self.engine.free_slots
+            if free and self._queue:
+                self._sort_queue_locked()
+                take = self._queue[:free]
+                del self._queue[:free]
+            snap = self._snapshot
+            self.metrics.observe_queue_depth(len(self._queue))
+        try:
+            if take:
+                # inject = per-request prefill + first sampled token:
+                # time-to-first-token is paid here, and the request is
+                # stamped with the snapshot it was ADMITTED under
+                with span("inject", cat="serve", n=len(take)):
+                    self.engine.inject(take, snap)
+                t1 = self.clock()
+                with self._lock:
+                    for r in take:
+                        r.status = "running"
+                        r.first_token_s = t1
+                        self.metrics.on_first_token(t1 - r.arrival_s)
+                    self.metrics.on_tile(len(take), self.engine.batch)
+            occupied = self.engine.active
+            if occupied:
+                with span("decode_step", cat="serve", occupied=occupied):
+                    finished.extend(self.engine.decode_tick())
+            with self._lock:
+                self.metrics.on_decode_step(occupied, self.engine.batch)
+        except BaseException:
+            # never lose a request: evict everything in-flight (the next
+            # inject resets per-attempt decode state) and requeue at the
+            # head, then let the caller see the engine failure
+            evicted = self.engine.evict_active()
+            ids = {id(r) for r in evicted}
+            back = evicted + [r for r in take if id(r) not in ids]
+            logger.warning(
+                "streaming step failed on snapshot version %d; evicted %d "
+                "in-flight and re-queued %d request(s)",
+                snap.version,
+                len(evicted),
+                len(back),
+                exc_info=True,
+            )
+            with self._lock:
+                for r in back:
+                    r.status = "queued"
+                self._queue[:0] = back
+            raise
+        done_s = self.clock()
+        with self._lock:
+            slo = self.metrics.slo_s
+            for r in finished:
+                r.status = "done"
+                r.finish_s = done_s
+                # snapshot_version was stamped at INJECT (admission), not
+                # here: mid-generation publishes must not relabel it
+                lat = done_s - r.arrival_s
+                violated = (slo is not None and lat > slo) or (
+                    r.deadline_s is not None and done_s > r.deadline_s
+                )
+                self.metrics.on_complete(self._task_key(r), lat, violated)
+        return finished
+
     def run_until_idle(self, max_steps: int = 1_000_000) -> int:
-        """Step until the queue drains; returns requests completed."""
+        """Step until the queue AND any streaming slot table drain;
+        returns requests completed."""
         total = 0
         for _ in range(max_steps):
             done = self.step()

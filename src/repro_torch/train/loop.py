@@ -3,9 +3,9 @@ accumulation over microbatches, the AdamW update), metric logging and
 checkpoint hooks. The JAX package's ``train.loop`` on one device.
 
 On the card the gradient runs through the kernels' backward: K3-bwd for
-every attention (``kernels.flash.ops.FlashAttention``). The Mamba2 archs
-(ssm, hybrid) train on the CPU only until the SSD chunk kernel has a
-backward kernel (``models.transformer._forbid_grad_on_card`` raises).
+every attention (``kernels.flash.ops.FlashAttention``) and K4-bwd for every
+Mamba2 layer's chunk-local SSD (``kernels.ssd.ops.SSDChunk``), so every
+arch in ``configs/`` trains there.
 """
 from __future__ import annotations
 

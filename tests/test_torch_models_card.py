@@ -93,9 +93,10 @@ def test_mamba2_layout_prefill_on_card(cuda):
 def test_forward_is_forward_only_on_card(cuda):
     """The gemma-shaped model trains on the card (K3 forward with lse, then
     K3-bwd, once per layer), its gradient against the CPU's autograd of the
-    plain attention (bar 2e-4, the prefill bar); a Mamba2 model's graph on
-    the card is refused, since the SSD chunk kernel (K4) has no backward
-    kernel. Under no_grad both run, and pooled_features always does."""
+    plain attention (bar 2e-4, the prefill bar); so does a Mamba2 model, its
+    SSD chunks through K4 forward and K4-bwd backward once per layer, against
+    the CPU's plain forward and closed-form backward. Under no_grad the
+    forward is forward only (no K4-bwd), and pooled_features always is."""
     from repro_torch.models import loss_fn
 
     cfg = gemma_like()
@@ -120,15 +121,33 @@ def test_forward_is_forward_only_on_card(cuda):
     for a, b in zip(cpu[1:3], card[1:3]):
         torch.testing.assert_close(b, a, atol=2e-4, rtol=0)
 
-    mcfg = get_config("mamba2-780m").reduced()
-    mparams = init_params(mcfg, seed=0, device=cuda)
-    mparams["embed"].requires_grad_(True)
-    mtoks = torch.zeros((1, 8), dtype=torch.int64, device=cuda)
-    with pytest.raises(NotImplementedError, match="K4"):
-        forward_train(mcfg, mparams, mtoks)
+    mcfg = dataclasses.replace(get_config("mamba2-780m").reduced(), ssm_chunk=64)
+    mparams = init_params(mcfg, seed=0, device="cpu")
+    mtoks = torch.from_numpy(np.random.RandomState(5).randint(0, mcfg.vocab_size, (2, 80)))
+    mbatch = {"tokens": mtoks, "labels": torch.roll(mtoks, -1, 1)}
+    kernels = (ssd_kernel.ssd_chunk_kernel, ssd_kernel.ssd_chunk_bwd_kernel)
+    grads = {}
+    for dev in ("cpu", cuda):
+        live = _on(mparams, dev)
+        live["layers"]["ssm"]["A_log"] = live["layers"]["ssm"]["A_log"].detach().requires_grad_(True)
+        live["layers"]["ssm"]["w_x"] = live["layers"]["ssm"]["w_x"].detach().requires_grad_(True)
+        before = tuple(k.launches for k in kernels)
+        loss, _ = loss_fn(mcfg, live, {k: v.to(dev) for k, v in mbatch.items()})
+        loss.backward()
+        grads[str(dev)] = (loss.item(), live["layers"]["ssm"]["A_log"].grad.cpu(),
+                           live["layers"]["ssm"]["w_x"].grad.cpu(),
+                           tuple(k.launches - b for k, b in zip(kernels, before)))
+    cpu, card = grads["cpu"], grads[str(cuda)]
+    assert cpu[3] == (0, 0) and card[3] == (mcfg.n_layers, mcfg.n_layers)
+    assert abs(cpu[0] - card[0]) <= 2e-4
+    for a, b in zip(cpu[1:3], card[1:3]):
+        assert torch.isfinite(b).all()
+        torch.testing.assert_close(b, a, atol=2e-4, rtol=0)
     with torch.no_grad():
-        logits, _ = forward_train(mcfg, mparams, mtoks)
-    assert logits.shape == (1, 8, mcfg.vocab_padded)
+        before = ssd_kernel.ssd_chunk_bwd_kernel.launches
+        logits, _ = forward_train(mcfg, _on(mparams, cuda), mtoks.to(cuda))
+        assert ssd_kernel.ssd_chunk_bwd_kernel.launches == before
+    assert logits.shape == (2, 80, mcfg.vocab_padded)
     gparams = init_params(cfg, seed=0, device=cuda)
     feats = pooled_features(cfg, gparams, torch.zeros((1, 8), dtype=torch.int64, device=cuda))
     assert feats.shape == (1, cfg.d_model) and not feats.requires_grad

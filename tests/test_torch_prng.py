@@ -1,7 +1,10 @@
 """repro_torch.prng against jax.random: keys, splits, folds and uniform
 draws must be BIT-equal (every coordinate draw of the trainer rests on
-them); normal agrees to float32 rounding (torch's erfinv is not XLA's)."""
+them); normal agrees to float32 rounding (torch's erfinv is not XLA's);
+gumbel and categorical, which the serving engine samples with, give JAX's
+ids bit for bit in float32 and bfloat16."""
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -84,3 +87,47 @@ def test_randint(seed, lo, hi):
     assert got.dtype == torch.int64 and np.array_equal(got.numpy(), want)
     shaped = prng.randint(prng.PRNGKey(seed), (3, 5), lo, hi).numpy()
     assert np.array_equal(shaped, np.asarray(jax.random.randint(jax.random.PRNGKey(seed), (3, 5), lo, hi)))
+
+
+DTYPES = [(torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)]
+SHAPES = [(3, 257), (4, 1024), (2, 5, 100)]
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("dtypes", DTYPES, ids=["float32", "bfloat16"])
+def test_gumbel(seed, dtypes):
+    """The noise within a few float32 ulps of JAX's (torch's log is not
+    XLA's; 1e-6 absolute on values up to about 16); bfloat16 bit-equal."""
+    for shape in SHAPES:
+        want = np.asarray(jax.random.gumbel(jax.random.PRNGKey(seed), shape, dtypes[1]))
+        got = prng.gumbel(prng.PRNGKey(seed), shape, dtypes[0])
+        assert got.dtype == dtypes[0] and tuple(got.shape) == shape
+        if dtypes[0] == torch.bfloat16:
+            assert np.array_equal(got.float().numpy(), want.astype(np.float32))
+        else:
+            np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("dtypes", DTYPES, ids=["float32", "bfloat16"])
+def test_categorical(seed, dtypes):
+    """The sampled ids equal jax.random.categorical's, over several keys and
+    shapes (the last axis is the categories)."""
+    for i, shape in enumerate(SHAPES):
+        logits = (2.0 * np.random.RandomState(seed % 1000 + i).randn(*shape)).astype(np.float32)
+        want = np.asarray(jax.random.categorical(
+            jax.random.PRNGKey(seed), jnp.asarray(logits).astype(dtypes[1])))
+        got = prng.categorical(prng.PRNGKey(seed), torch.from_numpy(logits).to(dtypes[0]))
+        assert np.array_equal(got.numpy(), want)
+
+
+def test_categorical_over_a_prefix_of_the_columns():
+    """``vocab`` keeps the noise of every column (JAX's draws) and lets only
+    the first ``vocab`` columns win: equal ids wherever JAX picks one of
+    them, never an id past ``vocab``."""
+    logits = np.random.RandomState(3).randn(64, 300).astype(np.float32)
+    logits[:, 256:] += 2.0  # the padded columns would often win
+    want = np.asarray(jax.random.categorical(jax.random.PRNGKey(7), jnp.asarray(logits)))
+    got = prng.categorical(prng.PRNGKey(7), torch.from_numpy(logits), vocab=256).numpy()
+    assert (got < 256).all() and (want >= 256).any()
+    assert np.array_equal(got[want < 256], want[want < 256])

@@ -193,6 +193,30 @@ def test_encdec_warmup_waits_for_the_first_prefill():
     assert eng._cache is None
 
 
+@pytest.mark.parametrize("arch", [ARCH, "qwen1_5-4b"])
+def test_temperature_sampling_matches_jax_engine(arch):
+    """temperature > 0: the same key splits (one per injected request, one
+    per tick) and the same Gumbel noise as the JAX engine, so the sampled
+    streams are identical, the third request in a recycled slot. The
+    reduced configs have no pad columns (vocab 1024)."""
+    cfg, jcfg = get_config(arch).reduced(), jax_get_config(arch).reduced()
+    assert cfg.vocab_padded == cfg.vocab_size
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(0))
+    params = lm_params_from_reference(cfg, jax.tree.map(np.asarray, jparams), device="cpu")
+    rs = np.random.RandomState(4)
+    prompts = [rs.randint(2, cfg.vocab_size, size=n).astype(np.int32) for n in (9, 21, 5)]
+    budgets = [6, 3, 5]
+    scfg = dict(batch=2, max_len=48, bucket_min=8, eos_id=-1, temperature=0.8, seed=11)
+    jax_out = _stream(JaxServingEngine(jcfg, jparams, JaxServeConfig(**scfg)), JaxRequest,
+                      prompts, budgets)
+    out = _stream(ServingEngine(cfg, params, ServeConfig(**scfg), device="cpu"), Request,
+                  prompts, budgets)
+    assert out == jax_out
+    greedy = _stream(ServingEngine(cfg, params, ServeConfig(**{**scfg, "temperature": 0.0}),
+                                   device="cpu"), Request, prompts, budgets)
+    assert greedy != out  # the draws are not the argmax
+
+
 def test_greedy_samples_the_real_vocabulary():
     """The logits cover the padded vocabulary; a pad column that would win
     the argmax is never sampled (the tokens are those of the real
@@ -313,8 +337,9 @@ def test_admission_and_config_guards():
         eng.admit(Request(prompt=np.arange(10, dtype=np.int32), max_new_tokens=7))
     with pytest.raises(ValueError, match="integer"):
         eng.admit(Request(prompt=np.ones(3, np.float32), max_new_tokens=1))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ServingEngine(cfg, None, ServeConfig(temperature=0.7), device="cpu")
+    # temperature > 0 samples (no refusal); the key starts from the seed
+    hot = ServingEngine(cfg, None, ServeConfig(temperature=0.7, seed=3), device="cpu")
+    assert torch.equal(hot._key, torch.tensor([0, 3]))
     assert [_next_bucket(n, 16, 1023) for n in (1, 16, 17, 600, 1023)] == [16, 16, 32, 1023, 1023]
 
 

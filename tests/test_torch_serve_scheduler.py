@@ -23,6 +23,7 @@ from repro_torch.serve import (
     MTLScoringEngine,
     QueueFull,
     ScoreRequest,
+    ServeRequest,
     ServingMetrics,
     VirtualClock,
 )
@@ -283,14 +284,52 @@ def test_failed_tile_requeues_requests(W):
 
 
 def test_streaming_engines_are_refused():
+    """A streaming engine (one with ``decode_tick``) is refused the
+    whole-tile path: the scheduler drives it one decode step at a time
+    (drain, inject into free slots, decode_tick) and never calls
+    ``run_tile``; ``in_flight`` counts its occupied slots."""
+
     class Streaming:
         batch = 1
 
-        def decode_tick(self):
+        def __init__(self):
+            self.calls, self.slot = [], None
+
+        def admit(self, r):
+            pass
+
+        def model_snapshot(self):
+            return ModelSnapshot(version=0)
+
+        def run_tile(self, reqs, snap):
+            raise AssertionError("run_tile on a streaming engine")
+
+        @property
+        def free_slots(self):
+            return int(self.slot is None)
+
+        @property
+        def active(self):
+            return int(self.slot is not None)
+
+        def drain(self):
+            self.calls.append("drain")
             return []
 
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ContinuousBatchingScheduler(Streaming())
+        def inject(self, reqs, snap):
+            self.calls.append("inject")
+            self.slot = reqs[0]
+
+        def decode_tick(self):
+            self.calls.append("tick")
+            done, self.slot = [self.slot], None
+            return done
+
+    eng = Streaming()
+    sched = ContinuousBatchingScheduler(eng, clock=VirtualClock())
+    r = sched.submit(ServeRequest())
+    assert sched.step() == [r] and eng.calls == ["drain", "inject", "tick"]
+    assert r.status == "done" and r.first_token_s is not None and sched.in_flight == 0
 
 
 def test_concurrent_submit_and_publish_thread_safety(W):
