@@ -41,8 +41,12 @@ Phases, each printing its own lines:
               backward (K4-bwd) against the plain backward at mamba2-780m's
               training layout (2 x 1024 tokens, 48 heads, N = 128) in bf16
               views and fp32, zamba2-2.7b's (80 heads, N = 64), a ragged
-              L = 1000, Q = 17, 4 groups of 8 heads and a chunk whose decay
-              overflows exp, each called twice (bit-equal) and timed;
+              L = 1000, Q = 17, 4 groups of 8 heads, a chunk whose decay
+              overflows exp and 13 heads (no head block divides them),
+              each called twice (bit-equal), the fp32 ones also against
+              the function in fp64, and timed beside the design's byte
+              count and its launch plan; every cluster size timed at the
+              two training layouts and the overflow chunk;
   3. main path — DMTRLEstimator(solver="pallas_round") fits the paper's
               MNIST-width problem (mnist_like, scale 1.0) on the card, then
               scores and predicts; the fused round kernel must carry every
@@ -314,8 +318,12 @@ SSD_BWD_SHAPES = (  # (label, B, L, H, G, P, N, chunk, bf16, overflow)
     ("Q=17 fp32", 1, 100, 8, 1, 64, 64, 17, False, False),
     ("G=4 of H=8 fp32", 2, 256, 8, 4, 64, 64, 64, False, False),
     ("overflow fp32", 1, 256, MAMBA_H, 1, MAMBA_P, MAMBA_N, 64, False, True),
+    ("13 heads bf16", 2, 512, 13, 1, MAMBA_P, MAMBA_N, 64, True, False),
 )
 TOL_SSD_BWD_F32, TOL_SSD_BWD_BF16 = 2e-5, 2e-2
+# the shapes whose cluster sizes phase 2 sweeps: the two training steps and
+# a grid of four (batch, chunk) units
+SSD_BWD_SWEEP = ("mamba2-780m bf16", "zamba2-2.7b bf16", "overflow fp32")
 # phase 5c: phase 5's zamba2 engine behind the streaming scheduler, 8
 # requests of 16 tokens arriving two at first and then one every second
 # decode step; at temperature 0.8 (seed 0) twice and at temperature 0
@@ -702,6 +710,15 @@ def ssd_bwd_checks(torch, dev, card: str) -> dict:
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
               f"ssd_chunk_bwd {label}: two calls gave different bits")
         want = ssd_ref.chunk_bwd_ref(*args, chunk)
+        exact_txt, exact = "", {}
+        if not bf16:  # both against the function evaluated in fp64
+            w64 = ssd_ref.chunk_bwd_ref(*args, chunk, compute=torch.float64)
+            for who, outs in (("kernel", got), ("plain", want)):
+                exact[who] = max((a.double() - w.double()).abs().max().item()
+                                 / max(1.0, w.abs().max().item()) for a, w in zip(outs, w64))
+            exact_txt = (f"; relative max|d - fp64| kernel {exact['kernel']:.2e}, plain "
+                         f"{exact['plain']:.2e}")
+            del w64
         if overflow:
             decay = float(-(dt[0, :Q, -1] * A[-1]).sum())
             check(decay > 88.7, f"ssd_chunk_bwd {label}: the decay {decay:.1f} does not overflow")
@@ -731,22 +748,67 @@ def ssd_bwd_checks(torch, dev, card: str) -> dict:
         nbytes = (2 * B_ * L * H_ * P_ * es + 4 * B_ * L * G_ * N_ * es + 2 * B_ * L * H_ * 4
                   + 2 * H_ * 4 + B_ * L * H_ * P_ * 4 + dS.numel() * 4 + da.numel() * 4)
         b, by = bound_ms(nbytes, 3 * flops, PEAK_TF32_FLOPS)
+        # the design's own count of what it reads and writes (B and C once
+        # per CTA of a group's cluster, dA's fp64 terms written and read
+        # back, the rest once): worked out from the plan, not measured
+        plan = ssd_kernel.bwd_launch_plan(B_, L, H_, G_, Q, P_, N_, bf16, dev)
+        design = (nbytes + (plan.cluster - 1) * 2 * B_ * L * G_ * N_ * es
+                  + 2 * da.numel() * 8)
         print(f"[2 ssd_chunk_bwd {label}] (B={B_}, L={L}, H={H_}, G={G_}, P={P_}, N={N_}, "
               f"Q={Q}): relative max|d - plain| {', '.join(parts)} (tolerance "
-              f"{TOL_SSD_BWD_F32:.0e} fp32, {TOL_SSD_BWD_BF16:.0e} bf16), two calls bit-equal"
-              f"{', finite where exp overflows' if overflow else ''}; {ms:.4f} ms/call (plain "
-              f"{plain:.3f} ms), bound {b:.5f} ms by {by} ({flops / 1e9:.2f} GFLOP, "
-              f"{nbytes / 1e6:.1f} MB) on {card}")
+              f"{TOL_SSD_BWD_F32:.0e} fp32, {TOL_SSD_BWD_BF16:.0e} bf16){exact_txt}, two calls "
+              f"bit-equal{', finite where exp overflows' if overflow else ''}; {ms:.4f} ms/call "
+              f"(plain {plain:.3f} ms), bound {b:.5f} ms by {by} ({flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB); the design's byte count {design / 1e6:.1f} MB; plan: "
+              f"{plan.head_block} heads a CTA, clusters of {plan.cluster}, {plan.stages} "
+              f"stage(s), bwd_smem_bytes {plan.smem_bytes}; on {card}")
         shapes.append(dict(label=label, shape=[B_, L, H_, P_], G=G_, N=N_, Q=Q,
                            dtype="bf16" if bf16 else "fp32", max_abs_err=err, max_rel_err=rel,
                            bit_equal=True, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-                           library_ms=None))
+                           library_ms=None, head_block=plan.head_block,
+                           cluster=plan.cluster, stages=plan.stages,
+                           smem_bytes=plan.smem_bytes,
+                           **{f"max_rel_err_fp64_{k}": v for k, v in exact.items()}))
+        if label in SSD_BWD_SWEEP:
+            shapes[-1]["cluster_sweep"] = ssd_bwd_cluster_sweep(torch, args, chunk, card)
         del xbc, x, Bm, Cm, dt, dY, dS, da, args, got, again, want
     torch.cuda.empty_cache()
     head = shapes[0]  # mamba2-780m bf16: the phase-10d step's shape
     return dict(max_abs_err=err_all, ms=head["ms"], plain_ms=head["plain_ms"],
                 bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=None,
                 shapes=shapes)
+
+
+def ssd_bwd_cluster_sweep(torch, args, chunk: int, card: str) -> list:
+    """K4-bwd at every cluster size a group's heads allow: the clusters the
+    card holds at once (cudaOccupancyMaxActiveClusters) and the time, beside
+    the size ``ssd_kernel.bwd_cluster`` picks. Timing only."""
+    from repro_torch.kernels.ssd import ssd_kernel
+
+    x, Bm = args[0], args[3]
+    B_, L, H_, P_ = x.shape
+    G_, N_ = Bm.shape[2:]
+    Q, bf16 = min(chunk, L), x.dtype == torch.bfloat16
+    units = B_ * -(-L // Q) * G_
+    pick = ssd_kernel.bwd_launch_plan(B_, L, H_, G_, Q, P_, N_, bf16, x.device).cluster
+    rows = []
+    for c in range(1, min(ssd_kernel.MAX_CLUSTER, H_ // G_) + 1):
+        plan = ssd_kernel.bwd_plan(Q, P_, N_, H_ // G_, bf16, c)
+        if plan.cluster != c:
+            continue  # the same plan as a smaller size
+        active = ssd_kernel._active_clusters(x.device.index or 0, Q, N_, P_, c, bf16)
+        if active < 1:
+            rows.append(dict(cluster=c, head_block=plan.head_block, active_clusters=0, ms=None))
+            continue
+        ms = cuda_ms(torch, lambda: ssd_kernel.ssd_chunk_bwd_kernel(*args, chunk=chunk,
+                                                                    cluster=c), reps=20)
+        rows.append(dict(cluster=c, head_block=plan.head_block, active_clusters=active, ms=ms))
+    print(f"[2 ssd_chunk_bwd cluster sweep {x.dtype}, {tuple(x.shape)}] {units} (batch, chunk, "
+          f"group) units, {H_ // G_} heads a group: " + "; ".join(
+              f"{r['cluster']} CTAs of {r['head_block']} heads, {r['active_clusters']} clusters "
+              f"at once: " + (f"{r['ms']:.4f} ms" if r["ms"] else "not launchable")
+              for r in rows) + f"; bwd_cluster picks {pick} on {card}")
+    return rows
 
 
 @contextlib.contextmanager
@@ -1373,10 +1435,15 @@ def train_main_path(torch, dev, card: str, arch: str, tag: str, min_drop: float)
     check(busy > 0, "the profiled training step recorded no device time")
     parts = []
     for name, key in (("K3", "flash_fwd"), ("K3-bwd", "flash_bwd"), ("K4", "ssd_chunk_kernel"),
-                      ("K4-bwd", "ssd_chunk_bwd_kernel"), ("K4-bwd sum", "ssd_bwd_reduce")):
-        dms = sum(e.self_device_time_total for e in events if key in e.key) / 1e3
+                      ("K4-bwd", "ssd_chunk_bwd_kernel"), ("K4-bwd dA", "ssd_bwd_reduce")):
+        found = [e for e in events if key in e.key]
+        dms = sum(e.self_device_time_total for e in found) / 1e3
+        count = sum(e.count for e in found)
         if per_step[name.split()[0]]:
-            parts.append(f"{name} {dms:.2f} ms ({dms / busy:.1%})")
+            parts.append(f"{name} {dms:.2f} ms ({dms / busy:.1%}) x{count}")
+            check(not name.startswith("K4-bwd") or count == per_step["K4-bwd"],
+                  f"the profiled step ran {name} ({key}) {count} times, expected "
+                  f"{per_step['K4-bwd']}")
     print(f"[{tag} profile] one step {prof_ms:.1f} ms wall (profiler on), device busy "
           f"{busy:.1f} ms = {busy / prof_ms:.1%}; " + ", ".join(parts) + f" on {card}")
     for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]:
@@ -2172,6 +2239,11 @@ def main() -> int:
     seconds = nvcc.build_all(sdca.SOURCES + flash.SOURCES + ssd.SOURCES)
     print(f"[1 build] {time.perf_counter() - t0:.2f} s wall; per source: "
           + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items()))
+    log = nvcc.BUILD_DIR / "ssd_chunk_bwd.log"  # nvcc -Xptxas -v of this build
+    if seconds.get("ssd_chunk_bwd") and log.exists():
+        lines = [ln.strip() for ln in log.read_text().splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print("[1 build] ssd_chunk_bwd ptxas: " + "; ".join(lines))
 
     # data of the main path (made on the host from a seed: set-up)
     t0 = time.perf_counter()

@@ -24,7 +24,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, Sequence, Tuple
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = (
@@ -32,7 +32,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 VP, INT, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_FUNCS: Dict[Path, ctypes._CFuncPtr] = {}
+_FUNCS: Dict[Tuple[Path, str], ctypes._CFuncPtr] = {}
 # held while a library is built and loaded: worker threads of a transport
 # may launch a kernel for the first time together
 _FUNCS_LOCK = threading.Lock()
@@ -90,20 +90,21 @@ def build_all(sources: Iterable[Path]) -> Dict[str, float]:
     return seconds
 
 
-def launcher(src: Path, argtypes: Sequence) -> ctypes._CFuncPtr:
-    """The C entry point ``<name>_launch`` of ``src``, built on first use.
-    Safe from several threads: the first caller builds and loads while
-    the others wait for it."""
-    fn = _FUNCS.get(src)
+def launcher(src: Path, argtypes: Sequence, entry: str = "launch") -> ctypes._CFuncPtr:
+    """The C entry point ``<name>_<entry>`` of ``src`` (``<name>_launch`` by
+    default), built on first use. Safe from several threads: the first
+    caller builds and loads while the others wait for it."""
+    key = (src, entry)
+    fn = _FUNCS.get(key)
     if fn is None:
         with _FUNCS_LOCK:
-            fn = _FUNCS.get(src)
+            fn = _FUNCS.get(key)
             if fn is None:
                 build_all([src])
-                fn = getattr(ctypes.CDLL(str(lib_path(src))), f"{src.stem}_launch")
+                fn = getattr(ctypes.CDLL(str(lib_path(src))), f"{src.stem}_{entry}")
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
-                _FUNCS[src] = fn
+                _FUNCS[key] = fn
     return fn
 
 

@@ -74,7 +74,7 @@ class SSDChunk(torch.autograd.Function):
         Q = min(chunk, x.shape[1])
         if _on_card(x):
             if any(ctx.needs_input_grad[:5]):
-                check_bwd_shape(Q, x.shape[-1], Bm.shape[-1])
+                check_bwd_shape(Q, x.shape[-1], Bm.shape[-1], x.dtype == torch.bfloat16)
             outs = ssd_chunk_kernel(x, dt, A, Bm, Cm, chunk=Q)
         else:
             outs = chunk_seq_ref(x, dt, A, Bm, Cm, Q)

@@ -106,9 +106,10 @@ def chunk_bwd_ref(
     dS: Tensor,  # (B, nc, H, N, P): of S_local
     da: Tensor,  # (B, nc, H): of a_tot
     chunk: int,
+    compute: torch.dtype = torch.float32,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
     """(dx, d(dt), dA, dB, dC) of ``chunk_seq_ref`` in closed form, computed
-    in fp32 and returned in the inputs' dtypes; dB and dC are summed over
+    in ``compute`` and returned in the inputs' dtypes; dB and dC are summed over
     the H/G heads of each group. Per (batch, head, chunk), with cum =
     cumsum(dt A), u = dt x, M[t, tau] = exp(cum_t - cum_tau) for tau <= t
     (0 above), d_end = exp(cum_Q - cum) and G = (C B^T) o M:
@@ -122,7 +123,11 @@ def chunk_bwd_ref(
 
     The exponential is never formed above the diagonal (``diff`` is masked
     to -inf first), so the result stays finite where the decay over a
-    chunk passes exp's range, where autograd of ``chunk_ref`` gives NaN."""
+    chunk passes exp's range, where autograd of ``chunk_ref`` gives NaN.
+    cum and the sums from dcum on (its reverse cumsum and dA's sum over
+    every step cancel) run in fp64 whatever ``compute`` is, the products in
+    ``compute``: fp32 for the kernels' plain version, fp64 to measure how
+    far that version and the kernel are from the exact function."""
     B_, L, H, P = x.shape
     G = Bm.shape[2]
     Q = min(chunk, L)
@@ -130,7 +135,7 @@ def chunk_bwd_ref(
     pad = nc * Q - L
 
     def to_chunks(a, heads):  # (B, L, heads, ...) -> (B, H, nc, Q, ...)
-        a = F.pad(a.float(), (0, 0) * (a.dim() - 2) + (0, pad))
+        a = F.pad(a.to(compute), (0, 0) * (a.dim() - 2) + (0, pad))
         if heads != H:
             a = torch.repeat_interleave(a, H // heads, dim=2)
         return a.reshape((B_, nc, Q) + tuple(a.shape[2:])).movedim(3, 1)
@@ -140,14 +145,17 @@ def chunk_bwd_ref(
 
     xc, Bc, Cc, dYc = to_chunks(x, H), to_chunks(Bm, G), to_chunks(Cm, G), to_chunks(dY, H)
     dtc = to_chunks(dt[..., None], H)[..., 0]  # (B, H, nc, Q)
-    dSc, dac = dS.float().transpose(1, 2), da.float().transpose(1, 2)
-    Af = A.float()[None, :, None, None]
+    dSc, dac = dS.to(compute).transpose(1, 2), da.to(compute).transpose(1, 2)
+    Af = A.to(compute)[None, :, None, None]
 
-    cum = torch.cumsum(dtc * Af, dim=-1)
+    # cum in fp64: M, d_end and a_tot take differences of it (|cum| reaches
+    # 100 in Mamba2's ranges, where an fp32 ulp is 8e-6)
+    cum = torch.cumsum(dtc.double() * Af.double(), dim=-1)
     u = xc * dtc[..., None]
     tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
     M = torch.exp((cum[..., :, None] - cum[..., None, :]).masked_fill(~tri, float("-inf")))
-    d_end = torch.exp(cum[..., -1:] - cum)
+    M = M.to(compute)
+    d_end = torch.exp(cum[..., -1:] - cum).to(compute)
     CB = torch.einsum("bhcqn,bhckn->bhcqk", Cc, Bc)
     dGM = torch.einsum("bhcqp,bhckp->bhcqk", dYc, u) * M
     du = (torch.einsum("bhcqk,bhcqp->bhckp", CB * M, dYc)
@@ -156,13 +164,15 @@ def chunk_bwd_ref(
     dB_S = d_end[..., None] * torch.einsum("bhckp,bhcnp->bhckn", u, dSc)
     dB = torch.einsum("bhcqk,bhcqn->bhckn", dGM, Cc) + dB_S
 
-    dGG = dGM * CB  # dG o G
-    e = (Bc * dB_S).sum(-1)
+    # dcum's row and column sums of dG o G cancel in its reverse cumsum, and
+    # dA sums dt dla over every step: the sums from here on run in fp64
+    dGG = (dGM * CB).double()  # dG o G
+    e = (Bc * dB_S).sum(-1).double()
     dcum = dGG.sum(-1) - dGG.sum(-2) - e
-    dcum[..., -1] += e.sum(-1) + dac * torch.exp(cum[..., -1])
+    dcum[..., -1] += e.sum(-1) + dac.double() * torch.exp(cum[..., -1])
     dla = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,))
-    ddt = Af * dla + (xc * du).sum(-1)
-    dA = (dtc * dla).sum((0, 2, 3))
+    ddt = (Af.double() * dla + (xc * du).sum(-1).double()).to(compute)
+    dA = (dtc.double() * dla).sum((0, 2, 3)).to(compute)
     dx = dtc[..., None] * du
 
     def per_group(a):  # (B, L, H, N) -> (B, L, G, N), summed over a group's heads

@@ -13,6 +13,9 @@ masked formulation. The autograd Function ``ops.SSDChunk`` (through
 at 2e-5 wherever JAX's gradient is finite, B and C repeated per head on
 JAX's side and the head gradients summed back per group.
 """
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +23,7 @@ import pytest
 import torch
 
 from repro.models.ssm import ssd_chunked as jax_ssd_chunked
+from repro_torch.configs import all_configs
 from repro_torch.kernels.ssd import ops, ref, ssd_kernel
 
 TOL = 1e-5
@@ -159,6 +163,22 @@ def test_plain_backward_is_finite_where_exp_overflows():
     assert not torch.isfinite(naive[1]).all() and not torch.isfinite(naive[2]).all()
 
 
+@pytest.mark.parametrize("B,L,H,G,P,N,chunk",
+                         [c for c in CASES if c[1] % min(c[6], c[1]) == 0])
+def test_plain_backward_in_fp64_is_the_exact_function(B, L, H, G, P, N, chunk):
+    """``chunk_bwd_ref(..., compute=torch.float64)`` on fp64 inputs equals
+    float64 autograd of the masked forward (1e-12), so it measures how far
+    the fp32 plain version (and, on the card, the kernel) is from the exact
+    function: within 1e-5 here."""
+    inputs = _inputs(L * H + G + 1, B, L, H, G, P, N)
+    cots = _cotangents(L + N + 1, B, L, H, P, N, chunk)
+    wide, wide_cots = [t.double() for t in inputs], [c.double() for c in cots]
+    exact = ref.chunk_bwd_ref(*wide, *wide_cots, chunk, compute=torch.float64)
+    _close(exact, _autograd(_masked64, wide, wide_cots, chunk), 1e-12, "fp64 vs autograd")
+    mixed = ref.chunk_bwd_ref(*inputs, *cots, chunk)
+    _close([m.double() for m in mixed], exact, TOL, "chunk_bwd_ref vs fp64")
+
+
 def _jax_vjp(inputs, cot_y, cot_state, chunk):
     """jax.vjp of ssd_chunked with B and C repeated per head; the B and C
     gradients summed back per group."""
@@ -225,7 +245,125 @@ def test_backward_kernel_refuses_cpu_tensors_and_shapes_it_does_not_take():
     with pytest.raises(ValueError, match="Q <= 64"):
         ssd_kernel.check_bwd_shape(128, 64, 64)
     with pytest.raises(ValueError, match="shared memory"):
-        ssd_kernel.check_bwd_shape(64, 128, 128)
+        ssd_kernel.check_bwd_shape(64, 128, 128)  # fp32: B and C take 68 KB
+    ssd_kernel.check_bwd_shape(64, 128, 128, bf16=True)  # bf16 B, C, x fit
     ssd_kernel.check_bwd_shape(64, 64, 128)  # mamba2-780m
     ssd_kernel.check_bwd_shape(64, 64, 64)  # zamba2-2.7b
-    assert ssd_kernel.bwd_smem_bytes(64, 128, 64) == 178944
+    assert ssd_kernel.bwd_smem_bytes(64, 128, 64) == 167936
+    assert ssd_kernel.bwd_smem_bytes(64, 128, 64, bf16=True) == 188416  # two stages
+
+
+def _per_head_smem_bytes(Q, N, P):
+    """The shared memory of the per-head design this kernel replaced: its
+    limits are the floor of the new plan's."""
+    QP, NP, PP = (-(-v // 16) * 16 for v in (Q, N, P))
+    MT, NT, PT = QP // 16, NP // 16, PP // 16
+    mats = 2 * QP * (NP + 4) + 2 * QP * (PP + 4) + NP * (PP + 4) + 2 * QP * (QP + 4)
+    return 4 * (mats + 7 * QP + 2 * MT * MT * 16 + (NT + PT) * QP)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_backward_plan_takes_every_shape_the_per_head_design_took(bf16):
+    for Q in (1, 16, 17, 32, 48, 63, 64):
+        for N in (1, 8, 30, 64, 96, 112, 120, 128):
+            for P in (1, 8, 18, 64, 96, 112, 120, 128):
+                if _per_head_smem_bytes(Q, N, P) <= ssd_kernel.MAX_SMEM_BYTES:
+                    ssd_kernel.check_bwd_shape(Q, P, N, bf16)
+
+
+# clusters of c CTAs an H100 80GB HBM3 holds at once at mamba2-780m's plan
+# (cudaOccupancyMaxActiveClusters; chip_smoke.py phase 2 prints them; the
+# same at zamba2-2.7b's and in fp32)
+H100_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15, 9: 9, 10: 7,
+                 11: 7, 12: 7, 13: 7, 14: 7, 15: 7, 16: 7}
+
+
+def _smoke_shapes():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return [(label, B, L, H, G, P, N, min(chunk, L), bf16)
+            for label, B, L, H, G, P, N, chunk, bf16, _ in smoke.SSD_BWD_SHAPES]
+
+
+def _ssm_shapes():
+    out = []
+    for arch, cfg in all_configs().items():
+        for c in (cfg, cfg.reduced()):
+            if c.ssm_heads:
+                for B, L in ((2, 1024), (1, 64)):  # training; a short prompt
+                    out.append((c.name, B, L, c.ssm_heads, c.ssm_groups, c.ssm_head_dim,
+                                c.ssm_state, min(c.ssm_chunk, L), c.dtype == "bfloat16"))
+    return out
+
+
+@pytest.mark.parametrize("case", _ssm_shapes() + _smoke_shapes(), ids=lambda c: f"{c[0]}-{c[2]}")
+def test_backward_launch_plan(case):
+    """Head block, cluster, grid and shared memory for every SSM config and
+    every phase-2 shape: within 227 KB, clusters of at most 16 that divide
+    the grid's x, every CTA with at least one head and the group's heads
+    covered once."""
+    label, B, L, H, G, P, N, Q, bf16 = case
+    hg = H // G
+    cluster = ssd_kernel.bwd_cluster(B * -(-L // Q) * G, hg, H100_CLUSTERS.get)
+    plan = ssd_kernel.bwd_plan(Q, P, N, hg, bf16, cluster)
+    grid = (G * plan.cluster, -(-L // Q), B)  # ssd_chunk_bwd.cu's launch
+    assert plan.smem_bytes <= ssd_kernel.MAX_SMEM_BYTES
+    assert plan.smem_bytes == ssd_kernel.bwd_smem_bytes(Q, N, P, bf16)
+    assert 1 <= plan.cluster <= ssd_kernel.MAX_CLUSTER and grid[0] % plan.cluster == 0
+    assert (plan.cluster - 1) * plan.head_block < hg <= plan.cluster * plan.head_block
+    assert plan.stages in (1, 2)
+
+
+def test_backward_cluster_rule():
+    """mamba2-780m's and zamba2-2.7b's training steps (2 x 16 chunks, 48
+    and 80 heads a group) on the H100's residency: 3 CTAs a group, every
+    cluster in one wave; four chunks of 48 heads (phase 2's overflow
+    shape): 16 CTAs of 3 heads, past the portable 8 (each the fastest
+    size in chip_smoke.py phase 2's sweeps); a size the card cannot hold
+    is passed over; one head a group, one CTA."""
+    assert ssd_kernel.bwd_cluster(32, 48, H100_CLUSTERS.get) == 3
+    assert ssd_kernel.bwd_cluster(32, 80, H100_CLUSTERS.get) == 3
+    assert ssd_kernel.bwd_cluster(4, 48, H100_CLUSTERS.get) == 16
+    assert ssd_kernel.bwd_cluster(1, 48, H100_CLUSTERS.get) == 16
+    portable = {c: n if c <= 8 else 0 for c, n in H100_CLUSTERS.items()}
+    assert ssd_kernel.bwd_cluster(4, 48, portable.get) == 8
+    assert ssd_kernel.bwd_cluster(100, 1, H100_CLUSTERS.get) == 1
+    # 13 heads: the head block never divides them past one CTA
+    plan = ssd_kernel.bwd_plan(64, 64, 128, 13, True, 8)
+    assert (plan.head_block, plan.cluster) == (2, 7)
+
+
+@pytest.mark.parametrize("G", [1, 2, 4])
+def test_group_terms_factor_over_the_heads(G):
+    """What the kernel relies on to form dB's and dC's group terms once per
+    CTA: B and C are shared by a group's heads, so sum_h (dG_h o M_h) B =
+    (sum_h dG_h o M_h) B, and the same for dB with C; plus dB's per-head
+    term sum_h d_end_h o (u_h dS_h^T). Written out per group in plain torch
+    and held against chunk_bwd_ref."""
+    B, L, H, P, N, chunk = 2, 48, 8, 8, 16, 16
+    x, dt, A, Bm, Cm = _inputs(31 + G, B, L, H, G, P, N)
+    dY, dS, da = _cotangents(37 + G, B, L, H, P, N, chunk)
+    want = ref.chunk_bwd_ref(x, dt, A, Bm, Cm, dY, dS, da, chunk)
+    Q, nc, hg = chunk, L // chunk, H // G
+    xc = x.reshape(B, nc, Q, G, hg, P)
+    dYc = dY.reshape(B, nc, Q, G, hg, P)
+    dtc = dt.reshape(B, nc, Q, G, hg)
+    Bc, Cc = Bm.reshape(B, nc, Q, G, N), Cm.reshape(B, nc, Q, G, N)
+    dSc = dS.reshape(B, nc, G, hg, N, P)
+    cum = torch.cumsum(dtc * A.reshape(G, hg), dim=2)  # (B, nc, Q, G, hg)
+    tri = torch.ones((Q, Q), dtype=torch.bool).tril()
+    diff = cum[:, :, :, None] - cum[:, :, None]  # (B, nc, t, tau, G, hg)
+    M = torch.exp(diff.masked_fill(~tri[None, None, :, :, None, None], float("-inf")))
+    d_end = torch.exp(cum[:, :, -1:] - cum)
+    u = xc * dtc[..., None]
+    dG = torch.einsum("bcqghp,bckghp->bcqkgh", dYc, u)
+    D = (dG * M).sum(-1)  # the group's sum over its heads, once
+    dC = torch.einsum("bcqkg,bckgn->bcqgn", D, Bc)
+    S = (d_end[..., None] * torch.einsum("bckghp,bcghnp->bckghn", u, dSc)).sum(-2)
+    dB = torch.einsum("bcqkg,bcqgn->bckgn", D, Cc) + S
+    for name, got, w in (("dB", dB, want[3]), ("dC", dC, want[4])):
+        got = got.reshape(B, L, G, N)
+        err = (got - w).abs().max().item()
+        assert err <= 1e-5 * max(1.0, w.abs().max().item()), (G, name, err)

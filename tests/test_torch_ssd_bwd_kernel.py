@@ -5,13 +5,18 @@ every test skips without one).
 ``ref.chunk_bwd_ref`` on the same card tensors: mamba2-780m's layout (P =
 64, N = 128, one group) and zamba2-2.7b's (N = 64), with x, B and C as bf16
 or fp32 views of one conv output, a ragged last chunk (L = 1000) and a
-17-step chunk, G = 4 groups of H = 8 heads, and the chunk whose decay
-overflows exp (finite outputs equal to the plain version's). Bars, relative
+17-step chunk, G = 4 groups of H = 8 heads, head counts per group that
+the head block does or does not divide (12, 3, 13 and 20 heads a group),
+N = P = 128 in bf16, and the chunk whose decay overflows exp (finite
+outputs equal to the plain version's). Bars, relative
 to max(1, max|plain|) as for K3-bwd: fp32 outputs (d(dt), dA, and dx, dB,
 dC of fp32 inputs) 2e-5, the same sums in another order with the products
 in split TF32; outputs rounded to bf16 2e-2, one bf16 step apart where the
 two fp32 values straddle a rounding boundary. Two launches give the same
-bits. The autograd Function ``ops.SSDChunk`` launches K4 and K4-bwd once
+bits, at every cluster size too. Both the kernel and the plain version
+are within the fp32 bar of the same function evaluated in fp64
+(``chunk_bwd_ref(..., compute=torch.float64)``) at mamba2-780m's fp32
+layout and at G = 4. The autograd Function ``ops.SSDChunk`` launches K4 and K4-bwd once
 each and its gradients match the CPU's. This module imports no JAX, so that
 the card's run can collect it:
 
@@ -81,6 +86,15 @@ def _check(got, want, bf16):
         (2, 100, 8, 4, 64, 64, 64, torch.float32),  # G = 4 of H = 8
         (1, 96, 6, 3, 18, 30, 32, torch.float32),  # rows not 16-byte multiples
         (1, 64, 4, 4, 128, 64, 64, torch.float32),  # P = 128
+        # head blocks: 12 heads in 6 CTAs of 2, 3 a group in 3 CTAs of 1,
+        # 13 in 7 CTAs of 2 (the last holds 1), 20 in 7 of 3 (the last 2)
+        (1, 256, 12, 1, 64, 128, 64, torch.bfloat16),
+        (1, 256, 12, 1, 64, 128, 64, torch.float32),
+        (2, 200, 6, 2, 64, 64, 64, torch.bfloat16),
+        (2, 200, 6, 2, 64, 64, 64, torch.float32),
+        (1, 256, 13, 1, 64, 64, 64, torch.bfloat16),
+        (1, 130, 20, 1, 32, 128, 64, torch.float32),
+        (1, 128, 2, 1, 128, 128, 64, torch.bfloat16),  # N = P = 128 (fits in bf16)
     ],
 )
 def test_backward_kernel_matches_plain(cuda, B, L, H, G, P, N, chunk, dtype):
@@ -110,6 +124,35 @@ def test_backward_kernel_is_bit_deterministic(cuda):
     b = ssd_kernel.ssd_chunk_bwd_kernel(*inputs, *cots, chunk=64)
     torch.cuda.synchronize()
     assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,H,G,P,N", [(2, 1024, 48, 1, 64, 128), (2, 256, 8, 4, 64, 64)])
+def test_backward_kernel_and_plain_are_near_fp64(cuda, B, L, H, G, P, N):
+    """The plain version runs cum and the sums from dcum on in fp64 (the
+    kernel does too): both it and the kernel are within the fp32 bar of
+    the function evaluated in fp64 throughout, at mamba2-780m's fp32
+    layout and at 4 groups."""
+    inputs, cots = _inputs(11 + G, B, L, H, G, P, N, cuda, torch.float32)
+    exact = ref.chunk_bwd_ref(*inputs, *cots, 64, compute=torch.float64)
+    _check(ssd_kernel.ssd_chunk_bwd_kernel(*inputs, *cots, chunk=64), exact, False)
+    _check(ref.chunk_bwd_ref(*inputs, *cots, 64), exact, False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_at_every_cluster_size(cuda, dtype):
+    """Clusters of 1 .. 16 CTAs (16 is past the portable 8) on 4 (batch,
+    chunk) units of 48 heads: each within its bar of the plain version and
+    bit-equal to the launch plan's choice for the sums that do not cross
+    CTAs (dx, d(dt), dA)."""
+    inputs, cots = _inputs(12, 1, 256, 48, 1, 64, 128, cuda, dtype)
+    want = ref.chunk_bwd_ref(*inputs, *cots, 64)
+    base = ssd_kernel.ssd_chunk_bwd_kernel(*inputs, *cots, chunk=64)
+    for c in range(1, ssd_kernel.MAX_CLUSTER + 1):
+        got = ssd_kernel.ssd_chunk_bwd_kernel(*inputs, *cots, chunk=64, cluster=c)
+        _check(got, want, dtype == torch.bfloat16)
+        assert all(torch.equal(u, v) for u, v in zip(got[:3], base[:3])), c
 
 
 @pytest.mark.gpu
