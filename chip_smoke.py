@@ -46,7 +46,10 @@ Phases, each printing its own lines:
               each called twice (bit-equal), the fp32 ones also against
               the function in fp64, and timed beside the design's byte
               count and its launch plan; every cluster size timed at the
-              two training layouts and the overflow chunk;
+              two training layouts and the overflow chunk; K1 and K2 on
+              a pod slice of Synthetic-1 with empty tasks (n_i = 0, as the
+              mesh engines feed them), each task a view between NaN
+              sentinels, against their plain versions;
   3. main path — DMTRLEstimator(solver="pallas_round") fits the paper's
               MNIST-width problem (mnist_like, scale 1.0) on the card, then
               scores and predicts; the fused round kernel must carry every
@@ -130,7 +133,17 @@ Phases, each printing its own lines:
               --steps 3 --ckpt-dir ...), its checkpoint reloaded bit for
               bit; (d) mamba2-780m at full width and depth (48 layers, bf16,
               remat) trains 10 steps as (a) does: the loss is finite and
-              falls, K4 runs 96 and K4-bwd 48 times a step.
+              falls, K4 runs 96 and K4-bwd 48 times a step;
+ 11. the mesh engines — (a) DMTRLEstimator(engine="distributed") on the
+              local one-device mesh at phase 3's configuration, against
+              phase 3's fit; (b) the same over a one-rank NCCL world
+              (make_mesh over torch.distributed; the collectives counted);
+              (c) pallas_block on Synthetic-1, against phase 4's fit; (d)
+              engine="async" with the simulated transport at tau = 0
+              (against a), tau = 2 with delays (2,), and the
+              g1_tau2_omega1 golden history replayed; (e) low_rank_diag at
+              4096 tasks on (b)'s world (the factored reduce), against
+              phase 6c's fit.
 
 It exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository. The line before the last is a JSON object with
@@ -147,6 +160,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -1850,7 +1864,7 @@ def round_at_many_tasks(torch, dev, card: str, data, sm_clock: str):
     cluster_ms = {c: cuda_ms(torch, lambda c=c: sdca_round_kernel(
         x, y, alpha, w, u, n, kappa, "hinge", block=BLOCK, cluster=c), reps=20)
         for c in sdca_kernel.SUPPORTED_CLUSTERS}
-    srt = coords_from_uniform(u, n).sort(dim=1).values
+    srt = coords_from_uniform(u, n, n_max).sort(dim=1).values
     uniq = int((srt[:, 1:] != srt[:, :-1]).sum().item()) + m
     nbytes = (uniq * d * 4 + uniq * 8) + (m * d * 4 + m * H * 4 + m * 8) \
         + (m * n_max * 4 + m * d * 4)
@@ -1945,6 +1959,214 @@ def structured_path(torch, dev, card: str, data) -> None:
           f"{TOL_SIGMA_ROW:.0e}); smallest eigenvalue {lam_min:.3e}; tr {float(sparse.trace()):.7f}")
     check(sp_err <= TOL_SIGMA_ROW, "SparseSigma rows disagree with its dense form")
     check(lam_min >= -1e-6, f"graphical_lasso Sigma is not PSD: {lam_min}")
+    return est
+
+
+def empty_task_checks(torch, dev, data) -> tuple:
+    """Phase 2, K1 and K2 on the tasks the mesh engines feed them: the
+    second of 2 pod slices of Synthetic-1 (real tasks with 0 < n_i < n_loc
+    or n_i = 0 there) with two more tasks emptied (padded tasks), each
+    task a view between NaN sentinels. Every row a task's plain version
+    does not read (at and past n_i, but for the last row of an empty task,
+    which -1 wraps to) is NaN too, so a read outside shows as a non-finite
+    output and a write into another task's entry as a mismatch. Returns
+    the largest error of each kernel."""
+    from repro_torch import prng
+    from repro_torch.core.losses import get_loss
+    from repro_torch.core.sdca import kappa_of
+    from repro_torch.core.solver_backends import get_backend
+    from repro_torch.kernels.sdca import ops, ref, sdca_block_kernel
+
+    m, n_max, d = data.x.shape
+    n_loc = (n_max + 1) // 2
+    n_local = torch.clamp(data.n.to(torch.int64) - n_loc, 0, n_loc).to(torch.int32)
+    n_local[[0, 3]] = 0
+    rs = np.random.RandomState(7)
+    px = torch.zeros((m, n_loc, d))
+    px[:, : n_max - n_loc] = data.x[:, n_loc:].cpu()
+    py = torch.zeros((m, n_loc))
+    py[:, : n_max - n_loc] = data.y[:, n_loc:].cpu()
+    pa = torch.from_numpy(0.5 * rs.rand(m, n_loc).astype(np.float32)) * py
+    bufs = [torch.full((m + 2, n_loc) + a.shape[2:], float("nan")) for a in (px, py, pa)]
+    for t in range(m):
+        nt = int(n_local[t])
+        rows = slice(n_loc - 1, n_loc) if nt == 0 else slice(0, nt)
+        for buf, a in zip(bufs, (px, py, pa)):
+            buf[t + 1, rows] = a[t, rows]
+    bufs = [b.to(dev) for b in bufs]
+    x, y, alpha = (b[1:-1] for b in bufs)
+    n_local = n_local.to(dev)
+    H = n_loc + (-n_loc) % BLOCK
+    keys = prng.fold_in(prng.fold_in(prng.PRNGKey(2), torch.arange(m)), 1)
+    u = prng.uniform(keys, (H,), device=dev)
+    w = torch.from_numpy(0.05 * np.random.RandomState(5).randn(m, d).astype(np.float32)).to(dev)
+    sig = torch.full((m,), 1.0 / m, device=dev)
+    kappa = kappa_of(1.0, SYN_LAM, n_local, sig)
+    err = err_b = 0.0
+    for loss in LOSSES:
+        da, r = ops.sdca_round(x, y, alpha, w, u, n_local, kappa, loss, block=BLOCK)
+        torch.cuda.synchronize()
+        da_p, r_p = ref.sdca_round_ref(x, y, alpha, w, u, n_local, kappa, loss)
+        finite = bool(torch.isfinite(da).all() and torch.isfinite(r).all())
+        e = max((da - da_p).abs().max().item(), (r - r_p).abs().max().item())
+        solve = get_backend("pallas_block").make(get_loss(loss), 1.0, SYN_LAM, H, block=BLOCK)
+        before = sdca_block_kernel.launches
+        db, rb = solve(x, y, alpha, w, n_local, sig, keys)
+        torch.cuda.synchronize()
+        launched = sdca_block_kernel.launches - before
+        cpu = [t.cpu() for t in (x, y, alpha, w, n_local, sig)]
+        db_p, rb_p = solve(*cpu, keys)
+        finite_b = bool(torch.isfinite(db).all() and torch.isfinite(rb).all())
+        eb = max((db.cpu() - db_p).abs().max().item(), (rb.cpu() - rb_p).abs().max().item())
+        print(f"[2 empty tasks {loss}] pod slice of Synthetic-1 (m={m}, n_loc={n_loc}, d={d}), "
+              f"n_i = {n_local.tolist()}: sdca_round max|dalpha, r - plain| = {e:.3e} "
+              f"(tolerance {TOL_ROUND:.0e}), finite {finite}; gather + sdca_block + scatter "
+              f"({launched} launches) against the CPU: {eb:.3e} (tolerance {TOL_BLOCK:.0e}), "
+              f"finite {finite_b}")
+        check(finite and finite_b, f"empty tasks {loss}: a kernel read outside its task")
+        check(e <= TOL_ROUND, f"empty tasks {loss}: sdca_round disagrees with its plain version")
+        check(eb <= TOL_BLOCK, f"empty tasks {loss}: the pallas_block solve disagrees")
+        check(launched == H // BLOCK, f"sdca_block launched {launched} times")
+        err, err_b = max(err, e), max(err_b, eb)
+    return err, err_b
+
+
+def mesh_engines_path(torch, dev, card: str, train, syn, ref3, ref4, many, ref6c) -> dict:
+    """Phase 11: the paper's mesh engines on the card (core/distributed.py).
+    (a) engine="distributed" on the local one-device mesh, phase 3's fit;
+    (b) the same over a one-rank NCCL world (every collective through
+    NCCL, counted); (c) pallas_block on Synthetic-1, phase 4's fit; (d)
+    engine="async" with the default simulated transport: tau = 0 against
+    (a), tau = 2 with worker delays (2,), the g1_tau2_omega1 golden history
+    replayed; (e) low_rank_diag at 4096 tasks on (b)'s world with the
+    factored reduce, against phase 6c's fit. Returns the K1/K2 launches of
+    each path."""
+    import torch.distributed as dist
+
+    from repro_torch.core import AsyncOptions, DMTRLConfig, DMTRLEstimator, fit_async, make_mesh
+    from repro_torch.core import distributed as dist_mod
+    from repro_torch.kernels.sdca import reset_launch_counts, sdca_block_kernel, sdca_round_kernel
+
+    launches = {}
+
+    def fit(tag, data, expect_round, expect_block, **kw):
+        reset_launch_counts()
+        dist_mod.reset_collective_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est = DMTRLEstimator(device=dev, **kw).fit(data)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = (sdca_round_kernel.launches, sdca_block_kernel.launches)
+        launches[tag] = {"sdca_round": got[0], "sdca_block": got[1]}
+        check(got == (expect_round, expect_block),
+              f"[{tag}] launches (sdca_round, sdca_block) {got}, expected "
+              f"{(expect_round, expect_block)}")
+        gap = est.history["gap"]
+        check(bool(np.all(np.isfinite(gap))) and gap[-1] < gap[0],
+              f"[{tag}] gap did not shrink: {gap[0]} -> {gap[-1]}")
+        return est, secs, gap, dict(dist_mod.COLLECTIVES)
+
+    def against(tag, est, ref, tol_w=TOL_W, tol_s=TOL_SIGMA):
+        dW = (est.W_ - ref.W_).abs().max().item()
+        dS = (est.sigma_ - ref.sigma_).abs().max().item()
+        check(dW <= tol_w and dS <= tol_s,
+              f"[{tag}] max|dW| {dW:.3e} (tol {tol_w:.0e}), max|dSigma| {dS:.3e} "
+              f"(tol {tol_s:.0e})")
+        return dW, dS
+
+    cfg3 = dict(solver="pallas_round", loss="hinge", lam=1e-4, outer_iters=2, rounds=5,
+                local_iters=0, block_size=BLOCK)
+    n3 = cfg3["outer_iters"] * cfg3["rounds"]
+    # phase 3's fit again, warm, beside the mesh engine in the same call
+    _, r_s, _, _ = fit("11a reference", train, n3, 0, **cfg3)
+    a, a_s, a_gap, _ = fit("11a distributed", train, n3, 0, engine="distributed", **cfg3)
+    dW, dS = against("11a", a, ref3)
+    print(f"[11a distributed] local one-device mesh, x {tuple(train.x.shape)}: {a_s:.2f} s for "
+          f"{n3} rounds = {a_s / n3 * 1e3:.2f} ms/round wall (objectives and Omega-steps "
+          f"included; the reference engine warm {r_s / n3 * 1e3:.2f}); against phase 3's fit "
+          f"max|dW| {dW:.3e} (tol {TOL_W:.0e}), max|dSigma| {dS:.3e} (tol {TOL_SIGMA:.0e}); "
+          f"gap {a_gap[0]:.5f} -> {a_gap[-1]:.5f}; sdca_round launches "
+          f"{launches['11a distributed']['sdca_round']} (1 a round) on {card}")
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1,), ("data",), device=dev)
+        # the communicators come up at their first call: one of each kind
+        # on every group, before the timed fits
+        dist_mod.psum(torch.zeros(1, device=dev), mesh, "data")
+        dist_mod.all_gather(torch.zeros(1, device=dev), mesh, "data")
+        dist_mod.broadcast(torch.zeros(1, device=dev), mesh)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        check(mesh.distributed, f"not a process-group mesh: {mesh}")
+        b, b_s, b_gap, coll = fit("11b nccl", train, n3, 0, engine="distributed", mesh=mesh,
+                                  **cfg3)
+        dW, dS = against("11b", b, ref3)
+        same = bool(torch.equal(b.W_, a.W_) and torch.equal(b.sigma_, a.sigma_))
+        print(f"[11b nccl] one-rank {dist.get_backend()} world on {mesh.device} (init and "
+              f"first collectives {init_s:.2f} s): "
+              f"{b_s:.2f} s for {n3} rounds = {b_s / n3 * 1e3:.2f} ms/round wall; against "
+              f"phase 3's fit max|dW| {dW:.3e}, max|dSigma| {dS:.3e}; bit-equal to 11a {same}; "
+              f"collectives through {dist.get_backend()} {sum(coll.values())} "
+              f"({', '.join(f'{k} {v}' for k, v in sorted(coll.items()))}; "
+              f"{sum(coll.values()) / n3:.1f} a round)")
+        check(sum(coll.values()) >= 2 * n3, f"[11b] only {coll} collectives went through NCCL")
+
+        # (e) the structured path at 4096 tasks on the same world
+        cfg6 = dict(solver="pallas_round", loss="hinge", lam=1e-3, outer_iters=2, rounds=3,
+                    block_size=BLOCK)
+        n6 = cfg6["outer_iters"] * cfg6["rounds"]
+        lowrank = dict(regularizer="low_rank_diag", regularizer_params={"rank": MANY_RANK})
+        _, r6_s, _, _ = fit("11e reference", many.train, n6, 0, **lowrank, **cfg6)
+        e, e_s, e_gap, coll = fit("11e low_rank_diag 4096", many.train, n6, 0,
+                                  engine="distributed", mesh=mesh, **lowrank, **cfg6)
+        dW, dS = against("11e", e, ref6c)
+        check(e.sigma_view_ is not None and e.sigma_view_.kind == "low_rank_diag",
+              "[11e] the fit did not keep the low-rank factors")
+        print(f"[11e low_rank_diag 4096] x {tuple(many.train.x.shape)} on the NCCL mesh: "
+              f"{e_s:.2f} s for {n6} rounds = {e_s / n6 * 1e3:.2f} ms/round wall (the reference "
+              f"engine warm {r6_s / n6 * 1e3:.2f}); against "
+              f"phase 6c's fit max|dW| {dW:.3e} (tol {TOL_W:.0e}), max|dSigma| {dS:.3e} (tol "
+              f"{TOL_SIGMA:.0e}); gap {e_gap[0]:.5f} -> {e_gap[-1]:.5f}; sdca_round launches "
+              f"{launches['11e low_rank_diag 4096']['sdca_round']}; collectives "
+              f"{sum(coll.values())}")
+    finally:
+        dist.destroy_process_group()
+
+    cfg4 = dict(solver="pallas_block", loss="hinge", lam=SYN_LAM, outer_iters=2, rounds=5,
+                local_iters=0, block_size=BLOCK)
+    H4 = syn.train.n_max + (-syn.train.n_max) % BLOCK
+    c, c_s, _, _ = fit("11c pallas_block", syn.train, 0, n3 * (H4 // BLOCK),
+                       engine="distributed", **cfg4)
+    dW, dS = against("11c", c, ref4)
+    print(f"[11c pallas_block] Synthetic-1 x {tuple(syn.train.x.shape)} on the local mesh: "
+          f"{c_s:.2f} s; against phase 4's block_gram fit max|dW| {dW:.3e}, max|dSigma| "
+          f"{dS:.3e}; sdca_block launches {launches['11c pallas_block']['sdca_block']} "
+          f"(= {n3} rounds x {H4 // BLOCK} blocks)")
+
+    # (d) the async engine's default transport
+    d0, d0_s, _, _ = fit("11d async tau=0", train, n3, 0, engine="async", **cfg3)
+    e0 = max((d0.W_ - a.W_).abs().max().item(), (d0.sigma_ - a.sigma_).abs().max().item())
+    check(e0 <= 1e-6, f"[11d] simulated tau=0 differs from 11a by {e0}")
+    d2, d2_s, d2_gap, _ = fit("11d async tau=2", train, n3, 0, engine="async",
+                              async_options=AsyncOptions(tau=2, async_delays=(2,)), **cfg3)
+    with open(ROOT / "tests" / "golden" / "async_histories.json") as f:
+        rec = json.load(f)["g1_tau2_omega1"]
+    kw = dict(rec["config"], async_delays=tuple(rec["config"]["async_delays"]))
+    from repro_torch.data.synthetic import synthetic
+
+    _, _, _, hist = fit_async(DMTRLConfig(**kw), synthetic(1, **rec["problem"]).train,
+                              device=dev)
+    got = {k: np.asarray(hist[k]).astype(int).tolist() for k in rec["history"]}
+    check(got == rec["history"], "[11d] the g1_tau2_omega1 golden history differs")
+    print(f"[11d async] simulated transport: tau=0 {d0_s / n3 * 1e3:.2f} ms/round wall, "
+          f"max|d(W, Sigma)| against 11a {e0:.3e} (tolerance 1e-06); tau=2 with delays (2,) "
+          f"{d2_s:.2f} s, gap {d2_gap[0]:.5f} -> {d2_gap[-1]:.5f}, max staleness "
+          f"{int(d2.history['w_staleness'].max())}; golden g1_tau2_omega1 replayed on "
+          f"{hist['round'].shape[0]} samples: equal")
+    return launches
 
 
 def wire_counters(transport: str, codec: str, topology: str = "star") -> dict:
@@ -2317,7 +2539,7 @@ def main() -> int:
           f"cycles at {sm_clock} MHz)")
     plain_round = cuda_ms(torch, lambda: ref.sdca_round_ref(
         x, y, alpha, w, u, n, kappa, "hinge"), reps=1)
-    coords = coords_from_uniform(u, n)
+    coords = coords_from_uniform(u, n, N_MAX)
     uniq = sum(int(torch.unique(coords[t]).numel()) for t in range(M))
     rows_bytes = uniq * D * 4 + uniq * 8  # gathered rows + their alpha, y
     io_bytes = (M * D * 4 + M * H * 4 + M * 8) + (M * N_MAX * 4 + M * D * 4)
@@ -2390,6 +2612,8 @@ def main() -> int:
               f"{floor_block[1] * 1e3:.2f} us ({BLOCK} steps x 60-100 cycles at {sm_clock} "
               f"MHz) on {card}")
     ms_block, plain_block, b_block, by_block = block_times["Synthetic-1"]
+    e_round, e_block = empty_task_checks(torch, dev, syn.train)
+    err_round, err_block = max(err_round, e_round), max(err_block, e_block)
     err_round = max(err_round, round_at_many_tasks(torch, dev, card, many_train, sm_clock))
     del many_train
     del shapes, sx, sy, s_alpha, s_w, s_r
@@ -2421,6 +2645,8 @@ def main() -> int:
     check(launches_round == n_rounds,
           f"sdca_round launched {launches_round} times, expected {n_rounds}")
     check(launches_block_main == 0, "the main path launched sdca_block")
+    # phase 3's fit as phase 11 compares with it (partial_fit moves est below)
+    ref3 = SimpleNamespace(W_=est.W_.clone(), sigma_=est.sigma_.clone())
     tr = float(torch.trace(est.sigma_))
     check(abs(tr - 1.0) <= 1e-5, f"tr(Sigma) = {tr}")
     W_alpha = dual_mod.weights_from_alpha(train, est.alpha_, est.sigma_, cfg["lam"])
@@ -2494,7 +2720,7 @@ def main() -> int:
     # -- phase 6: the MTL serving path; 6c: structured Sigma at 4096 tasks -----
     t6 = time.perf_counter()
     mtl_serving_path(torch, dev, card, est, train, test)
-    structured_path(torch, dev, card, many)
+    ref6c = structured_path(torch, dev, card, many)
     print(f"[6] {time.perf_counter() - t6:.1f} s wall")
 
     # -- phase 7: the parameter server; 7d: the paper's claims ---------------
@@ -2520,6 +2746,10 @@ def main() -> int:
     train_by_path["10d mamba2-780m train"] = train_main_path(torch, dev, card, "mamba2-780m",
                                                              "10d", min_drop=0.0)
     print(f"[10] {time.perf_counter() - t10:.1f} s wall")
+    # -- phase 11: the mesh engines (distributed, simulated transport) -------
+    t11 = time.perf_counter()
+    mesh_launches = mesh_engines_path(torch, dev, card, train, syn, ref3, ref_est, many, ref6c)
+    print(f"[11] {time.perf_counter() - t11:.1f} s wall")
 
     def by_kernel(name):
         return {k: v[name] for k, v in {"5c zamba2-2.7b stream": stream_launches,
@@ -2538,13 +2768,16 @@ def main() -> int:
              launches=launches_round, max_abs_err=err_round, ms=ms_round,
              plain_ms=plain_round, bound_ms=b_round, bound_by=by_round,
              library_ms=None, launches_by_path={
-                 "3 fit": launches_round, "8e bridge": by_path["8e bridge"]["sdca_round"]}),
+                 "3 fit": launches_round, "8e bridge": by_path["8e bridge"]["sdca_round"],
+                 **{k: v["sdca_round"] for k, v in mesh_launches.items() if v["sdca_round"]}}),
         dict(name="sdca_block", route="cuda",
              source="src/repro_torch/kernels/sdca/csrc/sdca_block.cu",
              replaces="src/repro/kernels/sdca/sdca_kernel.py:143",
              launches=launches_block, max_abs_err=err_block, ms=ms_block,
              plain_ms=plain_block, bound_ms=b_block, bound_by=by_block,
-             library_ms=None),
+             library_ms=None, launches_by_path={
+                 "4 synthetic1": launches_block,
+                 **{k: v["sdca_block"] for k, v in mesh_launches.items() if v["sdca_block"]}}),
         dict(name="flash_fwd", route="cuda",
              source="src/repro_torch/kernels/flash/csrc/flash_fwd.cu",
              replaces="src/repro/kernels/flash/flash_kernel.py:84",

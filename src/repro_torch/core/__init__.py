@@ -5,7 +5,14 @@
     est.fit(train).score(test)
 """
 from .async_dmtrl import AsyncOptions, fit_async
-from .distributed import MeshAxes
+from .distributed import (
+    DistributedOptions,
+    Mesh,
+    MeshAxes,
+    fit_distributed,
+    local_mesh,
+    make_mesh,
+)
 from .dmtrl import (
     DMTRLConfig,
     DMTRLResult,

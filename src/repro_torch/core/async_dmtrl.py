@@ -20,8 +20,10 @@ over a pluggable ``core.transport`` member (``AsyncOptions.transport``):
                 protected versioned state, nondeterministic arrivals).
   multiprocess  socket/pickle parameter server with per-worker processes.
   gossip        serverless neighbor averaging (core/gossip.py).
-  simulated     the JAX package's mesh simulation; needs the mesh engines
-                (ROADMAP §A item 15) and raises here.
+  simulated     deterministic per-worker clocks over a mesh (the data
+                axis's positions are the workers), one masked SPMD tick per
+                commit event (the default; without a mesh, the local
+                one-device mesh on ``device``).
 
 Staleness semantics (all transports)
 ------------------------------------
@@ -43,10 +45,12 @@ is *installed* only after k server commits of the next W-step. rho is still
 computed from the new Sigma at the boundary. A pending Sigma is never
 dropped — it lands at the next barrier at the latest.
 
-Parity anchor: at ``tau=0`` the host transports match the ``reference``
-engine (``dmtrl.fit``) to float association: they draw the same
-coordinates from the same keys and read the same round-boundary state;
-only the order of the per-worker reduces differs.
+Parity anchors: at ``tau=0`` the ``simulated`` transport runs
+``fit_distributed``'s arithmetic, and its integer event bookkeeping is
+pinned by the golden histories (``tests/golden/``); the host transports
+match the ``reference`` engine (``dmtrl.fit``) to float association: they
+draw the same coordinates from the same keys and read the same
+round-boundary state; only the order of the per-worker reduces differs.
 """
 from __future__ import annotations
 
@@ -55,8 +59,8 @@ from typing import Optional, Tuple, Union
 
 from .. import prng
 from . import omega_regularizers as omega_reg
-from .distributed import MeshAxes
-from .dmtrl import DMTRLConfig, WarmStart, _rho_value, resolve_device, validate_async_fields
+from .distributed import MeshAxes, local_mesh
+from .dmtrl import DMTRLConfig, WarmStart, resolve_device, validate_async_fields
 from .mtl_data import MTLData
 from .transport import _adapt_tau, _worker_delays, get_transport
 from ..obs.metrics import publish_wire_stats
@@ -143,12 +147,14 @@ def fit_async(
     ``options`` (AsyncOptions) overrides the legacy staleness fields of the
     config — including ``transport=`` which picks the execution substrate;
     ``init`` warm-starts from raw-shaped (alpha, sigma, omega);
-    ``regularizer`` overrides the Omega family member. ``mesh`` (any object
-    with a ``shape`` mapping of axis sizes) is read only for its data-axis
-    size when ``n_workers`` is unset. The server state lives on ``device``,
-    the card unless the caller passes "cpu".
+    ``regularizer`` overrides the Omega family member. The ``simulated``
+    transport runs over ``mesh`` (``distributed.make_mesh``; the local
+    one-device mesh on ``device`` when None); the host transports read only
+    its data-axis size, when ``n_workers`` is unset. The run's device is
+    the mesh's when a mesh is given, else ``device``, the card unless the
+    caller passes "cpu".
     """
-    device = resolve_device(device)
+    device = mesh.device if mesh is not None else resolve_device(device)
     if axes is None:
         axes = MeshAxes()
     if options is not None:
@@ -172,6 +178,8 @@ def fit_async(
     with span("fit_async", cat="driver", transport=cfg.transport):
         with span("setup", cat="driver", transport=cfg.transport):
             spec = get_transport(cfg.transport)
+            if mesh is None and spec.needs_mesh:
+                mesh = local_mesh(axes, device)
             transport = spec.factory()
             transport.setup(
                 cfg, raw, mesh=mesh, axes=axes, reg=reg, init=init,
@@ -183,16 +191,13 @@ def fit_async(
         rho_sigma = transport.rho_sigma()
         try:
             for p in range(cfg.outer_iters):
-                rho = _rho_value(
-                    cfg, rho_sigma, n_blocks_scale=float(transport.n_pods), reg=reg
-                )
+                rho = transport.rho_value(cfg, rho_sigma, reg)
                 key, outer_key = prng.split(key)
                 with span("w_step", cat="driver", outer=p):
                     transport.run_w_step(p, rho, outer_key)
                 if reg.learns:
                     with span("omega_step", cat="driver", outer=p):
-                        sigma_t, omega_t = reg.step(transport.w_true(), cfg.omega_jitter)
-                        sig, om = transport.pad_sigma(sigma_t, omega_t)
+                        sig, om = transport.next_sigma(reg)
                         # overlapped Omega-step: defer the install into the
                         # next W-step except at the end (the last Sigma must
                         # land now)

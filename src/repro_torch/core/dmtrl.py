@@ -152,9 +152,8 @@ class DMTRLConfig:
 
     The per-engine knobs at the bottom are the legacy surface of the async
     engine (``core/async_dmtrl.py``; the estimator takes them as typed
-    ``AsyncOptions`` instead) and of the mesh engine, which is not ported
-    (its two gram options are kept, unread, so that a JAX config carries
-    over unchanged).
+    ``AsyncOptions`` instead) and of the mesh engine
+    (``core/distributed.py``; ``DistributedOptions``).
     """
 
     loss: str = "hinge"
@@ -175,8 +174,8 @@ class DMTRLConfig:
     omega_regularizer: str = "trace_constraint"  # family member name,
     #               resolved through core.omega_regularizers
     seed: int = 0
-    gram_bf16: bool = False  # mesh engine (not ported: ROADMAP §A item 15)
-    dist_block_hoisted: bool = False  # mesh engine (not ported)
+    gram_bf16: bool = False  # mesh engine, model axis: X in bf16 for the Gram
+    dist_block_hoisted: bool = False  # mesh engine, model axis: block Gram
     track_every: int = 1  # record objectives every k rounds
     # --- async engine (legacy; see async_dmtrl.AsyncOptions) ---------------
     tau: Union[int, str] = 0  # staleness bound: a worker may run at most tau
@@ -187,8 +186,8 @@ class DMTRLConfig:
     #               ticks (host transports: sleep pacing); None == all 1
     omega_delay: int = 0  # server commits the Omega-step install waits for
     transport: str = "simulated"  # snapshot/commit substrate, resolved
-    #               through core.transport: "threaded" | "multiprocess" |
-    #               "gossip" ("simulated" needs a mesh and raises)
+    #               through core.transport: "simulated" (over a mesh) |
+    #               "threaded" | "multiprocess" | "gossip"
     n_workers: Optional[int] = None  # host-transport worker count; None == 1
     staleness_budget: Optional[float] = None  # tau="auto" cost target
     topology: Union[str, tuple] = "complete"  # gossip neighbor graph:

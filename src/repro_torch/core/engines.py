@@ -2,19 +2,21 @@
 
 The estimator resolves an engine with ``get_engine`` and calls the uniform
 
-    engine.run(cfg, data, regularizer=..., init=..., track=..., device=...)
-        -> EngineResult
+    engine.run(cfg, data, mesh=..., axes=..., options=..., regularizer=...,
+               init=..., track=..., device=...) -> EngineResult
 
 contract. Registered here:
 
   reference    single-process Algorithm 1 (core/dmtrl.py:fit); the
-               semantic oracle.
-  async        bounded-staleness (SSP) engine over a host transport
-               (core/async_dmtrl.py:fit_async; threaded, multiprocess or
-               gossip); AsyncOptions.
+               semantic oracle. No mesh, no options.
+  distributed  the parameter-server W-step over a mesh of process groups
+               (core/distributed.py:fit_distributed); DistributedOptions.
+  async        bounded-staleness (SSP) engine (core/async_dmtrl.py:
+               fit_async) over the simulated mesh transport or a host
+               transport (threaded, multiprocess, gossip); AsyncOptions.
 
-The JAX package's ``distributed`` (mesh) engine is not ported yet (ROADMAP
-§A item 15); asking for it raises NotImplementedError.
+The mesh engines run on the local one-device mesh on ``device`` when the
+caller passes no mesh.
 """
 from __future__ import annotations
 
@@ -25,12 +27,17 @@ import numpy as np
 import torch
 
 from .async_dmtrl import AsyncOptions, fit_async as _fit_async
+from .distributed import (
+    DistributedOptions,
+    MeshAxes,
+    fit_distributed as _fit_distributed,
+    gather_state,
+    local_mesh,
+)
 from .dmtrl import DMTRLConfig, WarmStart, fit as _fit_reference
 from .mtl_data import MTLData
 from .sigma_view import SigmaView, maybe_dense
 from ..obs.trace import span
-
-_NOT_PORTED = ("distributed",)
 
 
 @dataclasses.dataclass
@@ -55,7 +62,7 @@ class Engine:
 
     name: str
     description: str
-    # run(cfg, data, *, regularizer, init, track, device[, options])
+    # run(cfg, data, *, mesh, axes, options, regularizer, init, track, device)
     run: Callable[..., EngineResult]
     # the typed options its run takes as options= (None: takes none)
     options_cls: Optional[type] = None
@@ -70,11 +77,6 @@ def register_engine(engine: Engine) -> Engine:
 
 
 def get_engine(name: str) -> Engine:
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"engine {name!r} runs on a device mesh and is not ported yet "
-            f"(ROADMAP §A item 15); have {sorted(_REGISTRY)}"
-        )
     try:
         return _REGISTRY[name]
     except KeyError as e:
@@ -85,15 +87,35 @@ def available_engines() -> Dict[str, Engine]:
     return dict(sorted(_REGISTRY.items()))
 
 
+def _unpad_state(state, raw: MTLData) -> tuple:
+    """(alpha, omega) rows/cols of the REAL tasks from whole padded state."""
+    alpha = state.alpha[: raw.m, : raw.n_max]
+    if state.omega is None:
+        omega = None
+    elif isinstance(state.omega, SigmaView):
+        omega = maybe_dense(state.omega.unpad(raw.m))
+    else:
+        omega = state.omega[: raw.m, : raw.m]
+    return alpha, omega
+
+
 def _run_reference(
     cfg: DMTRLConfig,
     data: MTLData,
     *,
+    mesh=None,
+    axes: Optional[MeshAxes] = None,
+    options=None,
     regularizer=None,
     init: Optional[WarmStart] = None,
     track: bool = True,
     device="cuda",
 ) -> EngineResult:
+    if mesh is not None or axes is not None or options is not None:
+        raise ValueError(
+            "the reference engine runs single-process: mesh/axes/options "
+            'are distributed-only (use engine="distributed" or "async")'
+        )
     with span("engine_run", cat="driver", engine="reference"):
         res = _fit_reference(
             cfg, data, track=track, init=init, regularizer=regularizer, device=device
@@ -119,43 +141,69 @@ register_engine(
 )
 
 
-def _run_async(
-    cfg: DMTRLConfig,
-    data: MTLData,
-    *,
-    regularizer=None,
-    init: Optional[WarmStart] = None,
-    track: bool = True,
-    device="cuda",
-    options: Optional[AsyncOptions] = None,
-) -> EngineResult:
-    with span("engine_run", cat="driver", engine="async"):
-        W, sigma, state, hist = _fit_async(
-            cfg, data, track=track, options=options, init=init,
-            regularizer=regularizer, device=device,
+def _make_mesh_run(engine_name: str) -> Callable[..., EngineResult]:
+    """One adapter for both mesh engines: resolve a default mesh, forward
+    to the fit function (which resolves the axes itself), unpad, pack
+    EngineResult."""
+
+    def run(
+        cfg: DMTRLConfig,
+        data: MTLData,
+        *,
+        mesh=None,
+        axes: Optional[MeshAxes] = None,
+        options=None,
+        regularizer=None,
+        init: Optional[WarmStart] = None,
+        track: bool = True,
+        device="cuda",
+    ) -> EngineResult:
+        ax = axes or getattr(options, "axes", None) or MeshAxes()
+        if mesh is None:  # the one-device mesh, so no ceremony is needed
+            mesh = local_mesh(ax, device)
+        elif torch.device(device).type != mesh.device.type:
+            raise ValueError(f"the mesh is on {mesh.device}, the run asks for {device!r}")
+        with span("engine_run", cat="driver", engine=engine_name):
+            if engine_name == "distributed":
+                W, sigma, state, hist = _fit_distributed(
+                    cfg, data, mesh, axes, track=track, options=options, init=init,
+                    regularizer=regularizer,
+                )
+                # every rank's blocks -> the whole padded state
+                state = gather_state(state, mesh, ax)
+            else:
+                W, sigma, state, hist = _fit_async(
+                    cfg, data, mesh, axes, track=track, options=options, init=init,
+                    regularizer=regularizer, device=device,
+                )
+        alpha, omega = _unpad_state(state, data)
+        sigma_view = None
+        if isinstance(state.sigma, SigmaView):
+            sigma_view = state.sigma.unpad(data.m)
+        return EngineResult(
+            W=W, alpha=alpha, sigma=maybe_dense(sigma), omega=omega, history=hist,
+            sigma_view=sigma_view,
         )
-    # the transports pad the task axis to a multiple of the workers
-    alpha = state.alpha[: data.m, : data.n_max]
-    omega, sigma_view = state.omega, None
-    if isinstance(omega, SigmaView):
-        omega = maybe_dense(omega.unpad(data.m))
-    elif omega is not None:
-        omega = omega[: data.m, : data.m]
-    if isinstance(state.sigma, SigmaView):
-        sigma_view = state.sigma.unpad(data.m)
-    return EngineResult(
-        W=W, alpha=alpha, sigma=sigma, omega=omega, history=hist,
-        sigma_view=sigma_view,
-    )
+
+    return run
 
 
 register_engine(
     Engine(
+        name="distributed",
+        description="parameter-server W-step over a mesh of process groups "
+        "(data/model/pod axes); bulk-synchronous rounds",
+        run=_make_mesh_run("distributed"),
+        options_cls=DistributedOptions,
+    )
+)
+register_engine(
+    Engine(
         name="async",
         description="bounded-staleness (SSP) engine: workers commit against "
-        "snapshots at most tau rounds stale over a host transport "
-        "(threaded/multiprocess/gossip)",
-        run=_run_async,
+        "snapshots at most tau rounds stale over a pluggable transport "
+        "(simulated/threaded/multiprocess/gossip); tau=0 == distributed",
+        run=_make_mesh_run("async"),
         options_cls=AsyncOptions,
     )
 )

@@ -4,9 +4,12 @@
     est.fit(train).score(test)
     z = est.decision_function(x_batch, tasks=task_ids)
 
-  * engines resolve through ``core.engines``: ``reference`` (one process)
-    or ``async`` (the parameter server over a host transport, with its
-    knobs as ``async_options=AsyncOptions(...)``);
+  * engines resolve through ``core.engines``: ``reference`` (one process),
+    ``distributed`` (the parameter-server W-step over a mesh of process
+    groups: ``mesh=``, ``axes=``, ``distributed=DistributedOptions(...)``;
+    the local one-device mesh when no mesh is given) or ``async`` (bounded
+    staleness over the simulated mesh transport or a host transport, with
+    its knobs as ``async_options=AsyncOptions(...)``);
   * the Omega regularizer is a named family member
     (``core.omega_regularizers``) — the paper's trace_constraint by default;
   * ``partial_fit`` warm-starts from the previous (alpha, Sigma) so
@@ -32,6 +35,7 @@ import torch
 
 from . import dual as dual_mod
 from .async_dmtrl import AsyncOptions
+from .distributed import DistributedOptions, MeshAxes
 from .dmtrl import DMTRLConfig, WarmStart, resolve_device
 from .engines import Engine, EngineResult, get_engine
 from .losses import get_loss
@@ -72,11 +76,18 @@ class DMTRLEstimator:
 
     Parameters
     ----------
-    engine : "reference" | "async" (core.engines registry)
+    engine : "reference" | "distributed" | "async" (core.engines registry)
     config : optional pre-built core DMTRLConfig; core field kwargs
         (``loss=``, ``lam=``, ``rounds=`` ...) override it. Engine-specific
-        legacy fields (``tau``, ``dist_block_hoisted``, ...) are rejected:
-        the async engine takes ``async_options=AsyncOptions(...)``.
+        legacy fields (``tau``, ``dist_block_hoisted``, ...) are rejected
+        here — pass ``async_options=AsyncOptions(...)`` /
+        ``distributed=DistributedOptions(...)`` instead.
+    mesh / axes : mesh engines only (``distributed.make_mesh``); the local
+        one-device mesh on ``device`` is used when omitted. A mesh's device
+        must be of ``device``'s type (the engine checks at fit).
+    distributed : the mesh engine's DistributedOptions (axes, the Gram
+        options of a model axis); the async engine merges its Gram options
+        into the config.
     async_options : the async engine's AsyncOptions (transport, workers,
         tau, codec, ...).
     regularizer : Omega family member name or OmegaRegularizer instance
@@ -97,6 +108,9 @@ class DMTRLEstimator:
         engine: str = "reference",
         *,
         config: Optional[DMTRLConfig] = None,
+        mesh=None,
+        axes: Optional[MeshAxes] = None,
+        distributed: Optional[DistributedOptions] = None,
         regularizer: Union[str, OmegaRegularizer, None] = None,
         regularizer_params: Optional[dict] = None,
         async_options: Optional[AsyncOptions] = None,
@@ -110,20 +124,39 @@ class DMTRLEstimator:
         if leaked:
             raise ValueError(
                 f"{leaked} are per-engine options, not core config fields; "
-                "pass async_options=AsyncOptions(...) (the mesh engine's "
-                "options are not ported)"
+                "pass async_options=AsyncOptions(...) / "
+                "distributed=DistributedOptions(...) instead"
             )
-        if async_options is not None:
-            if not isinstance(async_options, AsyncOptions):
-                raise TypeError(
-                    f"async_options= takes AsyncOptions, got "
-                    f"{type(async_options).__name__}"
-                )
-            if self.engine.options_cls is not AsyncOptions:
+        if async_options is not None and self.engine.name != "async":
+            raise ValueError(
+                f'AsyncOptions need engine="async", got engine='
+                f"{self.engine.name!r}"
+            )
+        if self.engine.name == "reference":
+            if mesh is not None or axes is not None:
                 raise ValueError(
-                    f'AsyncOptions need engine="async", got engine='
-                    f"{self.engine.name!r}"
+                    'engine="reference" is single-process; mesh/axes need '
+                    'engine="distributed" or "async"'
                 )
+            if distributed is not None or async_options is not None:
+                raise ValueError(
+                    'engine="reference" takes no DistributedOptions/'
+                    "AsyncOptions — the facade keeps per-engine knobs out "
+                    "of the reference path"
+                )
+        if distributed is not None and not isinstance(distributed, DistributedOptions):
+            raise TypeError(
+                f"distributed= takes DistributedOptions, got "
+                f"{type(distributed).__name__}"
+            )
+        if async_options is not None and not isinstance(async_options, AsyncOptions):
+            raise TypeError(
+                f"async_options= takes AsyncOptions, got "
+                f"{type(async_options).__name__}"
+            )
+        self.mesh = mesh
+        self.axes = axes
+        self.distributed_options = distributed
         self.async_options = async_options
         unknown = sorted(params.keys() - _CONFIG_FIELDS)
         if unknown:
@@ -157,12 +190,29 @@ class DMTRLEstimator:
         self._model_refs: list = []
 
     # -- training -----------------------------------------------------------
-    def _run(self, data: MTLData, init: Optional[WarmStart], track: bool):
-        kw = {}
+    def _engine_kwargs(self) -> dict:
+        if self.engine.name == "reference":
+            return dict(cfg=self.config)
+        options = None
         if self.engine.options_cls is AsyncOptions:
-            kw["options"] = self.async_options
+            options = self.async_options
+        elif self.engine.options_cls is DistributedOptions:
+            options = self.distributed_options
+        cfg = self.config
+        if self.engine.name == "async" and self.distributed_options is not None:
+            # async runs the distributed round's pieces; its Gram knobs
+            # ride in through the merged config
+            cfg = self.distributed_options.merge_into(cfg)
+        axes = self.axes
+        if axes is None and self.distributed_options is not None:
+            axes = self.distributed_options.axes
+        return dict(cfg=cfg, mesh=self.mesh, axes=axes, options=options)
+
+    def _run(self, data: MTLData, init: Optional[WarmStart], track: bool):
+        kw = self._engine_kwargs()
+        cfg = kw.pop("cfg")
         res: EngineResult = self.engine.run(
-            self.config, data, regularizer=self.regularizer, init=init,
+            cfg, data, regularizer=self.regularizer, init=init,
             track=track, device=self.device, **kw,
         )
         self._install(res, continued=init is not None)

@@ -39,16 +39,23 @@ def sample_coords(key: Tensor, H: int, n_i: Tensor, n_max: int) -> Tensor:
     """H coordinate indices uniform in [0, n_i) (paper: with replacement).
 
     ``key`` (..., 2) and ``n_i`` (...) carry the same leading task shape;
-    returns int64 (..., H) on ``n_i``'s device."""
-    return coords_from_uniform(prng.uniform(key, (H,), device=n_i.device), n_i)
+    returns int64 (..., H) on ``n_i``'s device. A task with no samples
+    draws row ``n_max - 1`` (see ``coords_from_uniform``)."""
+    return coords_from_uniform(prng.uniform(key, (H,), device=n_i.device), n_i, n_max)
 
 
-def coords_from_uniform(u: Tensor, n_i: Tensor) -> Tensor:
+def coords_from_uniform(u: Tensor, n_i: Tensor, n_max: int) -> Tensor:
     """min(int(u * n_i), n_i - 1) with the product rounded in float32 (the
     mapping every backend and both kernels share, so draws are bit-equal).
-    u (..., H), n_i (...) -> int64 (..., H)."""
+    u (..., H), n_i (...) -> int64 (..., H) in [0, n_max).
+
+    A task with n_i = 0 (a padded task, or a pod slice past the task's
+    samples) gets -1, which wraps to row n_max - 1 of its own block: the
+    JAX package's gathers and scatters normalize a negative index so, and
+    the round kernel applies the same rule on the device."""
     n = n_i.to(torch.int32).unsqueeze(-1)
-    return torch.minimum((u * n.to(u.dtype)).to(torch.int32), n - 1).long()
+    j = torch.minimum((u * n.to(u.dtype)).to(torch.int32), n - 1).long()
+    return torch.where(j < 0, j + n_max, j)
 
 
 def kappa_of(rho: float, lam: float, n_i: Tensor, sigma_ii: Tensor) -> Tensor:

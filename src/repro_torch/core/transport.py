@@ -8,7 +8,7 @@ split for their async/graph-regularized variants). This module is that
 protocol behind one surface, so the same driver (``fit_async``) runs over
 any substrate:
 
-    spec = get_transport("threaded" | "multiprocess" | "gossip")
+    spec = get_transport("simulated" | "threaded" | "multiprocess" | "gossip")
 
 Protocol (the ``Transport`` base class)
 ---------------------------------------
@@ -52,9 +52,11 @@ Members
                   authentication boundary.
 ``gossip``        (``core/gossip.py``) serverless neighbor averaging over a
                   configurable topology.
-``simulated``     the JAX package's deterministic clock simulation runs
-                  fused SPMD rounds on a device mesh; the port has no mesh
-                  engine yet, so it is registered and raises.
+``simulated``     deterministic per-worker clocks over a mesh
+                  (``core/distributed.py``): virtual workers advance on
+                  simulated ticks, every commit event runs one masked SPMD
+                  tick (``make_async_tick``), and runs repeat exactly
+                  (golden event histories in ``tests/golden/``).
 
 Wire formats (``core/wire.py``): ``cfg.codec`` picks the snapshot/commit
 codec (``none`` / ``bf16`` / ``int8`` + error feedback); the multiprocess
@@ -96,11 +98,16 @@ from . import omega as omega_mod
 from .distributed import (
     DistributedState,
     MeshAxes,
+    MeshRun,
     _axis_size,
+    _densify_pair,
+    make_local_solve,
+    on_root,
     pad_sigma_any,
     pad_to_multiple,
+    server_reduce,
 )
-from .dmtrl import DMTRLConfig, resolve_device
+from .dmtrl import DMTRLConfig, _rho_value, resolve_device
 from .losses import get_loss
 from .sigma_view import SigmaView, maybe_dense
 from .solver_backends import get_backend
@@ -258,8 +265,9 @@ class CommitReceipt:
 
     ``staleness`` = server commit events between the contribution's
     snapshot and its apply; ``lag`` = rounds it ran ahead of the slowest
-    worker at start.  ``tick`` is the transport clock (wall seconds for
-    the host transports).
+    worker at start.  ``tick`` is the transport clock (simulated ticks for
+    ``simulated``, wall seconds for the host transports, the round index
+    for the synchronous engine).
     """
 
     worker: int
@@ -486,6 +494,15 @@ class Transport:
     def pad_sigma(self, sigma_t, omega_t) -> Tuple[object, object]:
         raise NotImplementedError
 
+    def next_sigma(self, reg) -> Tuple[object, object]:
+        """The Omega-step on the current W: the padded (Sigma, Omega) to
+        install."""
+        return self.pad_sigma(*reg.step(self.w_true(), self.cfg.omega_jitter))
+
+    def rho_value(self, cfg, sigma, reg) -> float:
+        """The rho bound of the next W-step for ``sigma``."""
+        return _rho_value(cfg, sigma, n_blocks_scale=float(self.n_pods), reg=reg)
+
     def result(self):
         """(W, sigma, state, hist) at the raw problem size."""
         raise NotImplementedError
@@ -508,7 +525,7 @@ class Transport:
 
     # -- introspection ------------------------------------------------------
     def clock(self) -> float:
-        """Transport time: wall seconds since setup."""
+        """Transport time: simulated ticks / wall seconds since setup."""
         raise NotImplementedError
 
     def staleness(self) -> Dict[str, object]:
@@ -553,23 +570,293 @@ class Transport:
 
 
 # ---------------------------------------------------------------------------
-# simulated — needs a device mesh (not ported)
+# fused SPMD tick of the simulated transport
+# ---------------------------------------------------------------------------
+def make_async_tick(cfg: DMTRLConfig, mesh, axes: MeshAxes, m: int, n_max: int, d: int,
+                    rho: float):
+    """One tick of the simulated transport on this rank's blocks:
+
+        tick(x, y, n, alpha, W, sigma_rows, W_snap, sigma_snap, key, active)
+            -> (alpha, W)
+
+    ``W_snap``/``sigma_snap`` are this rank's worker's bounded-staleness
+    snapshot rows, ``key`` the key of the round that worker is solving and
+    ``active`` whether its result commits this tick. The worker solves
+    against its snapshot; the server reduce uses the live Sigma rows and
+    only the active contributions. An inactive worker's solve is skipped:
+    its contribution is zero either way."""
+    local_solve = make_local_solve(cfg, mesh, axes, m, n_max, d, rho)
+
+    def tick(x, y, n, alpha, W, sigma_rows, W_snap, sigma_snap, key, active):
+        if active:
+            dalpha, db = local_solve(x, y, n, alpha, W_snap, sigma_snap, key)
+        else:
+            dalpha, db = torch.zeros_like(alpha), torch.zeros_like(W)
+        dW = server_reduce(cfg, mesh, axes, sigma_rows, db)
+        return alpha + cfg.eta * dalpha, W + dW
+
+    return tick
+
+
+# ---------------------------------------------------------------------------
+# simulated — deterministic per-worker clocks, fused SPMD commits
 # ---------------------------------------------------------------------------
 class SimulatedTransport(Transport):
-    """The JAX package's deterministic clock simulation: virtual workers on
-    simulated ticks, every commit event one fused masked SPMD round over a
-    device mesh. The port has no mesh engine yet (ROADMAP §A item 15), so
-    this member is registered under its name and raises at setup."""
+    """The deterministic clock simulation over a mesh.
+
+    Virtual workers (the ``data`` axis) advance on a simulated clock (worker
+    g takes ``async_delays[g]`` ticks per local solve); every commit event
+    runs one masked SPMD tick over the whole mesh (``make_async_tick``), so
+    runs repeat exactly: the integer event histories of
+    ``tests/golden/async_histories.json`` are reproduced, and at tau = 0
+    the iterates are ``fit_distributed``'s. Every rank runs the same event
+    loop and keeps its own worker's snapshot rows; the Omega-step, rho and
+    the objectives are computed on the root and broadcast
+    (``distributed.MeshRun``). Structured Sigma views are made dense here
+    (the tick takes dense Sigma rows); the host transports keep the
+    factors.
+    """
 
     name = "simulated"
     needs_mesh = True
 
     def setup(self, cfg, raw, *, mesh, axes, reg, init, track, device="cuda"):
-        raise NotImplementedError(
-            "transport='simulated' runs fused SPMD rounds on a device mesh, "
-            "which the port does not have yet (ROADMAP §A item 15); use "
-            "transport='threaded', 'multiprocess' or 'gossip'"
+        if mesh is None:
+            raise ValueError("the simulated transport needs a mesh")
+        axes = axes or MeshAxes()
+        codec = getattr(cfg, "codec", "none")
+        if codec != "none":
+            raise ValueError(
+                "transport='simulated' is the bit-parity anchor and has no "
+                f"wire; codec={codec!r} needs a host transport "
+                "('threaded' / 'multiprocess' / 'gossip')"
+            )
+        topology = getattr(cfg, "topology", "complete")
+        if not (isinstance(topology, str) and topology == "complete"):
+            raise ValueError(
+                "topology= is a gossip-transport option; transport="
+                "'simulated' has no neighbor graph (use transport='gossip')"
+            )
+        G = _axis_size(mesh, axes.data)
+        if cfg.n_workers is not None and cfg.n_workers != G:
+            raise ValueError(
+                f"transport='simulated' derives its workers from the mesh "
+                f"data axis (= {G}); n_workers={cfg.n_workers} conflicts"
+            )
+        self.cfg, self.mesh, self.axes = cfg, mesh, axes
+        self.reg, self.track = reg, track
+        self.run = run = MeshRun(cfg, raw, mesh, axes, reg, init)
+        self.raw, self.data, self.m, self.d = run.raw, run.data, run.m, run.d
+        if isinstance(run.sigma, SigmaView) or isinstance(run.omega, SigmaView):
+            run.set_sigma(*on_root(lambda: _densify_pair(run.sigma, run.omega), mesh))
+            run.refresh_W()
+        self.G = G
+        self.worker = mesh.coord(axes.data)  # the worker whose rows this rank holds
+        self.m_loc = self.m // G
+        self.delays = _worker_delays(cfg, G)
+        self.n_pods = run.n_pods
+        self.R = cfg.rounds
+        self.hist = new_event_history()
+        self._objectives = lambda alpha, sigma: run.objectives()
+        # snapshots start in sync with the live state
+        self.W_snap = run.state.W
+        self.sigma_snap = run.state.sigma
+        self.commits_total = 0
+        self._clock = 0  # global simulated time, accumulated across W-steps
+        self.pending = None  # (sigma, omega) awaiting overlap installation
+        # tau="auto": start bulk-synchronous, adapt once per G-commit window
+        self.tau_auto = cfg.tau == "auto"
+        self.tau = 0 if self.tau_auto else cfg.tau
+        self.adapt_window = G
+        self.gate_blocks = 0  # refusal EPISODES this window
+        self.gate_refusals_total = 0
+        self.refused: set = set()
+        self.win_start = 0  # w_* index where the adapt window began
+        # per-worker protocol bookkeeping (reset each W-step)
+        self.completed = [0] * G
+        self.cur_round = [0] * G
+        self.snap_commit = [0] * G
+        self.snap_lag = [0] * G
+        self.commits_outer = 0
+        self.p = 0
+        # no wire (in-mesh SPMD), but the unified schema still applies
+        self.wire_stats = new_wire_stats(topology="complete")
+
+    # -- protocol -----------------------------------------------------------
+    def gate(self, worker, rnd):
+        """SSP admission (non-blocking): the deterministic event loop polls
+        the decision instead of parking a thread on it."""
+        return rnd <= min(self.completed) + self.tau
+
+    def _rows(self, worker):
+        return slice(worker * self.m_loc, (worker + 1) * self.m_loc)
+
+    def snapshot(self, worker):
+        """The worker's rows (W, Sigma, alpha) on every rank (a collective:
+        every rank calls it)."""
+        rows = self._rows(worker)
+        self.snap_commit[worker] = self.commits_total
+        self.snap_lag[worker] = self.completed[worker] - min(self.completed)
+        return Snapshot(
+            W_rows=self.run.gather_W()[rows],
+            sigma_rows=self.run.sigma[rows],
+            alpha_rows=self.run.gather_alpha()[rows],
+            version=self.commits_total,
         )
+
+    def commit(self, worker, rnd, delta):
+        """Apply ONE worker's (dalpha_rows, db_rows) immediately; every rank
+        passes the worker's whole rows (m_loc, n_max) and (m_loc, d).
+
+        The deterministic event loop in ``run_w_step`` does not use this —
+        it fuses all same-tick arrivals into one masked SPMD reduce; this
+        method makes the protocol complete so a generic protocol loop can run
+        the simulated member one worker at a time."""
+        self._maybe_install(worker)
+        dalpha, db = delta
+        run, cfg = self.run, self.cfg
+        st = run.state
+        alpha = st.alpha
+        if worker == self.worker:
+            alpha = alpha + cfg.eta * dalpha[:, run.cols]
+        W = st.W + (run.sigma[self._rows(worker), run.rows].T @ db[:, run.feats]) / cfg.lam
+        run.state = dataclasses.replace(st, alpha=alpha, W=W)
+        self.commits_total += 1
+        self.commits_outer += 1
+        self.completed[worker] += 1
+        receipt = CommitReceipt(
+            worker=worker,
+            round=self.p * self.R + rnd,
+            staleness=self.commits_total - 1 - self.snap_commit[worker],
+            lag=self.snap_lag[worker],
+            tick=self._clock + self.commits_outer,
+            version=self.commits_total,
+            tau=self.tau,
+        )
+        record_receipt(self.hist, receipt)
+        self._after_commit_event(receipt.tick, None, None)
+        return receipt
+
+    def install_sigma(self, sigma, omega, *, defer):
+        if defer:
+            self.pending = (sigma, omega)
+        else:
+            self._install(sigma, omega)
+
+    def _install(self, sig, om):
+        with span("install_sigma", cat="transport", transport=self.name):
+            self.run.set_sigma(sig, om)
+            self.run.refresh_W()
+            W, sigma = self.run.result_W_sigma()
+            self._notify_model(W, sigma)
+
+    def _maybe_install(self, worker=None):
+        if self.pending is not None and self.commits_outer >= self.cfg.omega_delay:
+            self._install_worker = worker
+            try:
+                self._install(*self.pending)
+            finally:
+                self._install_worker = None
+            self.pending = None
+
+    # -- lifecycle ----------------------------------------------------------
+    def w_true(self):
+        return self.run.gather_W()[: self.raw.m]
+
+    def rho_sigma(self):
+        return self.run.sigma
+
+    def rho_value(self, cfg, sigma, reg) -> float:
+        return on_root(lambda: super(SimulatedTransport, self).rho_value(cfg, sigma, reg),
+                       self.mesh, like=0.0)
+
+    def pad_sigma(self, sigma_t, omega_t):
+        return pad_sigma_any(sigma_t, omega_t, self.m, self.raw.m, self.cfg.omega_jitter)
+
+    def next_sigma(self, reg):
+        return self.run.omega_step(densify=True)
+
+    def clock(self):
+        return self._clock
+
+    def run_w_step(self, p, rho, outer_key):
+        cfg, G, R, run = self.cfg, self.G, self.R, self.run
+        self.p = p
+        tick_fn = make_async_tick(cfg, self.mesh, self.axes, self.m, run.n_max, self.d, rho)
+        # the key schedule of fit_distributed: the same coordinate draws
+        round_keys = prng.split(outer_key, R)  # (R, 2)
+
+        self.completed = [0] * G
+        self.cur_round = [0] * G
+        busy = [False] * G
+        finish_at = [0] * G
+        tick = 0
+        self.commits_outer = 0
+        hist = self.hist
+        me = self.worker
+
+        while min(self.completed) < R:
+            # --- overlapped Omega-step installation --------------------
+            self._maybe_install()
+            # --- starts: idle workers gated by the SSP staleness bound --
+            floor = min(self.completed)
+            idle = [g for g in range(G) if not busy[g] and self.completed[g] < R]
+            newly = [g for g in idle if self.gate(g, self.completed[g])]
+            blocked = {g for g in idle if not self.gate(g, self.completed[g])}
+            fresh_blocks = len(blocked - self.refused)
+            self.gate_blocks += fresh_blocks
+            self.gate_refusals_total += fresh_blocks
+            self.refused = blocked
+            if me in newly:  # this rank's worker (re)starts: fresh snapshot
+                self.W_snap = run.state.W
+                self.sigma_snap = run.state.sigma
+            for g in newly:
+                busy[g] = True
+                self.cur_round[g] = self.completed[g]
+                finish_at[g] = tick + self.delays[g]
+                self.snap_commit[g] = self.commits_total
+                self.snap_lag[g] = self.completed[g] - floor
+            # --- advance the clock to the next finish event ------------
+            tick = min(finish_at[g] for g in range(G) if busy[g])
+            active = [g for g in range(G) if busy[g] and finish_at[g] == tick]
+            key = round_keys[min(max(self.cur_round[me], 0), R - 1)]
+            st = run.state
+            alpha, W = tick_fn(
+                run.data.x, run.data.y, run.data.n, st.alpha, st.W, st.sigma,
+                self.W_snap, self.sigma_snap, key, me in active,
+            )
+            run.state = dataclasses.replace(st, alpha=alpha, W=W)
+            self.commits_total += 1
+            self.commits_outer += 1
+            for g in active:
+                busy[g] = False
+                record_receipt(
+                    hist,
+                    CommitReceipt(
+                        worker=g,
+                        round=p * R + self.cur_round[g],
+                        staleness=self.commits_total - 1 - self.snap_commit[g],
+                        lag=self.snap_lag[g],
+                        tick=self._clock + tick,
+                        version=self.commits_total,
+                        tau=self.tau,
+                    ),
+                )
+                self.completed[g] += 1
+            self._after_commit_event(self._clock + tick, None, None)
+
+        self._clock += tick
+        # --- W-step boundary: a pending Sigma must never be dropped ----
+        if self.pending is not None:
+            self._install(*self.pending)
+            self.pending = None
+
+    def result(self):
+        """(W, sigma, state, hist): W and Sigma at the raw size and
+        ``state`` the whole padded state, on every rank."""
+        hist_np = {k: np.asarray(v) for k, v in self.hist.items()}
+        W, sigma = self.run.result_W_sigma()
+        return W, sigma, self.run.gathered_state(), hist_np
 
 
 # ---------------------------------------------------------------------------
@@ -1434,8 +1721,8 @@ def available_transports() -> Dict[str, TransportSpec]:
 register_transport(
     TransportSpec(
         name="simulated",
-        description="deterministic clock simulation with fused SPMD commits "
-        "on a device mesh; not ported (ROADMAP §A item 15): raises at setup",
+        description="deterministic clock simulation with one masked SPMD tick "
+        "per commit event over a mesh of process groups; bit-reproducible",
         needs_mesh=True,
         factory=SimulatedTransport,
     )

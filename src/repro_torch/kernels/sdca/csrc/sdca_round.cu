@@ -12,7 +12,8 @@
 // carried across blocks are sequential. Hence:
 //
 //   Stage 1, gram_kernel, grid (blocks, m), 256 threads: draws the block's
-//   coordinates (fp32 product and truncation of sample_coords), gathers its
+//   coordinates (fp32 product and truncation of sample_coords, row n_max - 1
+//   for a task with no samples, as coords_from_uniform wraps), gathers its
 //   B rows in d-tiles of 32 columns (stored transposed, the next tile's
 //   loads in flight while this one is used), and writes G (full B x B,
 //   bit-exactly symmetric), q, and the rows' labels, alphas and ids to a
@@ -120,8 +121,11 @@ gram_kernel(const float* __restrict__ x,      // (m, n_max, d)
   const int nt = n[t];
   float* blk = scratch + ((int64_t)t * nbg + bi) * scratch_floats<B>();
   if (tid < B) {
-    const int j = min((int)__fmul_rn(u[(int64_t)t * H + (b_begin + bi) * B + tid], (float)nt),
-                      nt - 1);
+    int j = min((int)__fmul_rn(u[(int64_t)t * H + (b_begin + bi) * B + tid], (float)nt), nt - 1);
+    // a task with no samples (a padded task, or a pod slice past its
+    // samples) gets -1: the plain version's wrap to the block's last row,
+    // so nothing outside the task's own rows is read or written
+    if (j < 0) j += n_max;
     rowoff[tid] = ((int64_t)t * n_max + j) * d;
     blk[B * B + B + tid] = y[(int64_t)t * n_max + j];
     blk[B * B + 2 * B + tid] = alpha[(int64_t)t * n_max + j];

@@ -53,9 +53,9 @@ def sdca_round_ref(
     loss_name: str,
 ):
     """One local round, one coordinate at a time: coordinates
-    min(floor(u * n), n - 1) in float32, literal Algorithm-2 updates.
-    Returns (dalpha, r) in float32."""
+    min(floor(u * n), n - 1) in float32 (row n_max - 1 where n = 0),
+    literal Algorithm-2 updates. Returns (dalpha, r) in float32."""
     return naive_steps(
         x.float(), y.float(), alpha.float(), w.float(), kappa,
-        coords_from_uniform(u, n_i), get_loss(loss_name),
+        coords_from_uniform(u, n_i, x.shape[1]), get_loss(loss_name),
     )

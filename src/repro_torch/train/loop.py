@@ -81,12 +81,12 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, microbatches: int = 1) -> Call
 def make_sharded_train_step(cfg: ModelConfig, opt: AdamW, mesh, global_batch: int,
                             seq_len: int):
     """The JAX package's train step over a device mesh (param shardings,
-    the production mesh) is not ported: it comes with the mesh engines and
-    ``models/sharding.py`` (ROADMAP §A item 15). One card trains through
-    ``make_train_step``."""
+    the production mesh) is not ported: it comes with ``models/sharding.py``
+    over the mesh of ``core/distributed.py`` (ROADMAP §A item 4). One card
+    trains through ``make_train_step``."""
     raise NotImplementedError(
-        "make_sharded_train_step needs the mesh engines and models/sharding.py, which are "
-        "not ported yet (ROADMAP §A item 15); use make_train_step on one device"
+        "make_sharded_train_step needs models/sharding.py, which is not ported yet "
+        "(ROADMAP §A item 4); use make_train_step on one device"
     )
 
 

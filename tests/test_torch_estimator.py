@@ -9,7 +9,13 @@ import torch
 
 from repro.core import DMTRLEstimator as JaxEstimator
 from repro_torch.convert import STATE_KEYS, from_reference
-from repro_torch.core import DMTRLConfig, DMTRLEstimator, NotFittedError, get_engine
+from repro_torch.core import (
+    DistributedOptions,
+    DMTRLConfig,
+    DMTRLEstimator,
+    NotFittedError,
+    get_engine,
+)
 from repro_torch.data.synthetic import synthetic
 
 
@@ -102,10 +108,8 @@ def test_default_device_raises_without_a_card():
 
 
 def test_engine_and_option_validation():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        DMTRLEstimator(engine="distributed", device="cpu")
-    with pytest.raises(NotImplementedError, match="§A item 15"):
-        get_engine("distributed")
+    assert DMTRLEstimator(engine="distributed", device="cpu").engine.name == "distributed"
+    assert get_engine("distributed").options_cls is DistributedOptions
     assert get_engine("async").name == "async"  # the host transports' engine
     with pytest.raises(KeyError, match="reference"):
         DMTRLEstimator(engine="banana", device="cpu")

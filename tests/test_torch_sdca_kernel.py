@@ -77,7 +77,7 @@ def _staged_round(x, y, alpha, w, u, n_i, kappa, loss, block):
     delta_fn = get_loss(loss).sdca_delta
     m, n_max, d = x.shape
     H = u.shape[1]
-    cs = coords_from_uniform(u, n_i).view(m, H // block, block)
+    cs = coords_from_uniform(u, n_i, n_max).view(m, H // block, block)
     tasks = torch.arange(m)[:, None]
     xb = gather_rows(x, cs.reshape(m, H)).view(m, H // block, block, d)
     G = xb @ xb.transpose(-1, -2)  # stage 1: (m, blocks, B, B)
@@ -456,3 +456,113 @@ def test_round_cluster_rule():
     fits = [c for c in sdca_kernel.SUPPORTED_CLUSTERS
             if sdca_kernel.chain_smem_bytes(64, 784, c) <= sdca_kernel.MAX_SMEM_BYTES]
     assert rc(4096, 784, 64, 132) == min(fits) > 2
+
+
+# ---------------------------------------------------------------------------
+# tasks with no samples: n_i = 0 (a padded task, a pod slice past the
+# task's samples) and 0 < n_i < n_max, as the mesh engines feed them
+# ---------------------------------------------------------------------------
+# the mesh engines' n_i per task, between two sentinel tasks (slots 0, -1)
+EMPTY_N = (0, 0, 7, 0, None, 0)
+
+
+def _empty_task_buffers(seed, n, d, H):
+    """Inputs of 4 tasks with n_i = (0, 7, 0, n) inside buffers of 6: the
+    first and last task and every row a task's plain version never reads
+    (rows at and past n_i, but for the last row of an empty task, which
+    -1 wraps to) hold NaN, so any read outside shows up in the outputs."""
+    x, y, alpha, w, u, _, kappa = _problem(seed, len(EMPTY_N), n, d, H)
+    n_i = np.array([n if v is None else v for v in EMPTY_N], np.int32)
+    for t, nt in enumerate(n_i):
+        read = np.zeros(n, bool)
+        if 0 < t < len(EMPTY_N) - 1:
+            read[:nt] = True
+            read[n - 1] |= nt == 0
+        x[t][~read] = np.nan
+        y[t][~read] = np.nan
+        alpha[t][~read] = np.nan
+    return x, y, alpha, w, u, n_i, kappa
+
+
+def test_empty_task_sentinels_stay_out_of_the_plain_round():
+    """The plain version on the sentinel buffers reads only the tasks' own
+    rows: its outputs are finite (the card tests below rely on it)."""
+    x, y, alpha, w, u, n_i, kappa = [a[1:-1] for a in _t(*_empty_task_buffers(3, 40, 17, 64))]
+    da, r = ref.sdca_round_ref(x, y, alpha, w, u, n_i, kappa, "hinge")
+    assert torch.isfinite(da).all() and torch.isfinite(r).all()
+    assert torch.isfinite(ref.sdca_round_ref(x, y, alpha, w, u, n_i, kappa, "squared")[1]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("loss", KERNEL_LOSSES)
+@pytest.mark.parametrize("n,d,H,block", SHAPES + [(300, 784, 256, 64)])
+def test_round_kernel_empty_tasks(cuda, loss, n, d, H, block):
+    """K1 with n_i = 0 and 0 < n_i < n_max against its plain version, the
+    tasks a view into buffers with NaN sentinels: nothing outside a task's
+    rows is read (the outputs stay finite) or written (dalpha equals the
+    plain version's everywhere, so no task's entry moved for another)."""
+    bufs = _t(*_empty_task_buffers(n + d + H, n, d, H), device=cuda)
+    x, y, alpha, w, u, n_i, kappa = [b[1:-1] for b in bufs]
+    assert x.data_ptr() == bufs[0].data_ptr() + n * d * 4  # a view: no copy
+    da, r = ops.sdca_round(x, y, alpha, w, u, n_i, kappa, loss, block=block)
+    torch.cuda.synchronize()
+    assert torch.isfinite(da).all() and torch.isfinite(r).all()
+    da_p, r_p = ref.sdca_round_ref(x, y, alpha, w, u, n_i, kappa, loss)
+    torch.testing.assert_close(da, da_p, atol=ATOL, rtol=0)
+    torch.testing.assert_close(r, r_p, atol=ATOL, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("loss", KERNEL_LOSSES)
+@pytest.mark.parametrize("n,d,H,block", SHAPES)
+def test_block_kernel_empty_tasks(cuda, loss, n, d, H, block):
+    """The pallas_block solver (gather, K2, scatter) with n_i = 0 and
+    0 < n_i < n_max on the card against the same solver on the CPU (the
+    plain version), the tasks a view into the sentinel buffers."""
+    from repro_torch.core.losses import get_loss
+    from repro_torch.core.solver_backends import get_backend
+
+    arrays = _empty_task_buffers(n * d + H, n, d, H)
+    solve = get_backend("pallas_block").make(get_loss(loss), 1.0, 1e-3, H, block=block)
+    keys = prng.fold_in(prng.fold_in(prng.PRNGKey(4), torch.arange(4)), 0)
+    sig = torch.full((4,), 0.25)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        x, y, alpha, w, _, n_i, _ = [b[1:-1] for b in _t(*arrays, device=dev)]
+        before = sdca_kernel.sdca_block_kernel.launches
+        da, r = solve(x, y, alpha, w, n_i, sig.to(dev), keys)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert sdca_kernel.sdca_block_kernel.launches == before + H // block
+        assert torch.isfinite(da).all() and torch.isfinite(r).all()
+        out.append((da.cpu(), r.cpu()))
+    torch.testing.assert_close(out[0][0], out[1][0], atol=ATOL, rtol=0)
+    torch.testing.assert_close(out[0][1], out[1][1], atol=ATOL, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("loss", KERNEL_LOSSES)
+def test_block_kernel_one_row_drawn_for_the_whole_block(cuda, loss):
+    """An empty task draws its last row B times: K2 with every coordinate
+    equal, its inputs views between NaN slabs (nothing outside is read)."""
+    m, d, B = 3, 33, 32
+    rs = np.random.RandomState(9)
+    row = (rs.randn(m, 1, d) / np.sqrt(d)).astype(np.float32)
+    row[1] = 0.0  # an empty task's padded row
+    xb = np.full((m + 2, B, d), np.nan, np.float32)
+    xb[1:-1] = np.repeat(row, B, axis=1)
+    w = (0.05 * rs.randn(m, d)).astype(np.float32)
+    r = (0.1 * rs.randn(m, d)).astype(np.float32)
+    at0 = np.repeat((0.1 * rs.randn(m, 1)).astype(np.float32), B, axis=1)
+    yb = np.repeat(np.where(rs.randn(m, 1) >= 0, 1.0, -1.0).astype(np.float32), B, axis=1)
+    yb[1] = 0.0
+    cb = np.full((m, B), 39, np.int64)
+    kappa = (0.01 * (0.5 + rs.rand(m))).astype(np.float32)
+    xbuf, = _t(xb, device=cuda)
+    args = [xbuf[1:-1]] + _t(w, r, at0, yb, device=cuda)
+    cbt, kap = _t(cb, kappa, device=cuda)
+    deltas = sdca_kernel.sdca_block_kernel(*args, cbt.to(torch.int32), kap, loss)
+    torch.cuda.synchronize()
+    assert torch.isfinite(deltas).all()
+    d_p = ref.sdca_block_ref(*args, cbt, kap, loss)
+    torch.testing.assert_close(deltas, d_p, atol=ATOL, rtol=0)

@@ -14,7 +14,9 @@ async_dmtrl.py) on the CPU, mirroring tests/test_transport.py:
     ``payload_nbytes`` equal to the JAX transport's on the same snapshot;
   * a raising model subscriber isolated; a scheduler subscribed;
   * ``DMTRLEstimator(engine="async")`` fit, predict and warm-start
-    ``partial_fit``; ``transport="simulated"`` and the mesh engine raise.
+    ``partial_fit``; the simulated transport's protocol methods, its setup
+    checks, and its parity with the threaded server at tau = 0 (its mesh
+    cases are in tests/test_torch_distributed.py).
 """
 import dataclasses
 import logging
@@ -118,13 +120,76 @@ def test_bad_transport_knobs_rejected(port_problem):
         fit_async(DMTRLConfig(transport="smoke-signal"), port_problem.train, device="cpu")
 
 
-def test_simulated_and_mesh_engine_raise_naming_the_roadmap(port_problem, port_cfg):
-    with pytest.raises(NotImplementedError, match="§A item 15"):
-        fit_async(port_cfg, port_problem.train, options=AsyncOptions(), device="cpu")
-    with pytest.raises(NotImplementedError, match="§A item 15"):
-        get_engine("distributed")
-    with pytest.raises(NotImplementedError, match="§A item 15"):
-        DMTRLEstimator(engine="distributed", device="cpu")
+def test_simulated_and_mesh_engine_raise_naming_the_roadmap(port_problem, port_cfg, jax_ref):
+    """The three entry points that refused before the mesh engines were
+    ported now run: fit_async with the default (simulated) transport,
+    get_engine("distributed") and the estimator on it."""
+    W, sigma, _, hist = fit_async(port_cfg, port_problem.train, options=AsyncOptions(),
+                                  device="cpu")
+    np.testing.assert_allclose(W.numpy(), np.asarray(jax_ref.W), atol=TOL_W)
+    np.testing.assert_allclose(sigma.numpy(), np.asarray(jax_ref.sigma), atol=TOL_SIGMA)
+    assert hist["w_staleness"].max() == 0
+    assert get_engine("distributed").name == "distributed"
+    est = DMTRLEstimator(engine="distributed", config=port_cfg, device="cpu")
+    est.fit(port_problem.train)
+    np.testing.assert_allclose(est.W_.numpy(), np.asarray(jax_ref.W), atol=TOL_W)
+
+
+def test_simulated_protocol_methods_drive_one_w_step(port_problem):
+    """gate/snapshot/commit on the simulated transport are real protocol
+    methods: one W-step driven one worker at a time equals the reference
+    engine on a fixed-Sigma regularizer."""
+    from repro_torch.core import fit as fit_reference, local_mesh
+
+    cfg = DMTRLConfig(loss="hinge", lam=1e-3, outer_iters=1, rounds=3, local_iters=32,
+                      solver="block_gram", block_size=32, seed=0,
+                      omega_regularizer="identity_stl")
+    data = port_problem.train
+    reg = treg.get_regularizer("identity_stl")
+    t = get_transport("simulated").factory()
+    t.setup(cfg, data, mesh=local_mesh(device="cpu"), axes=None, reg=reg, init=None,
+            track=False)
+    rho = _rho_value(cfg, t.rho_sigma(), reg=reg)
+    solve = make_block_solver(cfg, t.data.n_max, rho)
+    _, outer_key = prng.split(prng.PRNGKey(cfg.seed))
+    round_keys = prng.split(outer_key, cfg.rounds)
+    tids = torch.arange(t.m)
+    for r in range(cfg.rounds):
+        assert t.gate(0, r)
+        snap = t.snapshot(0)
+        delta = solve(t.data.x, t.data.y, snap.alpha_rows, snap.W_rows, t.data.n,
+                      snap.sigma_rows, tids, round_keys[r])
+        receipt = t.commit(0, r, delta)
+        assert (receipt.worker, receipt.round, receipt.staleness, receipt.lag) == (0, r, 0, 0)
+        assert receipt.version == r + 1
+    W, _, _, hist = t.result()
+    ref = fit_reference(cfg, data, regularizer=reg, device="cpu")
+    np.testing.assert_allclose(W.numpy(), ref.W.numpy(), atol=TOL_W)
+    assert cv.staleness_summary(hist)["n_commits"] == cfg.rounds
+
+
+def test_threaded_matches_simulated_at_tau0(port_problem, port_cfg):
+    """Transport parity (simulated against threaded, 1 worker): the same
+    final (W, Sigma) at tau = 0."""
+    W1, s1, _, _ = fit_async(port_cfg, port_problem.train, device="cpu")
+    W2, s2, _, _ = _fit(port_cfg, port_problem.train, "threaded", 1)
+    np.testing.assert_allclose(W1.numpy(), W2.numpy(), atol=TOL_W)
+    np.testing.assert_allclose(s1.numpy(), s2.numpy(), atol=TOL_SIGMA)
+
+
+def test_simulated_setup_checks(port_problem, port_cfg):
+    from repro_torch.core import local_mesh
+
+    mesh = local_mesh(device="cpu")
+    for opts, match in ((AsyncOptions(codec="int8"), "codec"),
+                        (AsyncOptions(topology="ring"), "topology"),
+                        (AsyncOptions(n_workers=2), "n_workers")):
+        with pytest.raises(ValueError, match=match):
+            fit_async(port_cfg, port_problem.train, mesh, options=opts)
+    with pytest.raises(ValueError, match="needs a mesh"):
+        get_transport("simulated").factory().setup(
+            port_cfg, port_problem.train, mesh=None, axes=None, reg=None, init=None,
+            track=False, device="cpu")
 
 
 def test_adapt_tau_budget_transitions():
