@@ -97,15 +97,16 @@ Phases, each printing its own lines:
               in power-of-two buckets with true_len, K3 26 times a prefill;
               in fp32 a bucketed prefill against an exact-length one and
               the ring across the window (508 tokens + 8 decode steps
-              against prefills of 509 .. 516); (b) qwen1.5-4b, 40 layers,
-              K3 40 times a prefill; (c) nemotron-4-15b cut to 4 layers;
-              (d) mamba2-780m, 48 layers at exact length, K4 48 times a
-              prefill, and its fp32 state (256 + 3 against 257 .. 259); (e)
-              the bridge: DMTRL heads (fit_mtl_heads, pallas_round) on
-              gemma3-1b's pooled features of 6 band tasks x 256 sequences
-              x 64 tokens: K3 in the backbone, K1 24 times in the fit, the
-              features against the plain attention, the fit against
-              block_gram on the same features, the test error;
+              against prefills of 509 .. 516); (b) qwen1.5-4b cut to 8 of
+              its 40 layers, K3 8 times a prefill; (c) nemotron-4-15b cut
+              to 4 layers; (d) mamba2-780m, 48 layers at exact length, K4
+              48 times a prefill, and its fp32 state (256 + 3 against
+              257 .. 259); (e) the bridge: DMTRL heads (fit_mtl_heads,
+              pallas_round) on gemma3-1b's pooled features of 6 band tasks
+              x 256 sequences x 64 tokens: K3 in the backbone, K1 24
+              times in the fit, the features against the plain attention,
+              the fit against block_gram on the same features, the test
+              error;
   9. the rest of the zoo — phase 5's engine and requests (bf16, random
               weights from seed 0) at full width: (a) qwen3-moe-30b-a3b
               cut to 8 of 48 layers (128 experts top-8), K3 8 times a
@@ -143,7 +144,16 @@ Phases, each printing its own lines:
               (against a), tau = 2 with delays (2,), and the
               g1_tau2_omega1 golden history replayed; (e) low_rank_diag at
               4096 tasks on (b)'s world (the factored reduce), against
-              phase 6c's fit.
+              phase 6c's fit;
+ 12. the sharded train step — phase 10's configs, init and batch through
+              train.make_sharded_train_step on the local mesh
+              (launch.make_host_mesh(1, 1)) and on a one-rank NCCL world
+              (make_mesh((1, 1), ("data", "model"))): (a) gemma3-1b whole,
+              10 steps (K3, K3-bwd); (b) mamba2-780m whole, 3 steps (K4,
+              K4-bwd). Each against make_train_step in the same call:
+              metrics and params bit-equal, phase 10's launches a step,
+              the all_gathers the specs give; warm step host ms,
+              collectives by kind and peak memory beside phase 10's.
 
 It exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository. The line before the last is a JSON object with
@@ -271,11 +281,13 @@ PS_CFG = dict(solver="pallas_round", loss="hinge", lam=1e-4, outer_iters=2, roun
 SYN_LAM = 1e-3
 # the LM families (phase 8), each at full width behind phase 5's engine and
 # requests; nemotron-4-15b's depth is cut to 4 of its 32 layers (its 15.7e9
-# parameters at full depth would show nothing the other three do not).
+# parameters at full depth would show nothing the other three do not), and
+# qwen1.5-4b's to 8 of 40 (the same block each layer), which pays for part
+# of phase 12's time.
 # gemma3's ring buffer in fp32 across its window: a prefill of 508 tokens
 # plus 8 decode steps against prefills of 509 .. 516 tokens
 LM_FAMILIES = ("gemma3-1b", "qwen1.5-4b", "nemotron-4-15b", "mamba2-780m")
-NEMOTRON_LAYERS = 4
+FAMILY_LAYERS = {"nemotron-4-15b": 4, "qwen1.5-4b": 8}
 RING_S, RING_STEPS = 508, 8
 BUCKET_LENS = (300, 129, 17)  # bucketed (512, 256, 32) against exact-length prefills
 # the rest of the zoo (phase 9), each at full width behind phase 5's engine
@@ -343,6 +355,14 @@ SSD_BWD_SWEEP = ("mamba2-780m bf16", "zamba2-2.7b bf16", "overflow fp32")
 # decode step; at temperature 0.8 (seed 0) twice and at temperature 0
 STREAM_LENS = (512, 300, 129, 64, 200, 17, 90, 256)
 STREAM_TEMPERATURE = 0.8
+# phase 12, the sharded train step on one position: phase 10's configs,
+# init and batch (bf16, remat, 2 x 1024 tokens, AdamW(lr=1e-3, warmup 2)),
+# gemma3-1b for 10 steps and mamba2-780m for 3, through
+# make_sharded_train_step on the local mesh and on a one-rank NCCL world,
+# each against make_train_step in the same call. On one position every
+# gather is a copy and every sum has one term, so the params and metrics
+# are held bit for bit
+SHARDED_STEPS = {"gemma3-1b": 10, "mamba2-780m": 3}
 
 
 def fail(msg: str) -> None:
@@ -833,8 +853,8 @@ def moe_drop_fracs():
 
     moe, layers = mlp_mod.moe_ffn, []
 
-    def recording(x, p, cfg):
-        y, aux = moe(x, p, cfg)
+    def recording(x, p, cfg, **kw):
+        y, aux = moe(x, p, cfg, **kw)
         if x.shape[1] > 1:
             layers.append(aux["drop_frac"])
         return y, aux
@@ -1283,9 +1303,10 @@ def lm_families(torch, dev, card: str) -> dict:
     for sub, name in zip("abcd", LM_FAMILIES):
         tag = f"8{sub} {name}"
         cfg = get_config(name)
-        if name == "nemotron-4-15b":
-            cfg = dataclasses.replace(cfg, n_layers=NEMOTRON_LAYERS)
-            print(f"[{tag}] depth cut: {NEMOTRON_LAYERS} of 32 layers, full width (d_model "
+        if name in FAMILY_LAYERS:
+            full = cfg.n_layers
+            cfg = dataclasses.replace(cfg, n_layers=FAMILY_LAYERS[name])
+            print(f"[{tag}] depth cut: {cfg.n_layers} of {full} layers, full width (d_model "
                   f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV heads, d_ff "
                   f"{cfg.d_ff}, {cfg.act})")
         t0 = time.perf_counter()
@@ -1374,7 +1395,8 @@ def train_main_path(torch, dev, card: str, arch: str, tag: str, min_drop: float)
     and step 2 K3 and 1 K3-bwd launches for each attention, 2 K4 and 1
     K4-bwd for each Mamba2 layer. Prints the step's host time, tokens/s,
     peak memory and, from one more profiled step, the device-busy share and
-    each kernel's part of it. Returns the launches of the 10 steps."""
+    each kernel's part of it. Returns the launches of the 10 steps and the
+    peak memory in GB."""
     import dataclasses
 
     from torch.profiler import ProfilerActivity, profile
@@ -1465,7 +1487,183 @@ def train_main_path(torch, dev, card: str, arch: str, tag: str, min_drop: float)
               f"{e.key[:90]}")
     del params, state, step, tb
     torch.cuda.empty_cache()
-    return launches
+    return launches, peak
+
+
+def gather_cost(torch, dev, mesh, cfg, reps: int = 50) -> dict:
+    """What one all_gather of the step costs on ``mesh``: the largest
+    column-split layer leaf of ``cfg`` (one layer, bf16) gathered along its
+    last dim over ``model``, as each layer body gathers it; the host clock
+    over ``reps`` calls ended by a synchronize, and CUDA events over the
+    same."""
+    from repro_torch.core import distributed as dist_mod
+    from repro_torch.models import sharding
+    from repro_torch.models.transformer import param_shapes
+
+    shapes = param_shapes(cfg)["layers"]
+    specs = sharding.param_pspecs(cfg, shapes, mesh)
+    shape = max((tuple(leaf.shape[1:]) for leaf, spec in zip(
+        sharding.tree_leaves(shapes), sharding.tree_leaves(specs)) if spec[-1] == "model"),
+        key=lambda s: (int(np.prod(s)), s))
+    t = torch.randn(shape, device=dev).to(torch.bfloat16)
+    for _ in range(5):
+        dist_mod.all_gather_dim(t, mesh, "model", -1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dist_mod.all_gather_dim(t, mesh, "model", -1)
+    torch.cuda.synchronize()
+    host_us = (time.perf_counter() - t0) / reps * 1e6
+    device_us = cuda_ms(torch, lambda: dist_mod.all_gather_dim(t, mesh, "model", -1), reps) * 1e3
+    return {"shape": list(shape), "host_us": host_us, "device_us": device_us}
+
+
+def sharded_train_path(torch, dev, card: str, arch: str, tag: str, phase10_peak: float) -> dict:
+    """Phase 12: ``arch`` at full width and depth (phase 10's config, init
+    from seed 0 and batch) through ``train.make_sharded_train_step`` for
+    SHARDED_STEPS[arch] steps, (a) on the local mesh from
+    ``launch.make_host_mesh(1, 1)`` and (b) on a one-rank NCCL world
+    (``make_mesh((1, 1), ("data", "model"))``), each against
+    ``make_train_step`` run in the same call from a copy of the same init.
+    Checks that the metrics of every step and the params after the last are
+    bit-equal to make_train_step's, and per step the K3 / K3-bwd / K4 /
+    K4-bwd launches of phase 10 and, on NCCL, the all_gathers the specs
+    give (every layer's model-split leaves twice under remat, embed and
+    lm_head once). Prints the warm step's host time, the collectives by
+    kind and the peak memory beside phase 10's (``phase10_peak`` GB).
+    Returns each run's launches."""
+    import dataclasses
+    import json as json_mod
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import distributed as dist_mod
+    from repro_torch.core import make_mesh
+    from repro_torch.data.tokens import SyntheticTokenPipeline, TokenPipelineConfig
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.models import init_params, sharding
+    from repro_torch.train import AdamW, make_sharded_train_step, make_train_step
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config(arch), remat=True)
+    steps = SHARDED_STEPS[arch]
+    opt = AdamW(lr=1e-3, warmup_steps=2)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticTokenPipeline(
+        TokenPipelineConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)).batch(0).items()}
+    init = tree_map(lambda t: t.cpu(), init_params(cfg, 0, dev))  # phase 10's init
+    torch.cuda.empty_cache()
+    n_attn, n_ssm = attention_and_ssm_layers(cfg)
+    per_step = {"K3": 2 * n_attn, "K3-bwd": n_attn, "K4": 2 * n_ssm, "K4-bwd": n_ssm}
+    kernels = lm_kernels()
+    warm = slice(1, 9) if steps >= 9 else slice(1, steps)  # steps 2-9, or 2 on
+
+    def run(name, mesh=None):
+        """``steps`` steps from a copy of ``init``: the metrics, the host
+        time, launches and collectives of each step, the final params and
+        the peak memory."""
+        params = tree_map(lambda t: t.to(dev), init)
+        if mesh is None:
+            step = make_train_step(cfg, opt)
+        else:
+            step, pshard, _, bshard = make_sharded_train_step(
+                cfg, opt, mesh, TRAIN_BATCH, TRAIN_SEQ)
+            params = sharding.shard_tree(pshard, params)
+        state = opt.init(params)
+        b = batch if mesh is None else {k: bshard[k].shard(v) for k, v in batch.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = {"metrics": [], "ms": [], "launches": [], "collectives": []}
+        for k in kernels.values():
+            k.launches = 0
+        for _ in range(steps):
+            dist_mod.reset_collective_counts()
+            before = {n: k.launches for n, k in kernels.items()}
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, b)
+            m = {k: float(v) for k, v in m.items()}  # waits for the step
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["metrics"].append(m)
+            out["launches"].append({n: k.launches - before[n] for n, k in kernels.items()})
+            out["collectives"].append(dict(dist_mod.COLLECTIVES))
+        out["total"] = {n: k.launches for n, k in kernels.items()}
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["params"] = params
+        if mesh is not None:
+            out["shardings"] = pshard
+        del state
+        check(all(np.isfinite(list(m.values())).all() for m in out["metrics"]),
+              f"[{tag} {name}] non-finite metrics")
+        for i, got in enumerate(out["launches"]):
+            for kname, n in per_step.items():
+                check(got[kname] == n, f"[{tag} {name}] step {i}: {kname} launched "
+                      f"{got[kname]} times, expected {n} (phase 10's)")
+        return out
+
+    ref = run("make_train_step")
+    # compared on the host, so that the device holds one run at a time
+    ref_params = [t.cpu() for t in tree_leaves(ref.pop("params"))]
+    runs = {"local": run("local", make_host_mesh(1, 1, device=dev))}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device=dev)
+        check(mesh.distributed, f"[{tag}] not a process-group mesh: {mesh}")
+        # the communicators come up at their first call, before the timed run
+        dist_mod.psum(torch.zeros(1, device=dev), mesh, "data")
+        dist_mod.psum(torch.zeros(1, device=dev), mesh, "model")
+        dist_mod.all_gather(torch.zeros(1, device=dev), mesh, "model")
+        torch.cuda.synchronize()
+        runs["nccl"] = run("nccl", mesh)
+        gather_us = gather_cost(torch, dev, mesh, cfg)
+    finally:
+        dist.destroy_process_group()
+
+    line = {"phase": tag, "arch": arch, "steps": steps, "card": card,
+            "make_train_step": {"warm_ms_median": float(np.median(ref["ms"][warm])),
+                                "peak_gb": ref["peak_gb"], "phase10_peak_gb": phase10_peak}}
+    line["nccl_all_gather_us"] = gather_us
+    for name, r in runs.items():
+        leaves = [t.cpu() for t in tree_leaves(r.pop("params"))]
+        pshard = r.pop("shardings")
+        if name == "nccl":  # every model-split leaf of a layer twice, the others once
+            split = lambda t: sum(bool(sharding.spec_axes(x.spec)) for x in sharding.tree_leaves(t))
+            want = 2 * cfg.n_layers * split(pshard["layers"]) + split(
+                {k: v for k, v in pshard.items() if k != "layers"})
+            got = r["collectives"][0].get("all_gather", 0)
+            check(got == want, f"[{tag} nccl] {got} all_gathers a step, the specs give {want}")
+        same_metrics = r["metrics"] == ref["metrics"]
+        bit_equal = all(torch.equal(a, b) for a, b in zip(leaves, ref_params))
+        # the difference in fp32 costs seconds on the host: only when there is one
+        max_dp = 0.0 if bit_equal else max(float((a.float() - b.float()).abs().max())
+                                           for a, b in zip(leaves, ref_params))
+        check(same_metrics, f"[{tag} {name}] metrics differ from make_train_step's: "
+              f"{r['metrics']} vs {ref['metrics']}")
+        check(bit_equal, f"[{tag} {name}] params differ from make_train_step's by up to "
+              f"{max_dp:.3e}")
+        coll = r["collectives"]
+        check(all(c == coll[0] for c in coll), f"[{tag} {name}] collectives vary by step: {coll}")
+        line[name] = {"warm_ms_median": float(np.median(r["ms"][warm])),
+                      "warm_ms_range": [float(min(r["ms"][warm])), float(max(r["ms"][warm]))],
+                      "metrics_equal": same_metrics, "params_bit_equal": bit_equal,
+                      "max_abs_param_diff": max_dp, "launches_per_step": r["launches"][0],
+                      "collectives_per_step": coll[0], "peak_gb": r["peak_gb"],
+                      "loss": [m["loss"] for m in r["metrics"]]}
+        del leaves
+    print(f"[{tag} {arch} sharded] " + json_mod.dumps(line))
+    print(f"[{tag} {arch} sharded] warm step host ms median: make_train_step "
+          f"{line['make_train_step']['warm_ms_median']:.1f}, local mesh "
+          f"{line['local']['warm_ms_median']:.1f}, one-rank NCCL "
+          f"{line['nccl']['warm_ms_median']:.1f}; peak GB {ref['peak_gb']:.2f} / "
+          f"{line['local']['peak_gb']:.2f} / {line['nccl']['peak_gb']:.2f} (phase 10: "
+          f"{phase10_peak:.2f}); NCCL collectives a step "
+          f"{line['nccl']['collectives_per_step']}, one all_gather of a "
+          f"{gather_us['shape']} bf16 layer leaf {gather_us['host_us']:.1f} us host, "
+          f"{gather_us['device_us']:.1f} us device; bit-equal local "
+          f"{line['local']['params_bit_equal']}, NCCL {line['nccl']['params_bit_equal']} "
+          f"on {card}")
+    del ref_params
+    torch.cuda.empty_cache()
+    return {f"{tag} {arch} sharded {name}": r["total"] for name, r in runs.items()}
 
 
 def train_card_against_cpu(torch, dev, card: str) -> dict:
@@ -2739,17 +2937,23 @@ def main() -> int:
     print(f"[9] {time.perf_counter() - t9:.1f} s wall")
     # -- phase 10: training; 10d: mamba2-780m through K4 and K4-bwd ---------
     t10 = time.perf_counter()
-    train_by_path = {"10a gemma3-1b train": train_main_path(torch, dev, card, "gemma3-1b",
-                                                            "10a", min_drop=0.5)}
+    launches_10a, peak_10a = train_main_path(torch, dev, card, "gemma3-1b", "10a", min_drop=0.5)
+    train_by_path = {"10a gemma3-1b train": launches_10a}
     train_by_path.update(train_card_against_cpu(torch, dev, card))
     train_by_path["10c launcher whisper-tiny"] = train_launcher(torch, dev, card)
-    train_by_path["10d mamba2-780m train"] = train_main_path(torch, dev, card, "mamba2-780m",
-                                                             "10d", min_drop=0.0)
+    launches_10d, peak_10d = train_main_path(torch, dev, card, "mamba2-780m", "10d",
+                                             min_drop=0.0)
+    train_by_path["10d mamba2-780m train"] = launches_10d
     print(f"[10] {time.perf_counter() - t10:.1f} s wall")
     # -- phase 11: the mesh engines (distributed, simulated transport) -------
     t11 = time.perf_counter()
     mesh_launches = mesh_engines_path(torch, dev, card, train, syn, ref3, ref_est, many, ref6c)
     print(f"[11] {time.perf_counter() - t11:.1f} s wall")
+    # -- phase 12: the LM zoo's sharded train step on one position ----------
+    t12 = time.perf_counter()
+    train_by_path.update(sharded_train_path(torch, dev, card, "gemma3-1b", "12a", peak_10a))
+    train_by_path.update(sharded_train_path(torch, dev, card, "mamba2-780m", "12b", peak_10d))
+    print(f"[12] {time.perf_counter() - t12:.1f} s wall")
 
     def by_kernel(name):
         return {k: v[name] for k, v in {"5c zamba2-2.7b stream": stream_launches,

@@ -205,7 +205,8 @@ def pad_to_multiple(x: int, k: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# collectives: the only place the mesh engines talk to torch.distributed
+# collectives: the only place the mesh engines and the LM zoo's sharded
+# train step talk to torch.distributed
 # ---------------------------------------------------------------------------
 # calls made through torch.distributed, by kind (a process-group mesh only)
 COLLECTIVES: collections.Counter = collections.Counter()
@@ -247,6 +248,64 @@ def psum(t: Tensor, mesh: Mesh, name: Optional[str]) -> Tensor:
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=g)
     COLLECTIVES["all_reduce"] += 1
     return out
+
+
+def all_gather_dim(t: Tensor, mesh: Mesh, name: Optional[str], dim: int) -> Tensor:
+    """Concatenate every position's ``t`` along ``dim`` over axis ``name``
+    (one ``all_gather`` call), as a contiguous tensor: a weight then has
+    the layout, and its products the kernels, of the unsharded one. The
+    blocks arrive stacked along dim 0 and are interleaved into place by one
+    copy (none along dim 0, or over one position)."""
+    if mesh.group(name) is None:
+        return t
+    dim = dim % t.dim()
+    shape = tuple(t.shape)
+    k = mesh.shape[name]
+    g = all_gather(t, mesh, name).view((k,) + shape)
+    return g.movedim(0, dim).reshape(shape[:dim] + (k * shape[dim],) + shape[dim + 1:])
+
+
+def block_of(t: Tensor, mesh: Mesh, name: Optional[str], dim: int) -> Tensor:
+    """This position's block of ``t`` along ``dim`` over axis ``name`` (a
+    view; ``t.shape[dim]`` must split evenly)."""
+    k = mesh.shape[name] if name is not None else 1
+    if k == 1:
+        return t
+    size = t.shape[dim]
+    if size % k:
+        raise ValueError(f"dim {dim} of size {size} does not split over {name!r} = {k}")
+    n = size // k
+    return t.narrow(dim, mesh.coord(name) * n, n)
+
+
+def psum_scatter(t: Tensor, mesh: Mesh, name: Optional[str], dim: int) -> Tensor:
+    """The sum of ``t`` over axis ``name``, and of it this position's block
+    along ``dim``: a reduce-scatter, made as a psum followed by a slice."""
+    return block_of(psum(t, mesh, name), mesh, name, dim).contiguous()
+
+
+class AllGather(torch.autograd.Function):
+    """``all_gather_dim`` that autograd differentiates. The backward hands
+    this position its block of the full gradient as it is: the positions
+    along the axis hold the same batch (as the LM step's ``model`` axis
+    does), so each computed the same full gradient."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, name, dim):
+        ctx.mesh, ctx.name, ctx.dim = mesh, name, dim
+        return all_gather_dim(t, mesh, name, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return block_of(g, ctx.mesh, ctx.name, ctx.dim).contiguous(), None, None, None
+
+
+def all_gather_grad(t: Tensor, mesh: Mesh, name: Optional[str], dim: int) -> Tensor:
+    """``all_gather_dim`` under autograd (``AllGather``); the identity on
+    an axis without a process group."""
+    if mesh.group(name) is None:
+        return t
+    return AllGather.apply(t, mesh, name, dim)
 
 
 def broadcast(t: Tensor, mesh: Mesh) -> Tensor:

@@ -85,6 +85,8 @@ def normal_init(gen: torch.Generator, shape, dtype, std: float) -> Tensor:
     """N(0, std^2) of ``shape`` in ``dtype``, drawn in fp32 on the
     generator's device (in slabs of at most ``DRAW_SLAB`` elements)."""
     shape = tuple(shape)
+    if gen.device.type == "meta":  # shapes only (``transformer.param_shapes``)
+        return torch.empty(shape, dtype=dtype, device="meta")
     numel = math.prod(shape)
     if numel <= DRAW_SLAB or len(shape) < 2:
         w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)

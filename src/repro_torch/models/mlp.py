@@ -143,10 +143,20 @@ class MoeCombine(torch.autograd.Function):
         return g_pad[rows[None, :, None], slot_sk.transpose(0, 1)], None, None, None
 
 
-def moe_ffn(x: Tensor, p: Dict[str, Tensor], cfg: ModelConfig) -> Tuple[Tensor, Dict[str, Tensor]]:
+def moe_ffn(x: Tensor, p: Dict[str, Tensor], cfg: ModelConfig,
+            shard=None) -> Tuple[Tensor, Dict[str, Tensor]]:
     """x: (B, S, d). Returns (out (B, S, d), aux) with aux's ``aux_loss``
     (Switch load balance), ``drop_frac`` and ``router_entropy``, and the
-    routing: each token's experts ``expert_idx`` (B, S, K)."""
+    routing: each token's experts ``expert_idx`` (B, S, K).
+
+    Under the sharded train step, ``shard`` (``sharding.StepSharding``)
+    says that x is this rank's rows of a batch split over
+    ``shard.batch_positions`` ranks. The aux loss is then this rank's term
+    of the whole batch's ``E sum_e f_e p_e``: f_e (no gradient) from the
+    expert counts summed over the batch axes, and this rank's probabilities
+    summed over its rows, both over the whole batch's size. The terms sum
+    over the ranks to the batch's aux loss, and their gradients to its
+    gradient. Capacity and drops need nothing: a group is a batch row."""
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     C = _capacity(S, cfg)
@@ -158,8 +168,14 @@ def moe_ffn(x: Tensor, p: Dict[str, Tensor], cfg: ModelConfig) -> Tuple[Tensor, 
     gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
 
     # load-balance aux loss (Switch): E * sum_e f_e * p_e
-    me = probs.mean(dim=(0, 1))
-    fe = torch.bincount(idx.reshape(-1), minlength=E).float() / (B * S * K)
+    counts = torch.bincount(idx.reshape(-1), minlength=E).float()
+    if shard is None or shard.batch_positions == 1:
+        me = probs.mean(dim=(0, 1))
+        fe = counts / (B * S * K)
+    else:
+        rows = B * shard.batch_positions
+        me = probs.sum(dim=(0, 1)) / (rows * S)
+        fe = shard.psum_batch(counts) / (rows * S * K)
     aux_loss = E * torch.sum(fe * me)
 
     # slots within each group's expert buffers: an exclusive running count

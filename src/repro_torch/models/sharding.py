@@ -1,0 +1,424 @@
+"""Partition specs for params, optimizer state, inputs and caches: the JAX
+package's ``models/sharding.py`` over the port's ``core.distributed.Mesh``.
+
+The specs are the JAX package's, leaf for leaf:
+  * Megatron-style tensor parallelism over the 'model' axis: attention q
+    heads / kv heads (when divisible) / wo input heads, the MLP hidden dim,
+    the MoE expert dim, SSM heads and inner dim, and the vocab dim of
+    lm_head;
+  * data parallelism over 'data' (and 'pod' when present) on the batch
+    dim; ``mode="train"`` adds FSDP over those axes (``_apply_fsdp``);
+  * decode caches shard the batch over the data axes when it divides,
+    else the sequence (context parallelism, the B = 1 case).
+
+A spec is a ``P``: one entry per leading dim, each None (replicated), an
+axis name, or a tuple of names (the dim split over their product, the
+first the major). It compares equal to ``tuple(jax.sharding.PartitionSpec(
+...))``. ``NamedSharding`` binds a spec to a mesh and adds the two
+operations the sharded train step needs, both from the spec and the rank's
+``mesh.coord``: ``shard`` (this rank's block of a full tensor) and
+``gather`` (the full tensor from the blocks). ``StepSharding`` is what the
+step hands the model: it gathers each layer's leaves where the layer uses
+them, under autograd (``core.distributed.AllGather``), and sums over the
+batch axes.
+
+Specs need only ``mesh.shape`` (a dict of axis sizes); shard and gather
+need a ``core.distributed.Mesh``. A spec that names an axis the mesh
+lacks, or splits a dim its axes do not divide, raises.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Optional, Tuple
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..core import distributed as dist_mod
+
+Tensor = torch.Tensor
+
+MODEL_AXIS = "model"
+
+
+def _entry(e):
+    """An entry in JAX's canonical form: a list as a tuple, a one-name
+    tuple as the name, an empty tuple as None."""
+    if isinstance(e, list):
+        e = tuple(e)
+    if isinstance(e, tuple):
+        if not e:
+            return None
+        if len(e) == 1:
+            return e[0]
+    return e
+
+
+class P(tuple):
+    """A partition spec (``jax.sharding.PartitionSpec``): dims past its
+    length are replicated."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, tuple(_entry(e) for e in entries))
+
+    def __repr__(self) -> str:
+        return "P" + tuple.__repr__(tuple(self))
+
+
+def entry_axes(entry) -> Tuple[str, ...]:
+    """The axis names of one spec entry, major first."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def spec_axes(spec) -> Tuple[str, ...]:
+    """Every axis a spec names, in its order."""
+    return tuple(a for e in spec for a in entry_axes(e))
+
+
+def _div(n: int, k: int) -> bool:
+    return k > 0 and n % k == 0
+
+
+def _model_size(mesh) -> int:
+    return mesh.shape.get(MODEL_AXIS, 1)
+
+
+def batch_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in mesh.shape)
+
+
+def _apply_fsdp(spec: P, leaf, mesh, fsdp_axes: Tuple[str, ...], name: str = "") -> P:
+    """ZeRO/FSDP: additionally shard the largest un-sharded dim of every
+    >=2D parameter over the data(+pod) axes, if divisible, so params and
+    optimizer moments scale with the full device count.
+
+    The token embedding is special-cased as in the JAX package: the fsdp
+    axes stack onto its d_model dim, not the vocab dim. The leading
+    stacked-layer dim of a >2D leaf is never chosen."""
+    shape = tuple(leaf.shape)
+    if not fsdp_axes or len(shape) < 2:
+        return spec
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    if name == "embed":
+        cur = entry_axes(entries[-1])
+        total = math.prod(mesh.shape[a] for a in cur + fsdp_axes)
+        if shape[-1] % total == 0:
+            entries[-1] = tuple(cur) + tuple(fsdp_axes)
+            return P(*entries)
+        return spec
+    fsdp_size = math.prod(mesh.shape[a] for a in fsdp_axes)
+    cand = [
+        (shape[i], i)
+        for i in range(1 if len(shape) > 2 else 0, len(shape))
+        if entries[i] is None and shape[i] % fsdp_size == 0
+    ]
+    if not cand:
+        return spec
+    _, dim = max(cand)
+    entries[dim] = fsdp_axes if len(fsdp_axes) > 1 else fsdp_axes[0]
+    return P(*entries)
+
+
+def _spec_for(path: str, leaf, cfg: ModelConfig, msz: int) -> P:
+    """Partition spec for one parameter leaf (``path`` is '/'-joined key
+    names). Stacked layer leaves have a leading L dim: None is prepended
+    for each dim in front of the unstacked shape."""
+    shape = tuple(leaf.shape)
+    nd = len(shape)
+    name = path.split("/")[-1]
+    M = MODEL_AXIS
+
+    def spec(*tail):
+        return P(*((None,) * (nd - len(tail)) + tail))
+
+    # ---- embeddings / head
+    if name == "embed":
+        return spec(None, M) if _div(cfg.d_model, msz) else spec(None, None)
+    if name == "lm_head":
+        return spec(None, M) if _div(cfg.vocab_padded, msz) else spec(None, None)
+    if name in ("enc_pos", "dec_pos"):
+        return spec(None, None)
+
+    # ---- attention
+    if name == "wq":
+        return spec(None, M) if _div(cfg.n_heads, msz) else spec(None, None)
+    if name in ("wk", "wv"):
+        return spec(None, M) if _div(cfg.n_kv_heads, msz) else spec(None, None)
+    if name == "wo":
+        return spec(M, None) if _div(cfg.n_heads, msz) else spec(None, None)
+    if name == "bq":
+        return spec(M) if _div(cfg.n_heads, msz) else spec(None)
+    if name in ("bk", "bv"):
+        return spec(M) if _div(cfg.n_kv_heads, msz) else spec(None)
+    if name in ("q_norm", "k_norm"):
+        return spec(None)
+
+    # ---- dense MLP
+    if name in ("w_gate", "w_up") and "moe" not in path:
+        return spec(None, M) if _div(cfg.d_ff, msz) else spec(None, None)
+    if name == "w_down" and "moe" not in path:
+        return spec(M, None) if _div(cfg.d_ff, msz) else spec(None, None)
+
+    # ---- MoE
+    if "moe" in path:
+        if name == "router":
+            return spec(None, None)
+        if name in ("w_gate", "w_up", "w_down"):
+            return spec(M, None, None) if _div(cfg.n_experts, msz) else spec(None, None, None)
+        fs = cfg.d_ff * max(cfg.n_shared_experts, 1)
+        if name in ("shared_gate", "shared_up"):
+            return spec(None, M) if _div(fs, msz) else spec(None, None)
+        if name == "shared_down":
+            return spec(M, None) if _div(fs, msz) else spec(None, None)
+
+    # ---- SSM
+    if name in ("w_z", "w_x", "w_dt"):
+        return spec(None, M) if _div(cfg.ssm_heads, msz) else spec(None, None)
+    if name in ("w_B", "w_C"):
+        return spec(None, None)  # g*n small; replicate
+    if name in ("A_log", "D", "dt_bias"):
+        return spec(M) if _div(cfg.ssm_heads, msz) else spec(None)
+    if name in ("conv_w", "conv_b"):
+        return P(*((None,) * nd))  # small depthwise filters: replicate
+    if name == "norm" and nd >= 1:
+        return spec(M) if _div(cfg.ssm_heads, msz) and shape[-1] == cfg.d_inner else spec(None)
+    if name == "out_proj":
+        return spec(M, None) if _div(cfg.ssm_heads, msz) else spec(None, None)
+
+    # ---- norms / defaults
+    return P(*((None,) * nd))
+
+
+# ---------------------------------------------------------------------------
+# trees: nested dicts (the model's param tree) whose leaves are tensors,
+# shape records, specs or shardings (a spec is a tuple, yet a leaf)
+# ---------------------------------------------------------------------------
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the matching leaves of
+    ``rest`` (``tree`` may hold a subset of their keys)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves in JAX's order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+def _with_paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _with_paths(tree[k], f"{prefix}/{k}" if prefix else str(k))
+    else:
+        yield prefix, tree
+
+
+# ---------------------------------------------------------------------------
+# param specs
+# ---------------------------------------------------------------------------
+def param_pspecs(cfg: ModelConfig, params_shape: Any, mesh, mode: str = "serve") -> Any:
+    """The spec tree of ``params_shape`` (any tree of leaves with a
+    ``.shape``, e.g. ``transformer.param_shapes(cfg)``).
+
+    mode='serve': tensor-parallel over 'model' only. mode='train':
+    additionally FSDP over the data(+pod) axes, so params and AdamW moments
+    scale with the full device count."""
+    if mode not in ("serve", "train"):
+        raise ValueError(f"mode must be 'serve' or 'train', got {mode!r}")
+    msz = _model_size(mesh)
+    fsdp = batch_axes(mesh) if mode == "train" else ()
+    paths = dict(_with_paths(params_shape))
+    specs = {}
+    for path, leaf in paths.items():
+        s = _spec_for(path, leaf, cfg, msz)
+        specs[path] = _apply_fsdp(s, leaf, mesh, fsdp, name=path.split("/")[-1])
+
+    def build(node, prefix=""):
+        if isinstance(node, dict):
+            return {k: build(v, f"{prefix}/{k}" if prefix else str(k)) for k, v in node.items()}
+        return specs[prefix]
+
+    return build(params_shape)
+
+
+class NamedSharding:
+    """A spec bound to a mesh (``jax.sharding.NamedSharding``), with this
+    rank's ``shard`` of a full tensor and the ``gather`` of the blocks."""
+
+    def __init__(self, mesh, spec):
+        self.mesh = mesh
+        self.spec = spec if isinstance(spec, P) else P(*spec)
+        seen = set()
+        for a in spec_axes(self.spec):
+            if a not in mesh.shape:
+                raise ValueError(f"spec {self.spec} names axis {a!r}, which the mesh "
+                                 f"{dict(mesh.shape)} lacks")
+            if a in seen:
+                raise ValueError(f"spec {self.spec} names axis {a!r} twice")
+            seen.add(a)
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({dict(self.mesh.shape)}, {self.spec})"
+
+    def _parts(self, dim: int) -> int:
+        return math.prod(self.mesh.shape[a] for a in entry_axes(self.spec[dim]))
+
+    def check(self, shape) -> None:
+        """Raise unless every sharded dim of ``shape`` splits evenly."""
+        shape = tuple(shape)
+        if len(self.spec) > len(shape):
+            raise ValueError(f"spec {self.spec} has more entries than shape {shape} has dims")
+        for dim in range(len(self.spec)):
+            k = self._parts(dim)
+            if shape[dim] % k:
+                raise ValueError(f"dim {dim} of shape {shape} does not split over "
+                                 f"{entry_axes(self.spec[dim])} ({k} blocks): spec {self.spec}")
+
+    def shard_shape(self, shape) -> Tuple[int, ...]:
+        """The shape of one rank's block of a tensor of ``shape``."""
+        self.check(shape)
+        shape = tuple(shape)
+        return tuple(n // self._parts(i) if i < len(self.spec) else n
+                     for i, n in enumerate(shape))
+
+    def block_index(self, dim: int) -> int:
+        """This rank's block along ``dim``: its coords over the entry's
+        axes, the first the major."""
+        idx = 0
+        for a in entry_axes(self.spec[dim]):
+            idx = idx * self.mesh.shape[a] + self.mesh.coord(a)
+        return idx
+
+    def shard(self, t: Tensor) -> Tensor:
+        """This rank's block of the full tensor ``t``, as a new contiguous
+        tensor (updates to it never reach ``t``)."""
+        self.check(t.shape)
+        out = t
+        for dim in range(len(self.spec)):
+            k = self._parts(dim)
+            if k > 1:
+                n = t.shape[dim] // k
+                out = out.narrow(dim, self.block_index(dim) * n, n)
+        return out.clone(memory_format=torch.contiguous_format)
+
+    def _require_groups(self) -> None:
+        for a in spec_axes(self.spec):
+            if self.mesh.shape[a] > 1 and self.mesh.group(a) is None:
+                raise RuntimeError(f"axis {a!r} of size {self.mesh.shape[a]} has no process "
+                                   f"group: {self.mesh!r} cannot gather {self.spec}")
+
+    def gather(self, t: Tensor) -> Tensor:
+        """The full tensor from every rank's block ``t`` (one all_gather per
+        axis of each sharded dim, the minor axis first); not differentiable."""
+        self._require_groups()
+        for dim in range(len(self.spec)):
+            for a in reversed(entry_axes(self.spec[dim])):
+                t = dist_mod.all_gather_dim(t, self.mesh, a, dim)
+        return t
+
+    def gather_grad(self, t: Tensor, lead: int = 0) -> Tensor:
+        """``gather`` under autograd for a block ``t`` whose spec is this
+        one without its first ``lead`` entries (one layer of a stacked
+        leaf: ``lead`` = 1). The backward hands this rank its block of the
+        full gradient, which every position along the gathered axes
+        computed alike."""
+        self._require_groups()
+        if spec_axes(self.spec[:lead]):
+            raise ValueError(f"spec {self.spec} shards the stacked layer dim: a layer's "
+                             "block is not a layer")
+        for i, entry in enumerate(self.spec[lead:]):
+            for a in reversed(entry_axes(entry)):
+                t = dist_mod.all_gather_grad(t, self.mesh, a, i)
+        return t
+
+
+def param_shardings(cfg: ModelConfig, params_shape: Any, mesh, mode: str = "serve") -> Any:
+    """The ``NamedSharding`` tree of ``param_pspecs``, each checked against
+    its leaf's shape."""
+    specs = param_pspecs(cfg, params_shape, mesh, mode)
+
+    def bind(leaf, spec):
+        s = NamedSharding(mesh, spec)
+        s.check(leaf.shape)
+        return s
+
+    return tree_map(bind, params_shape, specs)
+
+
+def shard_tree(shardings, tree):
+    """This rank's blocks of a tree of full tensors."""
+    return tree_map(lambda t, s: s.shard(t), tree, shardings)
+
+
+def gather_tree(shardings, tree):
+    """The full tensors of a tree of this rank's blocks."""
+    return tree_map(lambda t, s: s.gather(t), tree, shardings)
+
+
+# ---------------------------------------------------------------------------
+# batch / cache specs
+# ---------------------------------------------------------------------------
+def train_batch_pspec(mesh, global_batch: int) -> P:
+    dp = batch_axes(mesh)
+    dsz = math.prod(mesh.shape[a] for a in dp)
+    if _div(global_batch, dsz):
+        return P(dp, None)
+    return P(None, dp)  # batch too small: shard the sequence instead
+
+
+def decode_cache_pspec(cfg: ModelConfig, mesh, batch: int, kind: str) -> Any:
+    """Spec dict for one layer's cache. kind: 'attn'|'local'|'ssm'."""
+    dp = batch_axes(mesh)
+    msz = _model_size(mesh)
+    dsz = math.prod(mesh.shape[a] for a in dp)
+    b_ax = dp if _div(batch, dsz) else None
+    s_ax = dp if not _div(batch, dsz) else None  # context parallelism (B=1)
+    if kind == "ssm":
+        h_ax = MODEL_AXIS if _div(cfg.ssm_heads, msz) else None
+        return {"state": P(b_ax, h_ax, None, None), "conv": P(b_ax, None, None)}
+    kv_ax = MODEL_AXIS if _div(cfg.n_kv_heads, msz) else None
+    hd_ax = MODEL_AXIS if (kv_ax is None and _div(cfg.head_dim, msz)) else None
+    return {"k": P(b_ax, s_ax, kv_ax, hd_ax), "v": P(b_ax, s_ax, kv_ax, hd_ax),
+            "pos": P(b_ax, s_ax)}
+
+
+# ---------------------------------------------------------------------------
+# the sharded train step's view, handed to the model
+# ---------------------------------------------------------------------------
+class StepSharding:
+    """What ``train.loop.make_sharded_train_step`` hands the model
+    (``models.transformer``'s ``shard=`` argument): the params'
+    ``NamedSharding`` tree and ``grad_axes``, the batch axes over which the
+    ranks hold different rows (empty when the batch is replicated or its
+    sequence was gathered). ``gather`` builds the full leaves of one layer
+    (or an unstacked block or leaf) from this rank's blocks where the model
+    uses them; ``psum_batch`` sums over ``grad_axes``."""
+
+    def __init__(self, mesh, shardings, grad_axes: Tuple[str, ...] = ()):
+        self.mesh = mesh
+        self.shardings = shardings
+        self.grad_axes = tuple(grad_axes)
+        self.batch_positions = math.prod(mesh.shape[a] for a in self.grad_axes)
+
+    def gather(self, tree, key: str, stacked: bool = True):
+        """``tree``, a part of ``params[key]`` (one layer's views of a
+        stacked tree when ``stacked``, else the block or leaf itself, or a
+        subset of its keys), with every leaf gathered under autograd."""
+        lead = 1 if stacked else 0
+        return tree_map(lambda t, s: s.gather_grad(t, lead), tree, self.shardings[key])
+
+    def psum_batch(self, t: Tensor) -> Tensor:
+        for a in self.grad_axes:
+            t = dist_mod.psum(t, self.mesh, a)
+        return t
+
+
+def use(shard: Optional[StepSharding], tree, key: str, stacked: bool = True):
+    """``tree`` (a part of ``params[key]``) as the model computes with it:
+    gathered by the sharded step's ``shard``, or as it is without one."""
+    return tree if shard is None else shard.gather(tree, key, stacked)

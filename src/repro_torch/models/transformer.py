@@ -9,6 +9,7 @@ decoder with learned positions and cross-attention after every layer).
 
 Entry points:
     init_params(cfg, seed, device)               -> param dict
+    param_shapes(cfg)                            -> the same tree of meta tensors
     forward_train(cfg, params, tokens, side)     -> (logits, aux)
     loss_fn(cfg, params, batch)                  -> (loss, {"ce", "aux_loss"})
     encode_audio(cfg, params, frames)            -> encoder states (B, F, d)
@@ -37,6 +38,13 @@ cross-attention) runs under ``torch.utils.checkpoint``, as the JAX package
 wraps it in ``jax.checkpoint``: its activations are recomputed in the
 backward pass, so K3 and K4 run twice per layer and step.
 
+The sharded train step (``train.loop.make_sharded_train_step``) hands
+the training entry points this rank's blocks of the params and a
+``sharding.StepSharding`` (``shard=``): each body gathers its layer's
+leaves as it starts, inside the remat checkpoint, so autograd keeps the
+blocks and the recompute gathers again; ``embed`` and ``lm_head`` are
+gathered where they are read.
+
 Mixed dtypes follow JAX's type promotion, made explicit (torch does not
 promote inside a matmul): fp32 audio frames plus a bf16 model run the
 encoder in fp32 against the bf16 weights, so the cross-attention k/v and
@@ -57,6 +65,7 @@ from . import attention as attn_mod
 from . import mlp as mlp_mod
 from . import ssm as ssm_mod
 from .common import dense_init, dtype_of, embed_init, rms_norm
+from .sharding import use
 
 Tensor = torch.Tensor
 
@@ -127,7 +136,24 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict[str, Any
     package's shapes, dtypes and std rules (not its draws)."""
     _require_ported(cfg)
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    return _build_params(cfg, torch.Generator(device=device).manual_seed(seed), device)
+
+
+class _ShapesOnly:
+    """Stands in for the generator: every draw is an empty tensor on the
+    meta device (``common.normal_init``)."""
+
+    device = torch.device("meta")
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The param tree's shapes and dtypes without allocating: meta tensors
+    (kimi-k2's 1T parameters included), the JAX package's ``param_shapes``."""
+    _require_ported(cfg)
+    return _build_params(cfg, _ShapesOnly(), torch.device("meta"))
+
+
+def _build_params(cfg: ModelConfig, gen, device: torch.device) -> Dict[str, Any]:
     dtype = dtype_of(cfg.dtype)
     Vp, d = cfg.vocab_padded, cfg.d_model
     zeros = lambda: torch.zeros((d,), dtype=dtype, device=device)
@@ -193,16 +219,16 @@ def _promoted(tree, dtype: torch.dtype):
 # ---------------------------------------------------------------------------
 # layer application (forward / prefill)
 # ---------------------------------------------------------------------------
-def _ffn(cfg: ModelConfig, lp, x: Tensor) -> Tuple[Tensor, Optional[Tensor]]:
+def _ffn(cfg: ModelConfig, lp, x: Tensor, shard=None) -> Tuple[Tensor, Optional[Tensor]]:
     """The block's feed-forward: (out, the MoE's aux_loss or None)."""
     if cfg.arch_type == "moe":
-        y, aux = mlp_mod.moe_ffn(x, lp["moe"], cfg)
+        y, aux = mlp_mod.moe_ffn(x, lp["moe"], cfg, shard=shard)
         return y, aux["aux_loss"]
     return mlp_mod.mlp(x, lp["mlp"], cfg), None
 
 
 def _dense_block(cfg: ModelConfig, lp, h: Tensor, positions: Tensor, is_local: bool,
-                 aux_losses: Optional[List[Tensor]] = None):
+                 aux_losses: Optional[List[Tensor]] = None, shard=None):
     """(h after one attention + MLP (or MoE) block, its post-RoPE (k, v));
     a MoE block appends its aux_loss to ``aux_losses``."""
     att, kv = attn_mod.attention_train(
@@ -210,23 +236,27 @@ def _dense_block(cfg: ModelConfig, lp, h: Tensor, positions: Tensor, is_local: b
         return_kv=True,
     )
     h = h + att
-    y, aux_loss = _ffn(cfg, lp, rms_norm(h, lp["ln2"], cfg.norm_eps))
+    y, aux_loss = _ffn(cfg, lp, rms_norm(h, lp["ln2"], cfg.norm_eps), shard)
     if aux_losses is not None and aux_loss is not None:
         aux_losses.append(aux_loss)
     return h + y, kv
 
 
-def _dense_layer(cfg: ModelConfig, lp, h: Tensor, positions: Tensor, is_local: bool):
+def _dense_layer(cfg: ModelConfig, lp, h: Tensor, positions: Tensor, is_local: bool,
+                 shard=None):
     """``_dense_block`` with the MoE's aux_loss returned (None for an MLP
     block), for a scanned body: remat runs a body twice, so it must not
-    append to a list outside."""
+    append to a list outside. The layer's leaves are gathered here, inside
+    the body, when the sharded step passes ``shard``."""
+    lp = use(shard, lp, "layers")
     aux: List[Tensor] = []
-    h, kv = _dense_block(cfg, lp, h, positions, is_local, aux)
+    h, kv = _dense_block(cfg, lp, h, positions, is_local, aux, shard)
     return h, kv, (aux[0] if aux else None)
 
 
-def _ssm_block(cfg: ModelConfig, lp, h: Tensor):
+def _ssm_block(cfg: ModelConfig, lp, h: Tensor, shard=None):
     """(h + Mamba2(h), (state, conv_window))."""
+    lp = use(shard, lp, "layers")
     out, state, conv = ssm_mod.ssm_block_train(
         rms_norm(h, lp["ln1"], cfg.norm_eps), lp["ssm"], cfg
     )
@@ -244,11 +274,16 @@ def _shared_block(cfg: ModelConfig, sp, h: Tensor, positions: Tensor):
     return h, kv
 
 
-def _scan_layers(cfg: ModelConfig, params, h: Tensor, positions: Tensor):
+def _scan_layers(cfg: ModelConfig, params, h: Tensor, positions: Tensor, shard=None):
     """Run every layer over h. Returns (h, per-layer cache material, the
     MoE aux_loss summed over layers): the (state, conv) of each Mamba2
     layer, the (k, v) of each attention layer, and for the hybrid
-    ``(ssm material, shared-block (k, v) per period)``."""
+    ``(ssm material, shared-block (k, v) per period)``.
+
+    With the sharded step's ``shard`` each body gathers its layers' leaves
+    (and a hybrid period the shared block) from this rank's blocks as it
+    starts: under remat autograd keeps the blocks, and the recompute
+    gathers again."""
     aux_losses: List[Tensor] = []
     layers = _layers_of(params, cfg.n_layers)
     if cfg.arch_type == "hybrid":
@@ -257,9 +292,10 @@ def _scan_layers(cfg: ModelConfig, params, h: Tensor, positions: Tensor):
         def period(hh, lps):
             sc = []
             for lp in lps:
-                hh, c = _ssm_block(cfg, lp, hh)
+                hh, c = _ssm_block(cfg, lp, hh, shard)
                 sc.append(c)
-            hh, kv = _shared_block(cfg, params["shared"], hh, positions)
+            sp = use(shard, params["shared"], "shared", stacked=False)
+            hh, kv = _shared_block(cfg, sp, hh, positions)
             return hh, sc, kv
 
         ssm_out, shared_kv = [], []
@@ -272,10 +308,10 @@ def _scan_layers(cfg: ModelConfig, params, h: Tensor, positions: Tensor):
         collected = []
         for lp, kind in zip(layers, cfg.layer_kinds()):
             if cfg.arch_type == "ssm":
-                h, c = _maybe_remat(cfg, _ssm_block, cfg, lp, h)
+                h, c = _maybe_remat(cfg, _ssm_block, cfg, lp, h, shard)
             else:
                 h, c, aux_loss = _maybe_remat(cfg, _dense_layer, cfg, lp, h, positions,
-                                              _is_local(cfg, kind))
+                                              _is_local(cfg, kind), shard)
                 if aux_loss is not None:
                     aux_losses.append(aux_loss)
             collected.append(c)
@@ -284,17 +320,17 @@ def _scan_layers(cfg: ModelConfig, params, h: Tensor, positions: Tensor):
     return h, collected, aux
 
 
-def encode_audio(cfg: ModelConfig, params, frames: Tensor) -> Tensor:
+def encode_audio(cfg: ModelConfig, params, frames: Tensor, shard=None) -> Tensor:
     """Whisper-style encoder over precomputed frame embeddings (B, F, d):
     the learned frame positions, then non-causal attention + MLP layers
     (K3 on the card). The stream takes the dtype JAX promotes frames and
     weights to: fp32 frames against bf16 weights run in fp32."""
     F_ = frames.shape[1]
-    h = frames + params["enc_pos"][None, :F_]
+    h = frames + use(shard, params["enc_pos"], "enc_pos", stacked=False)[None, :F_]
     positions = _host_positions(F_, None)
 
     def layer(hh, lp):
-        lp = _promoted(lp, hh.dtype)
+        lp = _promoted(use(shard, lp, "enc_layers"), hh.dtype)
         hh = hh + attn_mod.attention_train(
             rms_norm(hh, lp["ln1"], cfg.norm_eps), lp["attn"], cfg, positions, False,
             causal=False,
@@ -303,32 +339,41 @@ def encode_audio(cfg: ModelConfig, params, frames: Tensor) -> Tensor:
 
     for lp in _layers_of(params, cfg.n_enc_layers, "enc_layers"):
         h = _maybe_remat(cfg, layer, h, lp)
-    return rms_norm(h, params["enc_norm"], cfg.norm_eps)
+    return rms_norm(h, use(shard, params["enc_norm"], "enc_norm", stacked=False), cfg.norm_eps)
 
 
-def _embed(cfg: ModelConfig, params, tokens: Tensor) -> Tensor:
-    h = params["embed"][tokens.long()]
+def _embed(cfg: ModelConfig, params, tokens: Tensor, shard=None) -> Tensor:
+    h = use(shard, params["embed"], "embed", stacked=False)[tokens.long()]
     if cfg.is_encoder_decoder:  # learned decoder positions; past the table they wrap
-        rows = params["dec_pos"].shape[0]
-        h = h + params["dec_pos"][torch.arange(tokens.shape[1], device=h.device) % rows][None]
+        dec_pos = use(shard, params["dec_pos"], "dec_pos", stacked=False)
+        rows = dec_pos.shape[0]
+        h = h + dec_pos[torch.arange(tokens.shape[1], device=h.device) % rows][None]
     return h
 
 
 def _forward(cfg: ModelConfig, params, tokens: Tensor, side: Optional[Tensor],
-             positions: Tensor):
+             positions: Tensor, shard=None):
     """(h before the final norm, per-layer cache material, the MoE aux_loss,
     the cross-attention (k, v) of each decoder layer or None)."""
-    h = _embed(cfg, params, tokens)
+    h = _embed(cfg, params, tokens, shard)
     if not cfg.is_encoder_decoder:
-        return _scan_layers(cfg, params, h, positions) + (None,)
+        return _scan_layers(cfg, params, h, positions, shard) + (None,)
     if side is None:
         raise ValueError(f"{cfg.name} is an encoder-decoder: it needs its encoder frames (side=)")
-    enc = encode_audio(cfg, params, side)
+    enc = encode_audio(cfg, params, side, shard)
     cross_layers = _layers_of(params, cfg.n_layers, "cross_layers")
-    cross = [attn_mod.cross_kv(enc, cp["attn"], cfg) for cp in cross_layers]
+    # the cross k/v are made outside the decoder bodies, from each layer's
+    # wk and wv (gathered here alone under the sharded step)
+    cross = [attn_mod.cross_kv(
+        enc, use(shard, {"attn": {k: cp["attn"][k] for k in ("wk", "wv")}},
+                 "cross_layers")["attn"], cfg) for cp in cross_layers]
     del enc
 
     def layer(hh, lp, cp, ck, cv):
+        # wk and wv were read for the cross k/v: gather the rest alone
+        cp = {"ln": cp["ln"], "attn": {k: w for k, w in cp["attn"].items()
+                                       if k not in ("wk", "wv")}}
+        lp, cp = use(shard, lp, "layers"), use(shard, cp, "cross_layers")
         hh, kv = _dense_block(cfg, lp, hh, positions, False)
         hh = hh + attn_mod.cross_attend(rms_norm(hh, cp["ln"], cfg.norm_eps), ck, cv,
                                         cp["attn"], cfg)
@@ -350,10 +395,12 @@ def _host_positions(S: int, true_len: Optional[int]) -> Tensor:
     return pos
 
 
-def _trunk(cfg: ModelConfig, params, tokens: Tensor, side: Optional[Tensor]):
+def _trunk(cfg: ModelConfig, params, tokens: Tensor, side: Optional[Tensor], shard=None):
     _require_ported(cfg)
-    h, _, aux, _ = _forward(cfg, params, tokens, side, _host_positions(tokens.shape[1], None))
-    return rms_norm(h, params["final_norm"], cfg.norm_eps), aux
+    h, _, aux, _ = _forward(cfg, params, tokens, side, _host_positions(tokens.shape[1], None),
+                            shard)
+    final_norm = use(shard, params["final_norm"], "final_norm", stacked=False)
+    return rms_norm(h, final_norm, cfg.norm_eps), aux
 
 
 def trunk(cfg: ModelConfig, params, tokens: Tensor, side: Optional[Tensor] = None) -> Tensor:
@@ -362,24 +409,34 @@ def trunk(cfg: ModelConfig, params, tokens: Tensor, side: Optional[Tensor] = Non
 
 
 def forward_train(
-    cfg: ModelConfig, params, tokens: Tensor, side: Optional[Tensor] = None
+    cfg: ModelConfig, params, tokens: Tensor, side: Optional[Tensor] = None, shard=None
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Logits (B, S, Vp) of every position and ``{"aux_loss": ...}`` (the
     MoE's load-balance loss summed over layers, 0 for the other archs): the
     JAX package's ``forward_train``, differentiable by autograd. ``side``
-    carries an encoder-decoder's frames (B, F, d)."""
-    h, aux = _trunk(cfg, params, tokens, side)
-    return h @ params["lm_head"], {"aux_loss": aux}
+    carries an encoder-decoder's frames (B, F, d).
+
+    ``shard`` (a ``sharding.StepSharding``, from
+    ``train.loop.make_sharded_train_step``) says that ``params`` hold this
+    rank's blocks: every leaf is gathered where it is used (a layer's
+    inside its remat body, ``embed`` and ``lm_head`` where they are read),
+    and the MoE's aux loss is this rank's term of the batch's."""
+    h, aux = _trunk(cfg, params, tokens, side, shard)
+    return h @ use(shard, params["lm_head"], "lm_head", stacked=False), {"aux_loss": aux}
 
 
-def loss_fn(cfg: ModelConfig, params, batch: Dict[str, Tensor]
+def loss_fn(cfg: ModelConfig, params, batch: Dict[str, Tensor], shard=None
             ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """The JAX package's ``loss_fn``: the masked mean next-token cross
     entropy in fp32 (labels clipped into the padded vocabulary) plus
     ``router_aux_coef`` times the MoE's aux loss. ``batch`` holds
     ``tokens`` and ``labels`` (B, S), optionally ``mask`` (B, S) and an
-    encoder-decoder's ``frames``. Returns ``(total, {"ce", "aux_loss"})``."""
-    logits, aux = forward_train(cfg, params, batch["tokens"], batch.get("frames"))
+    encoder-decoder's ``frames``. Returns ``(total, {"ce", "aux_loss"})``.
+
+    Under the sharded step (``shard``) ``batch`` is this rank's rows, the
+    mask's sum is taken over the batch axes, and the returned terms are
+    this rank's parts: summed over the batch axes they are the batch's."""
+    logits, aux = forward_train(cfg, params, batch["tokens"], batch.get("frames"), shard)
     logits = logits.float()
     labels = batch["labels"].long().clamp(0, cfg.vocab_padded - 1)
     lse = torch.logsumexp(logits, dim=-1)
@@ -387,7 +444,10 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, Tensor]
     nll = lse - gold
     mask = batch.get("mask")
     mask = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)
-    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    count = torch.sum(mask)
+    if shard is not None:
+        count = shard.psum_batch(count)
+    loss = torch.sum(nll * mask) / torch.clamp(count, min=1.0)
     total = loss + cfg.router_aux_coef * aux["aux_loss"]
     return total, {"ce": loss, "aux_loss": aux["aux_loss"]}
 

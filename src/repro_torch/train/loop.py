@@ -1,6 +1,8 @@
 """LM training loop: the train step (gradients by autograd, optional
 accumulation over microbatches, the AdamW update), metric logging and
-checkpoint hooks. The JAX package's ``train.loop`` on one device.
+checkpoint hooks: the JAX package's ``train.loop``, on one device
+(``make_train_step``) and over a mesh of process groups
+(``make_sharded_train_step``).
 
 On the card the gradient runs through the kernels' backward: K3-bwd for
 every attention (``kernels.flash.ops.FlashAttention``) and K4-bwd for every
@@ -17,11 +19,25 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from ..core import distributed as dist_mod
 from ..core.dmtrl import resolve_device
 from ..models import init_params, loss_fn
 from .optimizer import AdamW, AdamWState, tree_leaves, tree_map, tree_unflatten
 
 Tensor = torch.Tensor
+
+
+def _grads(cfg: ModelConfig, params, batch: Dict[str, Tensor], shard=None):
+    """(total loss, metrics, the gradients in leaf order) of ``loss_fn`` at
+    ``params``. The graph is recorded on fresh views of the params, so the
+    caller's tensors stay leaves without gradients."""
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    leaves = tree_leaves(live)
+    with torch.enable_grad():
+        total, metrics = loss_fn(cfg, live, batch, shard=shard)
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
+    return total.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
 def make_train_step(cfg: ModelConfig, opt: AdamW, microbatches: int = 1) -> Callable:
@@ -33,20 +49,9 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, microbatches: int = 1) -> Call
     loss and aux loss, as the JAX package does. The params and the state's
     moments are updated in place (``AdamW.update``) and returned."""
 
-    def grads_of(params, batch):
-        # fresh views of the params that record the graph; the caller's
-        # tensors stay leaves without gradients
-        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        leaves = tree_leaves(live)
-        with torch.enable_grad():
-            total, metrics = loss_fn(cfg, live, batch)
-            grads = torch.autograd.grad(total, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
-        return total.detach(), {k: v.detach() for k, v in metrics.items()}, grads
-
     def train_step(params, opt_state: AdamWState, batch: Dict[str, Tensor]):
         if microbatches == 1:
-            loss, metrics, grads = grads_of(params, batch)
+            loss, metrics, grads = _grads(cfg, params, batch)
         else:
             def split(v):
                 b = v.shape[0]
@@ -59,7 +64,7 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, microbatches: int = 1) -> Call
                    for p in tree_leaves(params)]
             loss_sum = aux_sum = 0.0
             for i in range(microbatches):
-                l, met, g = grads_of(params, {k: v[i] for k, v in mb.items()})
+                l, met, g = _grads(cfg, params, {k: v[i] for k, v in mb.items()})
                 for a, gi in zip(acc, g):
                     a.add_(gi.float())
                 loss_sum = loss_sum + l
@@ -80,14 +85,119 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, microbatches: int = 1) -> Call
 
 def make_sharded_train_step(cfg: ModelConfig, opt: AdamW, mesh, global_batch: int,
                             seq_len: int):
-    """The JAX package's train step over a device mesh (param shardings,
-    the production mesh) is not ported: it comes with ``models/sharding.py``
-    over the mesh of ``core/distributed.py`` (ROADMAP §A item 4). One card
-    trains through ``make_train_step``."""
-    raise NotImplementedError(
-        "make_sharded_train_step needs models/sharding.py, which is not ported yet "
-        "(ROADMAP §A item 4); use make_train_step on one device"
-    )
+    """The train step over a ``core.distributed.Mesh``, one process per
+    position (the JAX package's ``make_sharded_train_step``). Returns
+    ``(step, pshard, opt_shard, batch_shard)``: the step, and the
+    ``models.sharding.NamedSharding`` trees of the params, the AdamW state
+    and the batch, whose ``shard`` gives this rank its blocks.
+
+    The specs are the JAX package's: ``param_shardings`` in its default
+    "serve" mode, so params and both moments are split over ``model`` and
+    replicated over ``data`` and ``pod``; the step count is replicated;
+    the batch follows ``train_batch_pspec``, an encoder-decoder's
+    ``frames`` its batch entry.
+
+    ``step(params, opt_state, batch)`` takes this rank's blocks (the batch
+    of ``global_batch`` x ``seq_len`` tokens split as ``batch_shard`` says)
+    and returns ``(params, opt_state, metrics)``, the blocks updated in
+    place (``AdamW.update``) where JAX donates them. Each rank computes on
+    its rows with each layer's leaves gathered where the layer runs
+    (``models.sharding.StepSharding``), the masked mean over the whole
+    batch (the mask's sum taken over the batch axes) and the MoE's aux
+    loss as its term of the batch's. Each leaf's gradient is then summed
+    over the batch axes; the ranks along ``model`` hold the same rows, so
+    nothing is summed over ``model``: each keeps its block. The gradient
+    norm sums each leaf's squares over the axes that split that leaf. The
+    metrics ``ce``, ``aux_loss``, ``grad_norm``, ``lr`` and ``loss`` are
+    the whole batch's and equal on every rank.
+
+    A batch too small for the batch axes is split along the sequence
+    (``P(None, dp)``): the step first gathers tokens, labels and mask along
+    the sequence, so every rank computes the whole batch (the ranks repeat
+    that compute) and nothing is summed over the batch axes; this gives
+    the JAX package's numbers.
+
+    The ranks along ``model`` hold shards but repeat the same compute: the
+    compute split over ``model`` (column- and row-parallel products,
+    vocab-parallel cross entropy, expert parallelism) is not made here. On
+    one position (the local mesh, or a one-rank world) every gather is a
+    copy and every sum has one term: the step equals ``make_train_step``
+    bit for bit."""
+    from ..models import sharding
+    from ..models.transformer import param_shapes
+
+    if global_batch < 1 or seq_len < 1:
+        raise ValueError(f"global_batch {global_batch} and seq_len {seq_len} must be positive")
+    pshard = sharding.param_shardings(cfg, param_shapes(cfg), mesh)
+    opt_shard = AdamWState(step=sharding.NamedSharding(mesh, sharding.P()), mu=pshard, nu=pshard)
+    bspec = sharding.train_batch_pspec(mesh, global_batch)
+    batch_shard: Dict[str, Any] = {k: sharding.NamedSharding(mesh, bspec)
+                                   for k in ("tokens", "labels", "mask")}
+    shapes = {k: (global_batch, seq_len) for k in batch_shard}
+    if cfg.is_encoder_decoder:
+        batch_shard["frames"] = sharding.NamedSharding(mesh, sharding.P(bspec[0], None, None))
+        shapes["frames"] = (global_batch, cfg.enc_frames, cfg.d_model)
+    local_shapes = {k: batch_shard[k].shard_shape(shapes[k]) for k in batch_shard}
+    seq_axes = sharding.entry_axes(bspec[1])  # the sequence-split case
+    grad_axes = () if seq_axes else sharding.entry_axes(bspec[0])
+    shard = sharding.StepSharding(mesh, pshard, grad_axes)
+    leaf_shardings = sharding.tree_leaves(pshard)
+    # per leaf: the axes that split it, over which its sum of squares is
+    # summed for the norm (every gradient is summed over grad_axes)
+    norm_axes = [tuple(a for a in mesh.shape if a in sharding.spec_axes(s.spec))
+                 for s in leaf_shardings]
+
+    def psum_buckets(tensors, axes_of):
+        """Each tensor summed over its axes: one psum per axis for each
+        bucket of tensors of one dtype and one axis set."""
+        out = list(tensors)
+        buckets: Dict[Any, list] = {}
+        for i, t in enumerate(tensors):
+            if axes_of[i]:
+                buckets.setdefault((axes_of[i], t.dtype), []).append(i)
+        for (axes, _), idx in buckets.items():
+            if all(mesh.group(a) is None for a in axes):
+                continue  # the local mesh: every sum has one term
+            flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+            for a in axes:
+                flat = dist_mod.psum(flat, mesh, a)
+            for i, part in zip(idx, flat.split([tensors[i].numel() for i in idx])):
+                out[i] = part.view(tensors[i].shape)
+        return out
+
+    def sq_reduce(sq):
+        return [t.reshape(()) for t in psum_buckets([t.reshape(1) for t in sq], norm_axes)]
+
+    def gather_sequence(batch):
+        out = {}
+        for k, v in batch.items():
+            if k in ("tokens", "labels", "mask"):
+                for a in reversed(seq_axes):
+                    v = dist_mod.all_gather_dim(v, mesh, a, 1)
+            out[k] = v
+        return out
+
+    def step(params, opt_state: AdamWState, batch: Dict[str, Tensor]):
+        for k, v in batch.items():
+            if k not in local_shapes:
+                raise ValueError(f"unknown batch entry {k!r}")
+            if tuple(v.shape) != local_shapes[k]:
+                raise ValueError(f"batch[{k!r}] has shape {tuple(v.shape)}; this rank's block "
+                                 f"of the {shapes[k]} batch is {local_shapes[k]}")
+        if seq_axes:
+            batch = gather_sequence(batch)
+        total, metrics, grads = _grads(cfg, params, batch, shard)
+        grads = psum_buckets(grads, [grad_axes] * len(grads))
+        params, opt_state, opt_metrics = opt.update(
+            tree_unflatten(params, grads), opt_state, params, sq_reduce=sq_reduce)
+        ce, aux, loss = shard.psum_batch(
+            torch.stack([metrics["ce"], metrics["aux_loss"], total])).unbind()
+        out = {"ce": ce, "aux_loss": aux}
+        out.update(opt_metrics)
+        out["loss"] = loss
+        return params, opt_state, out
+
+    return step, pshard, opt_shard, batch_shard
 
 
 @dataclasses.dataclass

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, NamedTuple, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -92,15 +92,26 @@ class AdamW:
         frac = self.min_lr_frac + (1.0 - self.min_lr_frac) * cos
         return self.lr * warm * frac
 
-    def update(self, grads, state: AdamWState, params) -> Tuple[Any, AdamWState, Dict]:
+    def update(self, grads, state: AdamWState, params,
+               sq_reduce: Optional[Callable[[List[Tensor]], List[Tensor]]] = None
+               ) -> Tuple[Any, AdamWState, Dict]:
         """One step: the global grad norm, clipping to ``grad_clip``, fp32
         moments with bias correction and decoupled weight decay. Updates
         ``params`` and the state's moments IN PLACE (the JAX package returns
-        new trees) and returns ``(params, state, {"grad_norm", "lr"})``."""
+        new trees) and returns ``(params, state, {"grad_norm", "lr"})``.
+
+        The update is elementwise, so it runs on shards as it does on whole
+        leaves. Only the norm needs the whole leaves: ``sq_reduce`` maps the
+        leaves' sums of squares (in leaf order) to the whole leaves' (the
+        sharded step sums each over the axes that shard its leaf); the norm
+        adds them in leaf order."""
         ps, gs = tree_leaves(params), tree_leaves(grads)
         ms, vs = tree_leaves(state.mu), tree_leaves(state.nu)
         with torch.no_grad():
-            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in gs))
+            sq = [torch.sum(torch.square(g.float())) for g in gs]
+            if sq_reduce is not None:
+                sq = sq_reduce(sq)
+            gnorm = torch.sqrt(sum(sq))
             scale = torch.clamp(self.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
             step = state.step + 1
             lr = self.schedule(step)

@@ -47,7 +47,8 @@ def test_port_has_modules():
             "core/convergence.py", "core/baselines.py", "core/feature_maps.py",
             "train/__init__.py", "train/mtl_head.py", "train/optimizer.py",
             "train/loop.py", "train/checkpoint.py",
-            "launch/__init__.py", "launch/train.py"} <= names
+            "launch/__init__.py", "launch/train.py", "launch/mesh.py",
+            "models/sharding.py"} <= names
     for cu in ("sdca/csrc/sdca_round.cu", "sdca/csrc/sdca_block.cu",
                "flash/csrc/flash_fwd.cu", "flash/csrc/flash_bwd.cu", "ssd/csrc/ssd_chunk.cu"):
         assert (PORT / "kernels" / cu).exists(), cu
@@ -78,6 +79,7 @@ def test_import_pulls_in_no_jax():
         "import repro_torch.train, repro_torch.train.mtl_head\n"
         "import repro_torch.train.loop, repro_torch.train.optimizer\n"
         "import repro_torch.train.checkpoint, repro_torch.launch, repro_torch.launch.train\n"
+        "import repro_torch.launch.mesh, repro_torch.models.sharding\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )

@@ -24,7 +24,7 @@ from repro.train.loop import make_train_step as jax_make_train_step
 from repro_torch.configs import get_config
 from repro_torch.convert import adamw_state_from_reference, lm_params_from_reference
 from repro_torch.data.tokens import SyntheticTokenPipeline, TokenPipelineConfig
-from repro_torch.train import AdamW, TrainLogger, loop, make_sharded_train_step, train
+from repro_torch.train import AdamW, TrainLogger, loop, train
 from repro_torch.train.loop import make_train_step
 from repro_torch.train.optimizer import tree_leaves, tree_map, tree_unflatten
 
@@ -172,12 +172,6 @@ def test_microbatches_must_divide_the_batch():
         TokenPipelineConfig(cfg.vocab_size, 8, 3, 0)))).items()}
     with pytest.raises(ValueError, match="microbatches"):
         make_train_step(cfg, opt, microbatches=2)(p, opt.init(p), batch)
-
-
-def test_sharded_train_step_is_not_ported():
-    cfg, _ = reduced_pair("gemma3-1b")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        make_sharded_train_step(cfg, AdamW(), None, 8, 128)
 
 
 def test_train_runs_on_the_card_unless_asked():
