@@ -154,6 +154,25 @@ Phases, each printing its own lines:
               metrics and params bit-equal, phase 10's launches a step,
               the all_gathers the specs give; warm step host ms,
               collectives by kind and peak memory beside phase 10's.
+ 13. the dry run and the roofline (launch.dryrun, launch.dryrun_dmtrl,
+              roofline.analysis) — (a) gemma3-1b and mamba2-780m whole at
+              phase 10's step, one position: the dry run's bytes at rest
+              equal the params and both moments on the card, exactly; the
+              meta trace of one step equals roofline.analysis.CostCounter
+              over one real step on the card, exactly, in FLOPs, bytes and
+              kernel launches by kind (K3, K3-bwd; K4, K4-bwd), the
+              counter's launches equal the wrappers'; the trace's peak of
+              live bytes beside max_memory_allocated; the roofline terms
+              and model FLOPs over phase 10's warm step at the bf16 peak.
+              (b) make_distributed_round at phase 11e's size (4096 tasks,
+              d = 100, one position) with block_gram and with pallas_round
+              (K1): its meta trace equals the counter over the real round
+              on the card, exactly; then dryrun_dmtrl's rows at the JAX
+              package's defaults on the (16, 16) and (2, 16, 16) meshes.
+              (c) every arch x input shape x mesh through launch.dryrun on
+              the host (fake worlds of 256 and 512 ranks, meta tensors):
+              every train row "ok", prefill and decode "analytic",
+              long_500k "skipped" where shape_applicable says, under 120 s.
 
 It exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository. The line before the last is a JSON object with
@@ -165,6 +184,7 @@ stream, so they are device times, not the host's launch pace.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -363,6 +383,9 @@ STREAM_TEMPERATURE = 0.8
 # gather is a copy and every sum has one term, so the params and metrics
 # are held bit for bit
 SHARDED_STEPS = {"gemma3-1b": 10, "mamba2-780m": 3}
+# phase 13c: the whole dry-run table (20 traced train rows, 60 analytic or
+# skipped) must stay well inside the script's own time limit
+DRYRUN_TABLE_S = 120.0
 
 
 def fail(msg: str) -> None:
@@ -1396,7 +1419,7 @@ def train_main_path(torch, dev, card: str, arch: str, tag: str, min_drop: float)
     K4-bwd for each Mamba2 layer. Prints the step's host time, tokens/s,
     peak memory and, from one more profiled step, the device-busy share and
     each kernel's part of it. Returns the launches of the 10 steps and the
-    peak memory in GB."""
+    peak memory in GB and the warm step's median host ms."""
     import dataclasses
 
     from torch.profiler import ProfilerActivity, profile
@@ -1487,7 +1510,7 @@ def train_main_path(torch, dev, card: str, arch: str, tag: str, min_drop: float)
               f"{e.key[:90]}")
     del params, state, step, tb
     torch.cuda.empty_cache()
-    return launches, peak
+    return launches, peak, step_ms
 
 
 def gather_cost(torch, dev, mesh, cfg, reps: int = 50) -> dict:
@@ -2620,6 +2643,243 @@ def paper_claims(torch, dev, card: str, est, train) -> None:
           "SSDCA's dual not within 5 % of DMTRL's")
 
 
+def recording_counter():
+    """A roofline.analysis.CostCounter that also keeps, per counted op and
+    kernel launch, (name, FLOPs, bytes): two runs that disagree are shown
+    where they part."""
+    from repro_torch.roofline.analysis import CostCounter
+
+    class Recording(CostCounter):
+        def __init__(self):
+            super().__init__()
+            self.log = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            f0, b0, paused = self.costs.flops, self.costs.bytes, self._paused
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            if not paused:
+                self.log.append((str(func), self.costs.flops - f0, self.costs.bytes - b0))
+            return out
+
+        def launch(self, name, cost, fn, *args, **kwargs):
+            if not self._paused:
+                self.log.append((name, int(cost[0]), int(cost[1])))
+            return super().launch(name, cost, fn, *args, **kwargs)
+
+    return Recording()
+
+
+def check_same_counts(tag: str, trace, trace_log, card, card_log) -> None:
+    """Fail unless the trace and the card counted the same, showing the
+    first ops where the two logs part."""
+    if trace.counted() == card.counted():
+        return
+    i = next((i for i, (a, b) in enumerate(zip(trace_log, card_log)) if a != b),
+             min(len(trace_log), len(card_log)))
+    print(f"[{tag}] the counts part at op {i} of {len(trace_log)} (trace) and "
+          f"{len(card_log)} (card):", file=sys.stderr)
+    for j in range(max(0, i - 2), i + 4):
+        print(f"[{tag}]   trace {trace_log[j] if j < len(trace_log) else None}; "
+              f"card {card_log[j] if j < len(card_log) else None}", file=sys.stderr)
+    fail(f"[{tag}] the meta trace counted {trace.counted()}, the card "
+         f"{card.counted()}")
+
+
+def dryrun_against_card(torch, dev, card: str, arch: str, tag: str, step_ms: float) -> dict:
+    """Phase 13a: ``arch`` whole at phase 10's step (bf16, remat, AdamW,
+    2 x 1024 tokens, one position). The dry run's bytes at rest equal the
+    params and both moments built on the card; its meta trace of one step
+    equals the counter over one warm step on the card, exactly, and the
+    counter's kernel launches equal the wrappers' counts. Prints the
+    trace's peak of live bytes beside max_memory_allocated, the roofline
+    terms, and the model FLOPs over phase 10's warm step at the bf16 peak.
+    Returns the counted step's launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import SyntheticTokenPipeline, TokenPipelineConfig
+    from repro_torch.launch import PEAK_FLOPS_BF16, dryrun, make_host_mesh
+    from repro_torch.launch.input_specs import InputShape, train_inputs
+    from repro_torch.models import init_params
+    from repro_torch.roofline.analysis import roofline_terms
+    from repro_torch.train import AdamW
+    from repro_torch.train.loop import make_sharded_train_step
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = dataclasses.replace(get_config(arch), remat=True)
+    shape = InputShape("phase 10", TRAIN_SEQ, TRAIN_BATCH, "train")
+    one = dryrun.ShapeMesh({"data": 1, "model": 1})
+    at_rest = dryrun.step_bytes_at_rest(cfg, one)
+    arg_bytes = dryrun.arg_bytes_per_device(cfg, shape, one)
+    rec_trace = recording_counter()
+    t0 = time.perf_counter()
+    trace = dryrun.trace_step(cfg, shape, make_host_mesh(1, 1, device="meta"), rec_trace)
+    trace_s = time.perf_counter() - t0
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    opt = AdamW(lr=1e-3, warmup_steps=2)
+    step, _, _, _ = make_sharded_train_step(cfg, opt, make_host_mesh(1, 1, device=dev),
+                                            TRAIN_BATCH, TRAIN_SEQ)
+    params = init_params(cfg, 0, dev)  # on one position a rank's blocks are the leaves
+    state = opt.init(params)
+    held = sum(t.numel() * t.element_size()
+               for t in tree_leaves(params) + tree_leaves(state.mu) + tree_leaves(state.nu))
+    alloc = torch.cuda.memory_allocated() - base
+    print(f"[{tag} {arch}] bytes at rest: the dry run {at_rest} (params and two fp32 "
+          f"moments), on the card {held} (memory_allocated grew {alloc}); the JAX "
+          f"definition's arg_bytes_per_device {arg_bytes} (3 x the params' bytes)")
+    check(at_rest == held, f"[{tag} {arch}] the dry run's bytes at rest {at_rest} != {held}")
+    dtypes = {k: v.dtype for k, v in train_inputs(cfg, shape).items()}
+    batch = SyntheticTokenPipeline(TokenPipelineConfig(
+        cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)).batch(0)
+    batch = {k: torch.from_numpy(v).to(dev, dtypes[k]) for k, v in batch.items()}
+    gc.collect()  # earlier phases' garbage, which a collection inside the step would free
+    step(params, state, batch)  # warm: the counted step is phase 10's steady state
+    torch.cuda.synchronize()
+    kernels = lm_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    m0 = torch.cuda.memory_allocated()
+    rec_card = recording_counter()
+    t0 = time.perf_counter()
+    with rec_card:
+        step(params, state, batch)
+        torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    peak_card = torch.cuda.max_memory_allocated() - m0
+    launches = {name: k.launches for name, k in kernels.items()}
+    got = rec_card.costs
+    check_same_counts(f"{tag} {arch}", trace, rec_trace.log, got, rec_card.log)
+    check(dict(got.kernels) == {k: v for k, v in launches.items() if v},
+          f"[{tag} {arch}] the counter's launches {dict(got.kernels)} != the wrappers' {launches}")
+    print(f"[{tag} {arch}] one step traced on meta in {trace_s:.2f} s equals the counter over "
+          f"the card's step ({counted_s:.2f} s under the counter): {trace.flops} FLOP, "
+          f"{trace.bytes} bytes, {trace.ops} ops, kernels {dict(trace.kernels)} (wrappers "
+          f"{launches}), kernel FLOP {dict(trace.kernel_flops)}")
+    print(f"[{tag} {arch}] peak live bytes: trace {trace.peak_bytes / 1e9:.3f} GB, the "
+          f"counter's over the card's step {got.peak_bytes / 1e9:.3f} GB, card "
+          f"max_memory_allocated over the step {peak_card / 1e9:.3f} GB, gap "
+          f"{(peak_card - trace.peak_bytes) / 1e9:+.3f} GB")
+    flops = dryrun.model_flops(cfg, shape)
+    terms = roofline_terms(trace, arch=arch, shape="2 x 1024 train", mesh_name="one position",
+                           n_chips=1, model_flops=flops)
+    share = flops / (step_ms / 1e3 * PEAK_FLOPS_BF16)
+    print(f"[{tag} {arch}] roofline: compute {terms.compute_s * 1e3:.3f} ms, memory "
+          f"{terms.memory_s * 1e3:.3f} ms, collective {terms.collective_s * 1e3:.3f} ms, "
+          f"dominant {terms.dominant}; model FLOP 6 N_active tokens = {flops:.4e} "
+          f"({flops / trace.flops:.3f} of the traced FLOP); over phase 10's warm step "
+          f"{step_ms:.1f} ms at {PEAK_FLOPS_BF16:.3g} FLOP/s: {share:.2%} of the bf16 peak "
+          f"on {card}")
+    del params, state, batch, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dmtrl_dryrun_against_card(torch, dev, card: str, data) -> dict:
+    """Phase 13b: one make_distributed_round at phase 11e's size (the 4096
+    tasks of Synthetic-1, d = 100, hinge, one local epoch, one position),
+    block_gram and pallas_round: the meta trace equals the counter over the
+    real round on the card, exactly. Then dryrun_dmtrl's rows at the JAX
+    package's defaults on both production meshes (host, meta). Returns
+    the counted rounds' K1/K2 launches."""
+    from repro_torch import prng
+    from repro_torch.core import DMTRLConfig, MeshAxes
+    from repro_torch.core.distributed import make_distributed_round
+    from repro_torch.kernels.sdca import reset_launch_counts, sdca_block_kernel, sdca_round_kernel
+    from repro_torch.launch import dryrun_dmtrl, make_host_mesh
+
+    m, n_max, d = data.x.shape
+    axes = MeshAxes(data="data")
+    sigma = torch.eye(m, device=dev) / m
+    rho = 2.0
+    out = {}
+    for solver in ("block_gram", "pallas_round"):
+        cfg = DMTRLConfig(solver=solver, loss="hinge", lam=1e-3, local_iters=0,
+                          block_size=BLOCK)
+        rec_trace = recording_counter()
+        t0 = time.perf_counter()
+        trace = dryrun_dmtrl.trace_round(cfg, make_host_mesh(1, 1, device="meta"), axes, m,
+                                         n_max, d, rho, counter=rec_trace)
+        trace_s = time.perf_counter() - t0
+        round_fn = make_distributed_round(cfg, make_host_mesh(1, 1, device=dev), axes, m,
+                                          n_max, d, rho)
+        args = (data.x, data.y, data.n, torch.zeros_like(data.y),
+                torch.zeros((m, d), device=dev), sigma, prng.PRNGKey(0))
+        round_fn(*args)  # warm
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        rec_card = recording_counter()
+        t0 = time.perf_counter()
+        with rec_card:
+            round_fn(*args)
+            torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        got = rec_card.costs
+        launches = {"sdca_round": sdca_round_kernel.launches,
+                    "sdca_block": sdca_block_kernel.launches}
+        check_same_counts(f"13b {solver}", trace, rec_trace.log, got, rec_card.log)
+        check(launches["sdca_round"] == got.kernels.get("K1", 0)
+              == (1 if solver == "pallas_round" else 0),
+              f"[13b {solver}] K1 launches: wrapper {launches}, counter {dict(got.kernels)}")
+        print(f"[13b {solver}] one round at x {tuple(data.x.shape)} traced on meta in "
+              f"{trace_s:.2f} s equals the counter over the card's round ({card_s * 1e3:.1f} ms "
+              f"under the counter): {trace.flops} FLOP, {trace.bytes} bytes, {trace.ops} ops, "
+              f"kernels {dict(trace.kernels)}, peak live bytes trace {trace.peak_bytes}")
+        out[f"13b {solver} counted round"] = launches
+    table = ROOT / "results" / "dryrun_torch"
+    for mesh_name in ("single", "multi"):
+        row = dryrun_dmtrl.run(mesh_name, 4096, 2048, 8192, str(table))
+        check(row["status"] == "ok", f"[13b dryrun_dmtrl {mesh_name}] {row}")
+        print(f"[13b dryrun_dmtrl {mesh_name}] m 4096, n_max 2048, d 8192, H 512, B 128 "
+              f"(block_gram): per device {row['flops_per_device']:.4e} FLOP, "
+              f"{row['bytes_per_device']:.4e} bytes, collectives {row['collective_counts']} "
+              f"{row['collective_breakdown']} bytes; compute {row['compute_s'] * 1e3:.3f} ms, "
+              f"memory {row['memory_s'] * 1e3:.3f} ms, collective "
+              f"{row['collective_s'] * 1e3:.3f} ms ({row['dominant']}); useful "
+              f"{row['useful_flops_ratio']:.3f}; traced in {row['trace_s']:.2f} s")
+    return out
+
+
+def dryrun_table(card: str) -> None:
+    """Phase 13c: every arch x input shape x mesh through launch.dryrun on
+    the host (meta tensors, fake worlds of 256 and 512 ranks): every train
+    row "ok", prefill and decode "analytic", long_500k "skipped" exactly
+    where shape_applicable says, the whole under DRYRUN_TABLE_S."""
+    import collections
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.input_specs import INPUT_SHAPES, shape_applicable
+
+    t0 = time.perf_counter()
+    recs = dryrun.run_all(ARCH_IDS, list(INPUT_SHAPES), ["single", "multi"],
+                          str(ROOT / "results" / "dryrun_torch"), echo=None)
+    total = time.perf_counter() - t0
+    for r in recs:
+        shape = INPUT_SHAPES[r["shape"]]
+        want = ("skipped" if not shape_applicable(get_config(r["arch"]), shape)[0]
+                else "ok" if shape.kind == "train" else "analytic")
+        check(r["status"] == want, f"[13c {r['arch']} {r['shape']} {r['mesh']}] "
+              f"{r['status']}, expected {want}: {r.get('error', r.get('reason'))}")
+        if r["status"] == "ok":
+            print(f"[13c {r['arch']} {r['shape']} {r['mesh']}] {r['trace_s']:.2f} s: "
+                  f"{r['flops_per_device']:.4e} FLOP, {r['bytes_per_device']:.4e} bytes, "
+                  f"collective {r['collective_bytes_per_device']:.4e} bytes "
+                  f"{r['collective_counts']}; compute {r['compute_s']:.4f} s, memory "
+                  f"{r['memory_s']:.4f} s, collective {r['collective_s']:.4f} s "
+                  f"({r['dominant']}); useful {r['useful_flops_ratio']:.4f}; peak "
+                  f"{r['peak_bytes_per_device'] / 1e9:.1f} GB; at rest "
+                  f"{r['step_bytes_at_rest'] / 1e9:.2f} GB, JAX arg bytes "
+                  f"{r['arg_bytes_per_device'] / 1e9:.2f} GB")
+    counts = collections.Counter(r["status"] for r in recs)
+    print(f"[13c table] {len(recs)} rows {dict(counts)} in {total:.1f} s (rows "
+          f"{sum(r.get('trace_s', 0.0) for r in recs):.1f} s; limit {DRYRUN_TABLE_S:.0f} s); "
+          f"host side of {card}")
+    check(total < DRYRUN_TABLE_S, f"[13c] the table took {total:.1f} s")
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: run it from a checkout of the repository "
@@ -2937,12 +3197,13 @@ def main() -> int:
     print(f"[9] {time.perf_counter() - t9:.1f} s wall")
     # -- phase 10: training; 10d: mamba2-780m through K4 and K4-bwd ---------
     t10 = time.perf_counter()
-    launches_10a, peak_10a = train_main_path(torch, dev, card, "gemma3-1b", "10a", min_drop=0.5)
+    launches_10a, peak_10a, step_10a = train_main_path(torch, dev, card, "gemma3-1b", "10a",
+                                                       min_drop=0.5)
     train_by_path = {"10a gemma3-1b train": launches_10a}
     train_by_path.update(train_card_against_cpu(torch, dev, card))
     train_by_path["10c launcher whisper-tiny"] = train_launcher(torch, dev, card)
-    launches_10d, peak_10d = train_main_path(torch, dev, card, "mamba2-780m", "10d",
-                                             min_drop=0.0)
+    launches_10d, peak_10d, step_10d = train_main_path(torch, dev, card, "mamba2-780m", "10d",
+                                                       min_drop=0.0)
     train_by_path["10d mamba2-780m train"] = launches_10d
     print(f"[10] {time.perf_counter() - t10:.1f} s wall")
     # -- phase 11: the mesh engines (distributed, simulated transport) -------
@@ -2954,6 +3215,15 @@ def main() -> int:
     train_by_path.update(sharded_train_path(torch, dev, card, "gemma3-1b", "12a", peak_10a))
     train_by_path.update(sharded_train_path(torch, dev, card, "mamba2-780m", "12b", peak_10d))
     print(f"[12] {time.perf_counter() - t12:.1f} s wall")
+    # -- phase 13: the dry run and the roofline ------------------------------
+    t13 = time.perf_counter()
+    train_by_path["13a gemma3-1b counted step"] = dryrun_against_card(
+        torch, dev, card, "gemma3-1b", "13a", step_10a)
+    train_by_path["13a mamba2-780m counted step"] = dryrun_against_card(
+        torch, dev, card, "mamba2-780m", "13a", step_10d)
+    mesh_launches.update(dmtrl_dryrun_against_card(torch, dev, card, many.train.to(dev)))
+    dryrun_table(card)
+    print(f"[13] {time.perf_counter() - t13:.1f} s wall")
 
     def by_kernel(name):
         return {k: v[name] for k, v in {"5c zamba2-2.7b stream": stream_launches,

@@ -24,12 +24,16 @@ W(alpha) after a new Sigma and the tracked objectives are computed once, on
 the root rank (index 0 on every axis), from gathered alpha and W, and
 broadcast, so every rank holds bit-identical Sigma, rho and history.
 
-Two kinds of mesh:
+Three kinds of mesh:
   * the local one-device mesh (``local_mesh``): every axis has size 1 and
     no process group, so every collective is the identity;
   * a process-group mesh over an initialised ``torch.distributed`` world
     (nccl on the card, gloo on the CPU): every collective is called, even
-    over an axis of size 1.
+    over an axis of size 1;
+  * the dry run's mesh (``make_mesh(..., device="meta")``, over a world of
+    the ``fake`` backend): one rank of the production mesh whose tensors
+    are ``meta`` tensors and whose collectives move nothing, so a traced
+    step counts what a rank would compute and send.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ import collections
 import dataclasses
 import math
 import os
+import pickle
 import warnings
 from typing import Callable, Dict, Optional, Tuple
 
@@ -119,8 +124,8 @@ class Mesh:
 
     @property
     def distributed(self) -> bool:
-        """True for a process-group mesh (its collectives are real)."""
-        return self.device_mesh is not None
+        """True for a mesh over process groups (its collectives are called)."""
+        return bool(self._groups)
 
     @property
     def is_root(self) -> bool:
@@ -153,7 +158,13 @@ def make_mesh(shape, axis_names, *, device="cuda") -> Mesh:
     ``prod(shape)``: nccl with ``cuda:LOCAL_RANK`` on the card (LOCAL_RANK,
     else the rank modulo the card count), gloo with ``device="cpu"``.
     Without one, only a shape of one position is allowed, and that gives
-    the local one-device mesh."""
+    the local one-device mesh.
+
+    ``device="meta"`` is the dry run's mesh: the default group must be of
+    the ``fake`` backend (``launch.mesh.fake_world``), and this rank's
+    position is its rank in the row-major order of ``shape``; each axis's
+    group is built over the ranks of this rank's slice alone. No other
+    device takes that backend, and the meta mesh takes no other."""
     shape = tuple(int(s) for s in shape)
     names = tuple(axis_names)
     if len(shape) != len(names) or len(set(names)) != len(names):
@@ -172,11 +183,13 @@ def make_mesh(shape, axis_names, *, device="cuda") -> Mesh:
     if world != size:
         raise ValueError(f"mesh shape {shape} has {size} positions, the world has {world} ranks")
     backend = dist.get_backend()
-    want = {"cuda": "nccl", "cpu": "gloo"}.get(device.type)
+    want = {"cuda": "nccl", "cpu": "gloo", "meta": "fake"}.get(device.type)
     if backend != want:
         raise ValueError(
             f"a {device.type} mesh runs over the {want} backend; the default group uses {backend!r}"
         )
+    if device.type == "meta":
+        return _slice_mesh(shape, names, device)
     if device.type == "cuda":
         if device.index is None:
             local = os.environ.get("LOCAL_RANK")
@@ -194,6 +207,22 @@ def make_mesh(shape, axis_names, *, device="cuda") -> Mesh:
     )
 
 
+def _slice_mesh(shape, names, device) -> Mesh:
+    """This rank's position in ``shape`` and, per axis, a group over the
+    ranks that differ from it along that axis only."""
+    coords = np.unravel_index(dist.get_rank(), shape)
+    groups = {}
+    for i, name in enumerate(names):
+        ranks = []
+        for j in range(shape[i]):
+            at = list(coords)
+            at[i] = j
+            ranks.append(int(np.ravel_multi_index(at, shape)))
+        groups[name] = dist.new_group(ranks, use_local_synchronization=True)
+    return Mesh(dict(zip(names, shape)), device,
+                coords={n: int(c) for n, c in zip(names, coords)}, groups=groups)
+
+
 def _axis_size(mesh, name: Optional[str]) -> int:
     """Size of the mesh axis ``name`` (1 for no axis). ``mesh`` is any
     object with a ``shape`` mapping from axis names to sizes."""
@@ -208,12 +237,19 @@ def pad_to_multiple(x: int, k: int) -> int:
 # collectives: the only place the mesh engines and the LM zoo's sharded
 # train step talk to torch.distributed
 # ---------------------------------------------------------------------------
-# calls made through torch.distributed, by kind (a process-group mesh only)
+# calls made through torch.distributed, by kind (a process-group mesh only),
+# and their bytes: the larger of the tensor sent and the tensor received
 COLLECTIVES: collections.Counter = collections.Counter()
+COLLECTIVE_BYTES: collections.Counter = collections.Counter()
 
 
 def reset_collective_counts() -> None:
     COLLECTIVES.clear()
+    COLLECTIVE_BYTES.clear()
+
+
+def _nbytes(t: Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def _check_device(t: Tensor, mesh: Mesh) -> None:
@@ -235,6 +271,7 @@ def all_gather(t: Tensor, mesh: Mesh, name: Optional[str]) -> Tensor:
         warnings.simplefilter("ignore", FutureWarning)
         dist.all_gather_into_tensor(out, t.contiguous(), group=g)
     COLLECTIVES["all_gather"] += 1
+    COLLECTIVE_BYTES["all_gather"] += _nbytes(out)
     return out
 
 
@@ -247,6 +284,7 @@ def psum(t: Tensor, mesh: Mesh, name: Optional[str]) -> Tensor:
     out = t.contiguous().clone()
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=g)
     COLLECTIVES["all_reduce"] += 1
+    COLLECTIVE_BYTES["all_reduce"] += _nbytes(out)
     return out
 
 
@@ -315,6 +353,7 @@ def broadcast(t: Tensor, mesh: Mesh) -> Tensor:
     _check_device(t, mesh)
     dist.broadcast(t, src=0)
     COLLECTIVES["broadcast"] += 1
+    COLLECTIVE_BYTES["broadcast"] += _nbytes(t)
     return t
 
 
@@ -376,6 +415,7 @@ def on_root(fn: Callable, mesh: Mesh, like=None):
         dist.broadcast_object_list(box, src=0)
         COLLECTIVES["broadcast_object"] += 1
         spec = box[0]
+        COLLECTIVE_BYTES["broadcast_object"] += len(pickle.dumps(spec))
     return _send_tree(obj, spec, mesh)
 
 

@@ -32,6 +32,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..kernels.flash.ops import flash_attention_bshd
 from ..kernels.flash.ref import attention_ref
+from ..roofline import analysis as _cost
 from .common import apply_rope, dense_init, rms_norm
 
 Tensor = torch.Tensor
@@ -93,8 +94,9 @@ def _attend(q: Tensor, k: Tensor, v: Tensor, causal: bool, window: int = 0) -> T
     """Attention in the model layout (B, S, H, hd) through K3 on the card.
     A non-causal call on the CPU runs the plain version at its whole length
     (``flash_attention_bshd`` would pad the keys, which only a causal mask
-    hides)."""
-    if q.device.type == "cpu" and not causal:
+    hides); under a cost counter it goes through the dispatcher, which
+    counts it as K3 and runs it so."""
+    if q.device.type == "cpu" and not causal and _cost.ACTIVE is None:
         out = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), False,
                             window)
         return out.transpose(1, 2)

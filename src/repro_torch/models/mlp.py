@@ -103,7 +103,9 @@ class MoeDispatch(torch.autograd.Function):
         rows = torch.arange(B, device=x.device)
         ctx.save_for_backward(e_flat, pos_clip)
         ctx.S = S
-        return x_pad[rows[None, :, None], slot_src.transpose(0, 1)]
+        # a dense expert-major index: the gather's output layout follows its
+        # index's on some devices, so every device writes (E, B, C, d) dense
+        return x_pad[rows[None, :, None], slot_src.transpose(0, 1).contiguous()]
 
     @staticmethod
     @once_differentiable
@@ -140,7 +142,8 @@ class MoeCombine(torch.autograd.Function):
         B, SK, d = g.shape
         g_pad = torch.cat([g, g.new_zeros((B, 1, d))], dim=1)
         rows = torch.arange(B, device=g.device)
-        return g_pad[rows[None, :, None], slot_sk.transpose(0, 1)], None, None, None
+        idx = slot_sk.transpose(0, 1).contiguous()  # dense, as in MoeDispatch
+        return g_pad[rows[None, :, None], idx], None, None, None
 
 
 def moe_ffn(x: Tensor, p: Dict[str, Tensor], cfg: ModelConfig,
@@ -167,8 +170,17 @@ def moe_ffn(x: Tensor, p: Dict[str, Tensor], cfg: ModelConfig,
     gates, idx = _top_k(probs, K)  # (B, S, K)
     gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
 
-    # load-balance aux loss (Switch): E * sum_e f_e * p_e
-    counts = torch.bincount(idx.reshape(-1), minlength=E).float()
+    # each (token, k)'s expert one-hot over the token-major order, and its
+    # running count per group: the same ops on every device (F.one_hot
+    # reads the ids' range on the host on the CPU, and bincount's output
+    # size depends on the data), so a meta trace counts what the card runs
+    e_flat = idx.reshape(B, S * K)
+    oh = (e_flat[..., None] == torch.arange(E, device=dev)).long()  # (B, SK, E)
+    run = torch.cumsum(oh, dim=1)
+
+    # load-balance aux loss (Switch): E * sum_e f_e * p_e; every expert's
+    # count (bincount with minlength E) from the groups' running counts
+    counts = run[:, -1].sum(dim=0).float()
     if shard is None or shard.batch_positions == 1:
         me = probs.mean(dim=(0, 1))
         fe = counts / (B * S * K)
@@ -180,10 +192,8 @@ def moe_ffn(x: Tensor, p: Dict[str, Tensor], cfg: ModelConfig,
 
     # slots within each group's expert buffers: an exclusive running count
     # over the token-major (token, k) order
-    e_flat = idx.reshape(B, S * K)
-    oh = F.one_hot(e_flat, E)  # (B, SK, E)
-    pos = (torch.cumsum(oh, dim=1) - oh).gather(2, e_flat[..., None])[..., 0]
-    del oh
+    pos = (run - oh).gather(2, e_flat[..., None])[..., 0]
+    del oh, run
     dropped = pos >= C
     pos_clip = torch.where(dropped, torch.full_like(pos, C), pos)
 

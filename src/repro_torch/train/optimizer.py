@@ -40,18 +40,20 @@ def tree_map(fn, tree, *rest):
 def tree_unflatten(like, leaves):
     """The tree of ``like``'s structure holding ``leaves`` (in
     ``tree_leaves`` order)."""
-    it = iter(leaves)
+    return _build(like, iter(leaves))
 
-    def build(node):
-        if isinstance(node, dict):
-            built = {k: build(node[k]) for k in sorted(node)}  # leaves in sorted-key order
-            return {k: built[k] for k in node}
-        if isinstance(node, (list, tuple)):
-            items = [build(x) for x in node]
-            return type(node)(*items) if hasattr(node, "_fields") else type(node)(items)
-        return next(it)
 
-    return build(like)
+def _build(node, it):
+    # a module-level function: a nested recursive one would close over
+    # itself and the iterator, a cycle that kept ``leaves`` (a train step's
+    # gradients) alive until the garbage collector ran
+    if isinstance(node, dict):
+        built = {k: _build(node[k], it) for k in sorted(node)}  # leaves in sorted-key order
+        return {k: built[k] for k in node}
+    if isinstance(node, (list, tuple)):
+        items = [_build(x, it) for x in node]
+        return type(node)(*items) if hasattr(node, "_fields") else type(node)(items)
+    return next(it)
 
 
 class AdamWState(NamedTuple):

@@ -48,7 +48,8 @@ def test_port_has_modules():
             "train/__init__.py", "train/mtl_head.py", "train/optimizer.py",
             "train/loop.py", "train/checkpoint.py",
             "launch/__init__.py", "launch/train.py", "launch/mesh.py",
-            "models/sharding.py"} <= names
+            "models/sharding.py", "launch/input_specs.py", "launch/dryrun.py",
+            "launch/dryrun_dmtrl.py", "roofline/__init__.py", "roofline/analysis.py"} <= names
     for cu in ("sdca/csrc/sdca_round.cu", "sdca/csrc/sdca_block.cu",
                "flash/csrc/flash_fwd.cu", "flash/csrc/flash_bwd.cu", "ssd/csrc/ssd_chunk.cu"):
         assert (PORT / "kernels" / cu).exists(), cu
@@ -80,6 +81,8 @@ def test_import_pulls_in_no_jax():
         "import repro_torch.train.loop, repro_torch.train.optimizer\n"
         "import repro_torch.train.checkpoint, repro_torch.launch, repro_torch.launch.train\n"
         "import repro_torch.launch.mesh, repro_torch.models.sharding\n"
+        "import repro_torch.launch.input_specs, repro_torch.launch.dryrun\n"
+        "import repro_torch.launch.dryrun_dmtrl, repro_torch.roofline.analysis\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )

@@ -181,3 +181,35 @@ def test_train_runs_on_the_card_unless_asked():
     data = iter(SyntheticTokenPipeline(TokenPipelineConfig(cfg.vocab_size, 8, 2, 0)))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train(cfg, AdamW(), data, steps=1)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_a_step_leaves_no_cycle_holding_tensors(remat):
+    """A step's gradients die with the step, not at the garbage collector's
+    next run: no reference cycle holds a tensor after it (a nested
+    recursive tree builder in tree_unflatten once kept the gradients, 2.19
+    GB of gemma3-1b's on the card, alive until gc)."""
+    import gc
+
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config("gemma3-1b").reduced(), remat=remat)
+    opt = AdamW(**OPT)
+    params = init_params(cfg, 0, "cpu")
+    state = opt.init(params)
+    batch = {k: torch.from_numpy(v) for k, v in SyntheticTokenPipeline(TokenPipelineConfig(
+        cfg.vocab_size, 16, 2, seed=0)).batch(0).items()}
+    step = make_train_step(cfg, opt)
+    step(params, state, batch)
+    gc.collect()
+    gc.disable()
+    try:
+        step(params, state, batch)
+        gc.set_debug(gc.DEBUG_SAVEALL)
+        gc.collect()
+        held = [tuple(o.shape) for o in gc.garbage if isinstance(o, torch.Tensor)]
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        gc.enable()
+    assert held == []
