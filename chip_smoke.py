@@ -150,13 +150,17 @@ Phases, each printing its own lines:
               (launch.make_host_mesh(1, 1)) and on a one-rank NCCL world
               (make_mesh((1, 1), ("data", "model"))): (a) gemma3-1b whole,
               10 steps (K3, K3-bwd); (b) mamba2-780m whole, 3 steps (K4,
-              K4-bwd). Each against make_train_step in the same call:
-              metrics and params bit-equal, phase 10's launches a step,
-              the all_gathers the specs give; warm step host ms,
-              collectives by kind and peak memory beside phase 10's.
+              K4-bwd). The serve-mode step on both meshes against
+              make_train_step, and on NCCL the train-mode (FSDP) step with
+              2 microbatches and the same with ZeRO-2 against
+              make_train_step(microbatches=2), in the same call: metrics
+              and params bit-equal, phase 10's launches a microbatch, the
+              all_gathers the specs give; warm step host ms, collectives
+              by kind and peak memory beside phase 10's.
  13. the dry run and the roofline (launch.dryrun, launch.dryrun_dmtrl,
               roofline.analysis) — (a) gemma3-1b and mamba2-780m whole at
-              phase 10's step, one position: the dry run's bytes at rest
+              phase 10's step through the dry run's train-mode step, one
+              position: the dry run's bytes at rest
               equal the params and both moments on the card, exactly; the
               meta trace of one step equals roofline.analysis.CostCounter
               over one real step on the card, exactly, in FLOPs, bytes and
@@ -171,8 +175,11 @@ Phases, each printing its own lines:
               package's defaults on the (16, 16) and (2, 16, 16) meshes.
               (c) every arch x input shape x mesh through launch.dryrun on
               the host (fake worlds of 256 and 512 ranks, meta tensors):
-              every train row "ok", prefill and decode "analytic",
-              long_500k "skipped" where shape_applicable says, under 120 s.
+              every train row "ok" (the train-mode step with JAX's
+              microbatches, its state at rest plus its traced peak under
+              the card's 80 GB), prefill and decode "analytic", long_500k
+              "skipped" where shape_applicable says, within
+              DRYRUN_TABLE_S.
 
 It exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository. The line before the last is a JSON object with
@@ -384,8 +391,12 @@ STREAM_TEMPERATURE = 0.8
 # are held bit for bit
 SHARDED_STEPS = {"gemma3-1b": 10, "mamba2-780m": 3}
 # phase 13c: the whole dry-run table (20 traced train rows, 60 analytic or
-# skipped) must stay well inside the script's own time limit
-DRYRUN_TABLE_S = 120.0
+# skipped; a row of more than two microbatches counted from its first two)
+# must stay well inside the script's own time limit (137.9 and 171.8 s on
+# the card's host so far); every train row's state at rest plus its traced
+# peak within the card's memory
+DRYRUN_TABLE_S = 240.0
+CARD_BYTES = 80e9
 
 
 def fail(msg: str) -> None:
@@ -1541,20 +1552,50 @@ def gather_cost(torch, dev, mesh, cfg, reps: int = 50) -> dict:
     return {"shape": list(shape), "host_us": host_us, "device_us": device_us}
 
 
+def expected_gathers(cfg, pshard, microbatches: int, zero2: bool, batch_keys: int) -> int:
+    """The all_gathers one step of make_sharded_train_step calls on a
+    one-position process-group mesh, from its specs: nothing is split over
+    model there, so only the batch axes (FSDP) gather. ZeRO-2 gathers each
+    such leaf once a step; otherwise every layer body gathers its layer's
+    FSDP leaves (twice under remat: forward and recompute), a stacked leaf
+    split on its layer dim is gathered whole and each other top-level FSDP
+    leaf once, per microbatch. Microbatches re-lay the batch once (one
+    gather a batch entry)."""
+    from repro_torch.models import sharding
+
+    batch = set(sharding.batch_axes(pshard["embed"].mesh))
+    has = lambda spec: bool(set(sharding.spec_axes(spec)) & batch)
+    relay = batch_keys if microbatches > 1 else 0
+    if zero2:
+        return sum(has(s.spec) for s in sharding.tree_leaves(pshard)) + relay
+    bodies = 2 if cfg.remat else 1
+    per_mb = 0
+    for key, tree in pshard.items():
+        leaves = sharding.tree_leaves(tree)
+        if key in ("layers", "enc_layers", "cross_layers"):
+            per_mb += bodies * cfg.n_layers * sum(has(s.spec[1:]) for s in leaves)
+            per_mb += sum(has(s.spec[:1]) for s in leaves)
+        else:
+            per_mb += sum(has(s.spec) for s in leaves)
+    return microbatches * per_mb + relay
+
+
 def sharded_train_path(torch, dev, card: str, arch: str, tag: str, phase10_peak: float) -> dict:
     """Phase 12: ``arch`` at full width and depth (phase 10's config, init
     from seed 0 and batch) through ``train.make_sharded_train_step`` for
-    SHARDED_STEPS[arch] steps, (a) on the local mesh from
+    SHARDED_STEPS[arch] steps: (a) on the local mesh from
     ``launch.make_host_mesh(1, 1)`` and (b) on a one-rank NCCL world
     (``make_mesh((1, 1), ("data", "model"))``), each against
-    ``make_train_step`` run in the same call from a copy of the same init.
-    Checks that the metrics of every step and the params after the last are
-    bit-equal to make_train_step's, and per step the K3 / K3-bwd / K4 /
-    K4-bwd launches of phase 10 and, on NCCL, the all_gathers the specs
-    give (every layer's model-split leaves twice under remat, embed and
-    lm_head once). Prints the warm step's host time, the collectives by
-    kind and the peak memory beside phase 10's (``phase10_peak`` GB).
-    Returns each run's launches."""
+    ``make_train_step`` run in the same call from a copy of the same init;
+    then on the NCCL world the train-mode (FSDP) step with 2 microbatches,
+    and the same with ZeRO-2 (serve specs inside, train specs for the
+    gradients), each against ``make_train_step(microbatches=2)``. Checks
+    that the metrics of every step and the params after the last are
+    bit-equal to the reference's, and per step the K3 / K3-bwd / K4 /
+    K4-bwd launches of phase 10 (per microbatch) and, on NCCL, the
+    all_gathers the specs give (``expected_gathers``). Prints each run's
+    warm step host time, collectives by kind and peak memory beside phase
+    10's (``phase10_peak`` GB). Returns each run's launches."""
     import dataclasses
     import json as json_mod
 
@@ -1566,6 +1607,7 @@ def sharded_train_path(torch, dev, card: str, arch: str, tag: str, phase10_peak:
     from repro_torch.data.tokens import SyntheticTokenPipeline, TokenPipelineConfig
     from repro_torch.launch import make_host_mesh
     from repro_torch.models import init_params, sharding
+    from repro_torch.models.transformer import param_shapes
     from repro_torch.train import AdamW, make_sharded_train_step, make_train_step
     from repro_torch.train.optimizer import tree_leaves, tree_map
 
@@ -1581,16 +1623,16 @@ def sharded_train_path(torch, dev, card: str, arch: str, tag: str, phase10_peak:
     kernels = lm_kernels()
     warm = slice(1, 9) if steps >= 9 else slice(1, steps)  # steps 2-9, or 2 on
 
-    def run(name, mesh=None):
+    def run(name, mesh=None, microbatches=1, **options):
         """``steps`` steps from a copy of ``init``: the metrics, the host
         time, launches and collectives of each step, the final params and
         the peak memory."""
-        params = tree_map(lambda t: t.to(dev), init)
+        params = tree_map(lambda t: t.to(dev, copy=True), init)  # init stays as it is
         if mesh is None:
-            step = make_train_step(cfg, opt)
+            step = make_train_step(cfg, opt, microbatches)
         else:
             step, pshard, _, bshard = make_sharded_train_step(
-                cfg, opt, mesh, TRAIN_BATCH, TRAIN_SEQ)
+                cfg, opt, mesh, TRAIN_BATCH, TRAIN_SEQ, microbatches=microbatches, **options)
             params = sharding.shard_tree(pshard, params)
         state = opt.init(params)
         b = batch if mesh is None else {k: bshard[k].shard(v) for k, v in batch.items()}
@@ -1619,14 +1661,18 @@ def sharded_train_path(torch, dev, card: str, arch: str, tag: str, phase10_peak:
               f"[{tag} {name}] non-finite metrics")
         for i, got in enumerate(out["launches"]):
             for kname, n in per_step.items():
-                check(got[kname] == n, f"[{tag} {name}] step {i}: {kname} launched "
-                      f"{got[kname]} times, expected {n} (phase 10's)")
+                check(got[kname] == n * microbatches, f"[{tag} {name}] step {i}: {kname} "
+                      f"launched {got[kname]} times, expected {n * microbatches} (phase 10's "
+                      f"a microbatch)")
         return out
 
-    ref = run("make_train_step")
-    # compared on the host, so that the device holds one run at a time
-    ref_params = [t.cpu() for t in tree_leaves(ref.pop("params"))]
-    runs = {"local": run("local", make_host_mesh(1, 1, device=dev))}
+    refs = {}
+    for m in (1, 2):
+        ref = run(f"make_train_step microbatches={m}", microbatches=m)
+        # compared on the host, so that the device holds one run at a time
+        ref["params"] = [t.cpu() for t in tree_leaves(ref.pop("params"))]
+        refs[m] = ref
+    runs = {"local": (1, run("local", make_host_mesh(1, 1, device=dev)))}
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
     try:
         mesh = make_mesh((1, 1), ("data", "model"), device=dev)
@@ -1635,58 +1681,66 @@ def sharded_train_path(torch, dev, card: str, arch: str, tag: str, phase10_peak:
         dist_mod.psum(torch.zeros(1, device=dev), mesh, "data")
         dist_mod.psum(torch.zeros(1, device=dev), mesh, "model")
         dist_mod.all_gather(torch.zeros(1, device=dev), mesh, "model")
+        dist_mod.psum_scatter(torch.zeros(1, device=dev), mesh, "data", 0)
         torch.cuda.synchronize()
-        runs["nccl"] = run("nccl", mesh)
+        shapes = param_shapes(cfg)
+        zero2 = dict(inner_param_specs=sharding.param_pspecs(cfg, shapes, mesh, "serve"),
+                     grad_specs=sharding.param_pspecs(cfg, shapes, mesh, "train"))
+        runs["nccl"] = (1, run("nccl", mesh))
+        runs["nccl train m2"] = (2, run("nccl train m2", mesh, 2, mode="train"))
+        runs["nccl zero2 m2"] = (2, run("nccl zero2 m2", mesh, 2, mode="train", **zero2))
         gather_us = gather_cost(torch, dev, mesh, cfg)
     finally:
         dist.destroy_process_group()
 
     line = {"phase": tag, "arch": arch, "steps": steps, "card": card,
-            "make_train_step": {"warm_ms_median": float(np.median(ref["ms"][warm])),
-                                "peak_gb": ref["peak_gb"], "phase10_peak_gb": phase10_peak}}
+            "phase10_peak_gb": phase10_peak}
+    for m, ref in refs.items():
+        line[f"make_train_step m{m}"] = {"warm_ms_median": float(np.median(ref["ms"][warm])),
+                                         "peak_gb": ref["peak_gb"]}
     line["nccl_all_gather_us"] = gather_us
-    for name, r in runs.items():
+    for name, (m, r) in runs.items():
+        ref = refs[m]
         leaves = [t.cpu() for t in tree_leaves(r.pop("params"))]
         pshard = r.pop("shardings")
-        if name == "nccl":  # every model-split leaf of a layer twice, the others once
-            split = lambda t: sum(bool(sharding.spec_axes(x.spec)) for x in sharding.tree_leaves(t))
-            want = 2 * cfg.n_layers * split(pshard["layers"]) + split(
-                {k: v for k, v in pshard.items() if k != "layers"})
+        if name != "local":
+            want = expected_gathers(cfg, pshard, m, "zero2" in name, len(batch))
             got = r["collectives"][0].get("all_gather", 0)
-            check(got == want, f"[{tag} nccl] {got} all_gathers a step, the specs give {want}")
+            check(got == want, f"[{tag} {name}] {got} all_gathers a step, the specs give {want}")
         same_metrics = r["metrics"] == ref["metrics"]
-        bit_equal = all(torch.equal(a, b) for a, b in zip(leaves, ref_params))
+        bit_equal = all(torch.equal(a, b) for a, b in zip(leaves, ref["params"]))
         # the difference in fp32 costs seconds on the host: only when there is one
         max_dp = 0.0 if bit_equal else max(float((a.float() - b.float()).abs().max())
-                                           for a, b in zip(leaves, ref_params))
-        check(same_metrics, f"[{tag} {name}] metrics differ from make_train_step's: "
-              f"{r['metrics']} vs {ref['metrics']}")
-        check(bit_equal, f"[{tag} {name}] params differ from make_train_step's by up to "
-              f"{max_dp:.3e}")
+                                           for a, b in zip(leaves, ref["params"]))
+        check(same_metrics, f"[{tag} {name}] metrics differ from make_train_step(microbatches="
+              f"{m})'s: {r['metrics']} vs {ref['metrics']}")
+        check(bit_equal, f"[{tag} {name}] params differ from make_train_step(microbatches={m})'s "
+              f"by up to {max_dp:.3e}")
         coll = r["collectives"]
         check(all(c == coll[0] for c in coll), f"[{tag} {name}] collectives vary by step: {coll}")
-        line[name] = {"warm_ms_median": float(np.median(r["ms"][warm])),
+        line[name] = {"microbatches": m, "warm_ms_median": float(np.median(r["ms"][warm])),
                       "warm_ms_range": [float(min(r["ms"][warm])), float(max(r["ms"][warm]))],
                       "metrics_equal": same_metrics, "params_bit_equal": bit_equal,
                       "max_abs_param_diff": max_dp, "launches_per_step": r["launches"][0],
                       "collectives_per_step": coll[0], "peak_gb": r["peak_gb"],
-                      "loss": [m["loss"] for m in r["metrics"]]}
+                      "loss": [mm["loss"] for mm in r["metrics"]]}
         del leaves
     print(f"[{tag} {arch} sharded] " + json_mod.dumps(line))
-    print(f"[{tag} {arch} sharded] warm step host ms median: make_train_step "
-          f"{line['make_train_step']['warm_ms_median']:.1f}, local mesh "
-          f"{line['local']['warm_ms_median']:.1f}, one-rank NCCL "
-          f"{line['nccl']['warm_ms_median']:.1f}; peak GB {ref['peak_gb']:.2f} / "
-          f"{line['local']['peak_gb']:.2f} / {line['nccl']['peak_gb']:.2f} (phase 10: "
-          f"{phase10_peak:.2f}); NCCL collectives a step "
-          f"{line['nccl']['collectives_per_step']}, one all_gather of a "
-          f"{gather_us['shape']} bf16 layer leaf {gather_us['host_us']:.1f} us host, "
-          f"{gather_us['device_us']:.1f} us device; bit-equal local "
-          f"{line['local']['params_bit_equal']}, NCCL {line['nccl']['params_bit_equal']} "
-          f"on {card}")
-    del ref_params
+    print(f"[{tag} {arch} sharded] warm step host ms median (peak GB): make_train_step "
+          + ", ".join(f"m{m} {line[f'make_train_step m{m}']['warm_ms_median']:.1f} "
+                      f"({line[f'make_train_step m{m}']['peak_gb']:.2f})" for m in refs)
+          + "; " + ", ".join(f"{name} {line[name]['warm_ms_median']:.1f} "
+                             f"({line[name]['peak_gb']:.2f})" for name in runs)
+          + f"; phase 10 peak {phase10_peak:.2f} GB; NCCL collectives a step "
+          + "; ".join(f"{name} {line[name]['collectives_per_step']}" for name in runs
+                      if name != "local")
+          + f"; one all_gather of a {gather_us['shape']} bf16 layer leaf "
+          f"{gather_us['host_us']:.1f} us host, {gather_us['device_us']:.1f} us device; "
+          "bit-equal " + ", ".join(f"{name} {line[name]['params_bit_equal']}" for name in runs)
+          + f" on {card}")
+    del refs
     torch.cuda.empty_cache()
-    return {f"{tag} {arch} sharded {name}": r["total"] for name, r in runs.items()}
+    return {f"{tag} {arch} sharded {name}": r["total"] for name, (_, r) in runs.items()}
 
 
 def train_card_against_cpu(torch, dev, card: str) -> dict:
@@ -2687,7 +2741,8 @@ def check_same_counts(tag: str, trace, trace_log, card, card_log) -> None:
 
 def dryrun_against_card(torch, dev, card: str, arch: str, tag: str, step_ms: float) -> dict:
     """Phase 13a: ``arch`` whole at phase 10's step (bf16, remat, AdamW,
-    2 x 1024 tokens, one position). The dry run's bytes at rest equal the
+    2 x 1024 tokens, one position), through the dry run's train-mode step
+    (``dryrun.microbatch_rule``). The dry run's bytes at rest equal the
     params and both moments built on the card; its meta trace of one step
     equals the counter over one warm step on the card, exactly, and the
     counter's kernel launches equal the wrappers' counts. Prints the
@@ -2719,8 +2774,9 @@ def dryrun_against_card(torch, dev, card: str, arch: str, tag: str, step_ms: flo
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     opt = AdamW(lr=1e-3, warmup_steps=2)
-    step, _, _, _ = make_sharded_train_step(cfg, opt, make_host_mesh(1, 1, device=dev),
-                                            TRAIN_BATCH, TRAIN_SEQ)
+    mesh = make_host_mesh(1, 1, device=dev)
+    options = dryrun.microbatch_rule(cfg, shape, mesh)  # the traced step's: train mode
+    step, _, _, _ = make_sharded_train_step(cfg, opt, mesh, TRAIN_BATCH, TRAIN_SEQ, **options)
     params = init_params(cfg, 0, dev)  # on one position a rank's blocks are the leaves
     state = opt.init(params)
     held = sum(t.numel() * t.element_size()
@@ -2754,7 +2810,8 @@ def dryrun_against_card(torch, dev, card: str, arch: str, tag: str, step_ms: flo
     check_same_counts(f"{tag} {arch}", trace, rec_trace.log, got, rec_card.log)
     check(dict(got.kernels) == {k: v for k, v in launches.items() if v},
           f"[{tag} {arch}] the counter's launches {dict(got.kernels)} != the wrappers' {launches}")
-    print(f"[{tag} {arch}] one step traced on meta in {trace_s:.2f} s equals the counter over "
+    print(f"[{tag} {arch}] one train-mode step ({options['mode']}, {options['microbatches']} "
+          f"microbatch) traced on meta in {trace_s:.2f} s equals the counter over "
           f"the card's step ({counted_s:.2f} s under the counter): {trace.flops} FLOP, "
           f"{trace.bytes} bytes, {trace.ops} ops, kernels {dict(trace.kernels)} (wrappers "
           f"{launches}), kernel FLOP {dict(trace.kernel_flops)}")
@@ -2864,15 +2921,21 @@ def dryrun_table(card: str) -> None:
         check(r["status"] == want, f"[13c {r['arch']} {r['shape']} {r['mesh']}] "
               f"{r['status']}, expected {want}: {r.get('error', r.get('reason'))}")
         if r["status"] == "ok":
-            print(f"[13c {r['arch']} {r['shape']} {r['mesh']}] {r['trace_s']:.2f} s: "
+            print(f"[13c {r['arch']} {r['shape']} {r['mesh']}] {r['trace_s']:.2f} s, "
+                  f"{r['microbatches']} microbatches: "
                   f"{r['flops_per_device']:.4e} FLOP, {r['bytes_per_device']:.4e} bytes, "
                   f"collective {r['collective_bytes_per_device']:.4e} bytes "
                   f"{r['collective_counts']}; compute {r['compute_s']:.4f} s, memory "
                   f"{r['memory_s']:.4f} s, collective {r['collective_s']:.4f} s "
                   f"({r['dominant']}); useful {r['useful_flops_ratio']:.4f}; peak "
-                  f"{r['peak_bytes_per_device'] / 1e9:.1f} GB; at rest "
+                  f"{r['peak_bytes_per_device'] / 1e9:.2f} GB; at rest "
                   f"{r['step_bytes_at_rest'] / 1e9:.2f} GB, JAX arg bytes "
                   f"{r['arg_bytes_per_device'] / 1e9:.2f} GB")
+        if r["status"] == "ok":
+            held = r["step_bytes_at_rest"] + r["peak_bytes_per_device"]
+            check(held < CARD_BYTES, f"[13c {r['arch']} {r['shape']} {r['mesh']}] the state at "
+                  f"rest and the traced peak take {held / 1e9:.2f} GB, past the card's "
+                  f"{CARD_BYTES / 1e9:.0f} GB")
     counts = collections.Counter(r["status"] for r in recs)
     print(f"[13c table] {len(recs)} rows {dict(counts)} in {total:.1f} s (rows "
           f"{sum(r.get('trace_s', 0.0) for r in recs):.1f} s; limit {DRYRUN_TABLE_S:.0f} s); "

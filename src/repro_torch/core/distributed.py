@@ -38,6 +38,7 @@ Three kinds of mesh:
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import math
 import os
@@ -241,6 +242,21 @@ def pad_to_multiple(x: int, k: int) -> int:
 # and their bytes: the larger of the tensor sent and the tensor received
 COLLECTIVES: collections.Counter = collections.Counter()
 COLLECTIVE_BYTES: collections.Counter = collections.Counter()
+# how many collectives are running now: a cost counter
+# (``roofline.analysis``) leaves out the ops a backend runs on their tensors
+# (gloo completes a reduce-scatter with a split and a copy on the host; NCCL
+# and the fake backend run none), so every backend counts alike
+IN_COLLECTIVE = 0
+
+
+@contextlib.contextmanager
+def _in_collective():
+    global IN_COLLECTIVE
+    IN_COLLECTIVE += 1
+    try:
+        yield
+    finally:
+        IN_COLLECTIVE -= 1
 
 
 def reset_collective_counts() -> None:
@@ -265,7 +281,7 @@ def all_gather(t: Tensor, mesh: Mesh, name: Optional[str]) -> Tensor:
         return t
     _check_device(t, mesh)
     out = t.new_empty((mesh.shape[name] * t.shape[0],) + tuple(t.shape[1:]))
-    with warnings.catch_warnings():
+    with warnings.catch_warnings(), _in_collective():
         # newer torch deprecates it for all_gather_single, which older
         # releases lack
         warnings.simplefilter("ignore", FutureWarning)
@@ -282,7 +298,8 @@ def psum(t: Tensor, mesh: Mesh, name: Optional[str]) -> Tensor:
         return t
     _check_device(t, mesh)
     out = t.contiguous().clone()
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=g)
+    with _in_collective():
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=g)
     COLLECTIVES["all_reduce"] += 1
     COLLECTIVE_BYTES["all_reduce"] += _nbytes(out)
     return out
@@ -316,10 +333,42 @@ def block_of(t: Tensor, mesh: Mesh, name: Optional[str], dim: int) -> Tensor:
     return t.narrow(dim, mesh.coord(name) * n, n)
 
 
+def pmax(t: Tensor, mesh: Mesh, name: Optional[str]) -> Tensor:
+    """Elementwise max of ``t`` over axis ``name``, as a new tensor; not
+    differentiable (the vocab-parallel cross entropy's stabiliser)."""
+    g = mesh.group(name)
+    if g is None:
+        return t
+    _check_device(t, mesh)
+    out = t.detach().contiguous().clone()
+    with _in_collective():
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=g)
+    COLLECTIVES["all_reduce"] += 1
+    COLLECTIVE_BYTES["all_reduce"] += _nbytes(out)
+    return out
+
+
 def psum_scatter(t: Tensor, mesh: Mesh, name: Optional[str], dim: int) -> Tensor:
     """The sum of ``t`` over axis ``name``, and of it this position's block
-    along ``dim``: a reduce-scatter, made as a psum followed by a slice."""
-    return block_of(psum(t, mesh, name), mesh, name, dim).contiguous()
+    along ``dim``: one reduce-scatter (``reduce_scatter_tensor``), counted
+    under its own kind with the bytes of the tensor sent (the larger)."""
+    g = mesh.group(name)
+    if g is None:
+        return t
+    _check_device(t, mesh)
+    dim = dim % t.dim()
+    k = mesh.shape[name]
+    if t.shape[dim] % k:
+        raise ValueError(f"dim {dim} of size {t.shape[dim]} does not split over {name!r} = {k}")
+    src = t.movedim(dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // k,) + tuple(src.shape[1:]))
+    with warnings.catch_warnings(), _in_collective():
+        # deprecated for reduce_scatter_single in newer torch, as all_gather's twin
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=g)
+    COLLECTIVES["reduce_scatter"] += 1
+    COLLECTIVE_BYTES["reduce_scatter"] += _nbytes(src)
+    return out.movedim(0, dim).contiguous() if dim else out
 
 
 class AllGather(torch.autograd.Function):
@@ -338,12 +387,74 @@ class AllGather(torch.autograd.Function):
         return block_of(g, ctx.mesh, ctx.name, ctx.dim).contiguous(), None, None, None
 
 
-def all_gather_grad(t: Tensor, mesh: Mesh, name: Optional[str], dim: int) -> Tensor:
-    """``all_gather_dim`` under autograd (``AllGather``); the identity on
-    an axis without a process group."""
+class AllGatherSum(torch.autograd.Function):
+    """``all_gather_dim`` whose backward sums the gradient over the axis and
+    hands this position its block (``psum_scatter``): the positions along
+    the axis hold different rows of the batch (an FSDP leaf gathered over
+    the batch axes), so each computed its part of the gradient."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, name, dim):
+        ctx.mesh, ctx.name, ctx.dim = mesh, name, dim
+        return all_gather_dim(t, mesh, name, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum_scatter(g, ctx.mesh, ctx.name, ctx.dim), None, None, None
+
+
+def all_gather_grad(t: Tensor, mesh: Mesh, name: Optional[str], dim: int,
+                    sum_grad: bool = False) -> Tensor:
+    """``all_gather_dim`` under autograd: ``AllGather``, or ``AllGatherSum``
+    with ``sum_grad``; the identity on an axis without a process group."""
     if mesh.group(name) is None:
         return t
-    return AllGather.apply(t, mesh, name, dim)
+    return (AllGatherSum if sum_grad else AllGather).apply(t, mesh, name, dim)
+
+
+class _CopyTo(torch.autograd.Function):
+    """The identity forward, a psum over the axis backward."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, name):
+        ctx.mesh, ctx.name = mesh, name
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g, ctx.mesh, ctx.name), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """A psum over the axis forward, the identity backward."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, name):
+        return psum(t, mesh, name)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def copy_to(t: Tensor, mesh: Mesh, name: Optional[str]) -> Tensor:
+    """Where a tensor that every position along ``name`` holds alike (the
+    replicated residual stream, a replicated weight) enters compute that
+    the axis splits (Megatron's f): the identity forward; backward, the sum
+    of the positions' partial gradients. Identity without a group."""
+    if mesh.group(name) is None:
+        return t
+    return _CopyTo.apply(t, mesh, name)
+
+
+def reduce_from(t: Tensor, mesh: Mesh, name: Optional[str]) -> Tensor:
+    """Where split compute closes into a tensor every position along
+    ``name`` then uses alike (Megatron's g): the psum of the partial results
+    forward; backward, each position's gradient as it is (every position
+    computed the same one). Identity without a group."""
+    if mesh.group(name) is None:
+        return t
+    return _ReduceFrom.apply(t, mesh, name)
 
 
 def broadcast(t: Tensor, mesh: Mesh) -> Tensor:
@@ -351,7 +462,8 @@ def broadcast(t: Tensor, mesh: Mesh) -> Tensor:
     if not mesh.distributed:
         return t
     _check_device(t, mesh)
-    dist.broadcast(t, src=0)
+    with _in_collective():
+        dist.broadcast(t, src=0)
     COLLECTIVES["broadcast"] += 1
     COLLECTIVE_BYTES["broadcast"] += _nbytes(t)
     return t

@@ -19,14 +19,20 @@ collective calls and bytes by kind, and the peak of live bytes, each per
 device. The values are meaningless there (nothing is summed under the
 fake backend); only shapes and counts are kept.
 
-The port's step takes the serve-mode specs (params and both moments split
-over ``model``, replicated over the batch axes) and no microbatches. JAX's
-dry run takes train-mode (FSDP) specs, with microbatches above 2e9
-parameters. So a train row keeps JAX's ``arg_bytes_per_device`` (3 x the
-params' bytes under train-mode specs, which JAX counts for params, mu and
-nu), to be held against JAX, and adds ``step_bytes_at_rest``: what the
-port's step holds (params in their dtypes and two fp32 moments under its
-own specs).
+A train row traces the train-mode (FSDP) step with the JAX dry run's
+microbatches: one row a rank above 2e9 parameters (``b_loc``
+microbatches), else one; ``DRYRUN_MICROBATCHES`` overrides the count and
+``DRYRUN_ZERO2=1`` passes serve-mode specs inside and train-mode specs for
+the gradients (``microbatch_rule``). A step of more than two microbatches
+is counted from its first two (``trace_step(scaled=True)``; the row's
+``microbatch_counts`` says "scaled": the same counts as tracing them all,
+held by a CPU test; ``--every-microbatch`` traces them all). A row keeps JAX's
+``arg_bytes_per_device`` (3 x the params' bytes under train-mode specs,
+which JAX counts for params, mu and nu), to be held against JAX, and adds
+``step_bytes_at_rest``: what the step holds between steps (params in their
+dtypes and two fp32 moments under the same specs). A trace that raises is
+an ``"error"`` row: JAX's retry without microbatches (an XLA workaround)
+has no counterpart.
 
 Prefill and decode shapes are filled analytically (``model_flops``,
 ``arg_bytes_per_device``) with ``"status": "analytic"``: the port has no
@@ -40,6 +46,7 @@ traceback.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import os
@@ -146,45 +153,113 @@ def arg_bytes_per_device(cfg: ModelConfig, shape: InputShape, mesh) -> int:
 
 
 def step_bytes_at_rest(cfg: ModelConfig, mesh) -> int:
-    """What the port's sharded step holds per device between steps: the
-    params in their dtypes and AdamW's two fp32 moments, under the step's
-    serve-mode specs (the step count's 4 bytes left out)."""
+    """What the port's sharded train step holds per device between steps:
+    the params in their dtypes and AdamW's two fp32 moments, under the
+    step's train-mode (FSDP) specs (the step count's 4 bytes left out)."""
     from ..models.sharding import param_pspecs, tree_leaves
     from ..models.transformer import param_shapes
 
     pshapes = param_shapes(cfg)
-    specs = param_pspecs(cfg, pshapes, mesh, "serve")
+    specs = param_pspecs(cfg, pshapes, mesh, "train")
     return sum(t.numel() * (t.element_size() + 8) // max(_denom(s, mesh), 1)
                for t, s in zip(tree_leaves(pshapes), tree_leaves(specs)))
 
 
-def trace_step(cfg: ModelConfig, shape: InputShape, mesh, counter=None) -> Costs:
+def microbatch_rule(cfg: ModelConfig, shape: InputShape, mesh) -> Dict[str, Any]:
+    """The JAX dry run's step options for a train shape on ``mesh``
+    (``src/repro/launch/dryrun.py``): ``microbatches`` = the rows a rank
+    holds (``b_loc``) above 2e9 parameters, else 1, or
+    ``DRYRUN_MICROBATCHES``; with ``DRYRUN_ZERO2=1`` the serve-mode specs
+    as ``inner_param_specs`` and the train-mode ones as ``grad_specs``."""
+    from ..models.sharding import entry_axes, param_pspecs, train_batch_pspec
+    from ..models.transformer import param_shapes
+
+    b0 = entry_axes(train_batch_pspec(mesh, shape.global_batch)[0])
+    n_dp = math.prod(mesh.shape[a] for a in b0)
+    b_loc = max(shape.global_batch // max(n_dp, 1), 1)
+    default = max(1, b_loc) if cfg.param_count() > 2e9 else 1
+    out: Dict[str, Any] = {"mode": "train",
+                           "microbatches": int(os.environ.get("DRYRUN_MICROBATCHES", default))}
+    if os.environ.get("DRYRUN_ZERO2") == "1":
+        pshapes = param_shapes(cfg)
+        out["inner_param_specs"] = param_pspecs(cfg, pshapes, mesh, "serve")
+        out["grad_specs"] = param_pspecs(cfg, pshapes, mesh, "train")
+    return out
+
+
+def _scaled(one: Costs, two: Costs, m: int) -> Costs:
+    """The counts of an m-microbatch step from those of the same step run
+    through its first microbatch (``one``) and its first two (``two``):
+    ``one`` plus m - 1 times the second microbatch's increment. Every
+    microbatch runs the same ops on the same shapes, so this equals the
+    whole step's counts (held by a CPU test at m = 4); the peak is the
+    larger of the two runs' (each microbatch's live set is the same)."""
+    def add(a, b):
+        return a + (m - 1) * (b - a)
+
+    def add_counts(a, b):
+        return collections.Counter({k: add(a.get(k, 0), b.get(k, 0)) for k in set(a) | set(b)})
+
+    return Costs(flops=add(one.flops, two.flops), bytes=add(one.bytes, two.bytes),
+                 ops=add(one.ops, two.ops),
+                 kernels=add_counts(one.kernels, two.kernels),
+                 kernel_flops=add_counts(one.kernel_flops, two.kernel_flops),
+                 kernel_bytes=add_counts(one.kernel_bytes, two.kernel_bytes),
+                 collectives=add_counts(one.collectives, two.collectives),
+                 collective_bytes=add_counts(one.collective_bytes, two.collective_bytes),
+                 peak_bytes=max(one.peak_bytes, two.peak_bytes))
+
+
+def trace_step(cfg: ModelConfig, shape: InputShape, mesh, counter=None, *,
+               scaled: bool = False, **options) -> Costs:
     """The counts of one ``make_sharded_train_step`` step at this rank of
     ``mesh`` (``make_dryrun_mesh``, or a one-position meta mesh): meta
     params from ``param_shapes`` and the batch from ``input_specs``, each
     sharded by the step's own ``NamedSharding.shard``, and AdamW's state.
-    ``counter`` (a fresh ``CostCounter`` by default) counts the step."""
+    The step takes ``options`` (``mode``, ``microbatches``, ZeRO-2's
+    specs), by default ``microbatch_rule``'s. ``counter`` (a fresh
+    ``CostCounter`` by default) counts the step.
+
+    ``scaled`` with more than two microbatches traces the step through its
+    first microbatch and through its first two (the re-laying and the
+    optimizer update whole in both) and scales the second's increment to
+    all of them (``_scaled``): the same counts at about 3 / m of the
+    microbatches' trace time."""
     from ..models import sharding
     from ..models.transformer import param_shapes
-    from ..train.loop import make_sharded_train_step
+    from ..train.loop import _sharded_train_step
     from ..train.optimizer import AdamW
 
+    options = {"mode": "serve", "microbatches": 1, "inner_param_specs": None,
+               "grad_specs": None, **(options or microbatch_rule(cfg, shape, mesh))}
+    m = options["microbatches"]
     opt = AdamW()
-    step, pshard, _, bshard = make_sharded_train_step(cfg, opt, mesh, shape.global_batch,
-                                                      shape.seq_len)
-    params = sharding.shard_tree(pshard, param_shapes(cfg))
-    opt_state = opt.init(params)
-    batch = {k: bshard[k].shard(v) for k, v in input_specs(cfg, shape).items()}
+
+    def count(counter, k=None):
+        step, pshard, _, bshard = _sharded_train_step(
+            cfg, opt, mesh, shape.global_batch, shape.seq_len, run_microbatches=k, **options)
+        batch = {key: bshard[key].shard(v) for key, v in input_specs(cfg, shape).items()}
+        params = sharding.shard_tree(pshard, param_shapes(cfg))
+        opt_state = opt.init(params)
+        with counter:
+            step(params, opt_state, batch)
+        return counter.costs
+
     counter = counter or CostCounter()
-    with counter:
-        step(params, opt_state, batch)
-    return counter.costs
+    if scaled and m > 2:
+        second = CostCounter()
+        second._layouts = counter._layouts  # the meta ops' layouts, known from the first
+        return _scaled(count(counter, 1), count(second, 2), m)
+    return count(counter)
 
 
-def run_one(arch: str, shape_name: str, mesh_name: str, out_dir: str, mesh=None
-            ) -> Dict[str, Any]:
+def run_one(arch: str, shape_name: str, mesh_name: str, out_dir: str, mesh=None,
+            scaled: bool = True) -> Dict[str, Any]:
     """One row: traced for a train shape (at rank 0 of ``mesh``, else of a
-    fake world opened for this row), analytic for the others."""
+    fake world opened for this row), analytic for the others. A step of
+    more than two microbatches is counted from its first two
+    (``trace_step(scaled=True)``) unless ``scaled`` is false; the row says
+    which (``microbatch_counts``)."""
     cfg = get_config(arch)
     shape = INPUT_SHAPES[shape_name]
     ok, why = shape_applicable(cfg, shape)
@@ -204,15 +279,19 @@ def run_one(arch: str, shape_name: str, mesh_name: str, out_dir: str, mesh=None
             rec.update(status="analytic", reason=ANALYTIC_REASON, model_flops=flops,
                        arg_bytes_per_device=arg_bytes)
         else:
+            micro = microbatch_rule(cfg, shape, sm)["microbatches"]
             if mesh is None:
                 with fake_world(n_chips):
-                    costs = trace_step(cfg, shape, make_dryrun_mesh(multi_pod=mesh_name == "multi"))
+                    costs = trace_step(cfg, shape, make_dryrun_mesh(multi_pod=mesh_name == "multi"),
+                                       scaled=scaled)
             else:
-                costs = trace_step(cfg, shape, mesh)
+                costs = trace_step(cfg, shape, mesh, scaled=scaled)
             terms = roofline_terms(costs, arch=arch, shape=shape_name, mesh_name=mesh_name,
                                    n_chips=n_chips, model_flops=flops)
             rec.update(status="ok", arg_bytes_per_device=arg_bytes,
-                       step_bytes_at_rest=step_bytes_at_rest(cfg, sm), microbatches=1,
+                       step_bytes_at_rest=step_bytes_at_rest(cfg, sm), microbatches=micro,
+                       zero2=os.environ.get("DRYRUN_ZERO2") == "1",
+                       microbatch_counts="scaled" if scaled and micro > 2 else "traced",
                        **terms.to_row())
     except Exception as e:
         rec.update(status="error", error=f"{type(e).__name__}: {e}",
@@ -229,9 +308,11 @@ def _write(out_dir: str, rec: Dict[str, Any]) -> None:
         json.dump(rec, f, indent=1, default=str)
 
 
-def run_all(archs, shapes, meshes, out_dir: str, skip_done: bool = False, echo=print):
+def run_all(archs, shapes, meshes, out_dir: str, skip_done: bool = False, echo=print,
+            scaled: bool = True):
     """Every (arch, shape) on each mesh, the fake world of a mesh opened
-    once (with its groups) for all its rows. Returns the records."""
+    once (with its groups) for all its rows (``run_one``'s ``scaled``).
+    Returns the records."""
     recs = []
     for mesh_name in meshes:
         sm = shape_mesh(mesh_name)
@@ -244,7 +325,7 @@ def run_all(archs, shapes, meshes, out_dir: str, skip_done: bool = False, echo=p
                         with open(fn) as f:
                             if json.load(f).get("status") in ("ok", "skipped", "analytic"):
                                 continue
-                    rec = run_one(arch, shape, mesh_name, out_dir, mesh=mesh)
+                    rec = run_one(arch, shape, mesh_name, out_dir, mesh=mesh, scaled=scaled)
                     recs.append(rec)
                     if echo is not None:
                         echo(f"[{rec['status']:8s}] {arch:20s} {shape:12s} {mesh_name:6s} "
@@ -260,13 +341,16 @@ def main():
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default="results/dryrun_torch")
     ap.add_argument("--skip-done", action="store_true")
+    ap.add_argument("--every-microbatch", action="store_true",
+                    help="trace every microbatch of a train step instead of scaling the "
+                         "first two's counts (the same counts, several times slower)")
     args = ap.parse_args()
 
     archs = list(ARCH_IDS) if (args.all or args.arch is None) else [args.arch]
     shapes = list(INPUT_SHAPES) if (args.all or args.shape is None) else [args.shape]
     meshes = list(MESH_NAMES) if args.mesh == "both" else [args.mesh]
     run_all(archs, shapes, meshes, args.out, args.skip_done,
-            echo=lambda line: print(line, flush=True))
+            echo=lambda line: print(line, flush=True), scaled=not args.every_microbatch)
 
 
 if __name__ == "__main__":

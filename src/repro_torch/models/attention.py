@@ -34,6 +34,7 @@ from ..kernels.flash.ops import flash_attention_bshd
 from ..kernels.flash.ref import attention_ref
 from ..roofline import analysis as _cost
 from .common import apply_rope, dense_init, rms_norm
+from .sharding import NO_SPLIT, model_split
 
 Tensor = torch.Tensor
 
@@ -59,27 +60,72 @@ def init_attn_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict[str,
     return p
 
 
-def _project_qkv(x: Tensor, p: Dict[str, Tensor], cfg: ModelConfig):
+def _project_qkv(x: Tensor, p: Dict[str, Tensor], cfg: ModelConfig, tp=NO_SPLIT):
+    """q of this rank's q heads (all of them unless the spec split ``wq``),
+    the k and v heads they read, and the offset of its first q head in the
+    expansion of those (``_expand_kv``). Under a split (``tp``) x enters
+    it, and so do the per-head q and k norms."""
     B, S, _ = x.shape
-    hd = cfg.head_dim
+    x = tp.enter(x)
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, cfg.n_heads, hd)
-    k = k.reshape(B, S, cfg.n_kv_heads, hd)
-    v = v.reshape(B, S, cfg.n_kv_heads, hd)
+        q = q + p["bq"]
+    hl = q.shape[-1] // cfg.head_dim
+    q = q.reshape(B, S, hl, cfg.head_dim)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    return q, k, v
+        q = rms_norm(q, tp.enter(p["q_norm"]), cfg.norm_eps)
+    k, v, off = _project_kv(x, p, cfg, tp, hl)
+    return q, k, v, off
 
 
-def _expand_kv(k: Tensor, n_heads: int) -> Tensor:
-    """(B, S, KV, hd) -> (B, S, H, hd) by repeating each kv head."""
-    rep = n_heads // k.shape[2]
-    return torch.repeat_interleave(k, rep, dim=2) if rep > 1 else k
+def _head_split(shard, cfg: ModelConfig, hl: int):
+    """The split that ``hl`` q heads a rank run under: the sharded step's
+    when the spec split them, else none (replicated heads compute alike on
+    every ``model`` rank, so no gradient is summed over it)."""
+    return model_split(shard) if hl < cfg.n_heads else NO_SPLIT
+
+
+def _project_kv(src: Tensor, p: Dict[str, Tensor], cfg: ModelConfig, tp, hl: int,
+                cross: bool = False) -> Tuple[Tensor, Tensor, int]:
+    """The k and v heads that this rank's ``hl`` q heads read, from ``src``
+    (already through ``tp.enter``), and the offset of its first q head in
+    their expansion. Split kv heads (``wk`` by columns) are this rank's
+    own; replicated ones enter the split block (their gradient is this
+    rank's part) and only the needed heads are computed (all of them, and
+    offset 0, without a split). Cross-attention (``cross``) takes no bias
+    and no k norm."""
+    hd, rep = cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
+    kvl = p["wk"].shape[-1] // hd
+    wk, wv = p["wk"], p["wv"]
+    bk, bv = (p["bk"], p["bv"]) if cfg.qkv_bias and not cross else (None, None)
+    off = 0
+    if kvl == cfg.n_kv_heads:  # replicated: the kv heads of q heads [q0, q0 + hl)
+        q0 = tp.coord * hl
+        kv0, kv1 = q0 // rep, (q0 + hl - 1) // rep + 1
+        off = q0 - kv0 * rep
+        cols = slice(kv0 * hd, kv1 * hd)
+        wk, wv = tp.enter(wk)[:, cols], tp.enter(wv)[:, cols]
+        if bk is not None:
+            bk, bv = tp.enter(bk)[cols], tp.enter(bv)[cols]
+        kvl = kv1 - kv0
+    k, v = _matmul(src, wk), _matmul(src, wv)
+    if bk is not None:
+        k, v = k + bk, v + bv
+    B, S = src.shape[:2]
+    k, v = k.reshape(B, S, kvl, hd), v.reshape(B, S, kvl, hd)
+    if cfg.qk_norm and not cross:
+        k = rms_norm(k, tp.enter(p["k_norm"]), cfg.norm_eps)
+    return k, v, off
+
+
+def _expand_kv(k: Tensor, rep: int, hl: Optional[int] = None, off: int = 0) -> Tensor:
+    """(B, S, KV, hd) -> (B, S, KV rep, hd) by repeating each kv head
+    ``rep`` times; with ``hl``, the ``hl`` heads of that from head ``off``
+    (the q heads of this rank)."""
+    k = torch.repeat_interleave(k, rep, dim=2) if rep > 1 else k
+    if hl is not None and (off or k.shape[2] != hl):
+        k = k.narrow(2, off, hl)
+    return k
 
 
 def _matmul(a: Tensor, b: Tensor) -> Tensor:
@@ -128,53 +174,70 @@ def attention_train(
     is_local: bool = False,
     causal: bool = True,
     return_kv: bool = False,
+    shard=None,
 ):
     """Full-sequence attention for prefill and the forward pass, causal over
     the whole (possibly right-padded) sequence. ``return_kv`` additionally
-    returns the post-RoPE (KV-head) k/v for the decode cache."""
+    returns the post-RoPE (KV-head) k/v for the decode cache.
+
+    Under the sharded step (``shard``) q heads split over ``model`` (``wq``
+    and ``bq`` by columns, ``wo`` by rows) run this rank's heads: its own
+    kv heads when the spec splits them too, else the replicated ones those
+    heads read (their k and v computed here, their gradient this rank's
+    part, completed by ``enter``). One psum closes the block. Unsplit
+    heads run as without a shard."""
     B, S, _ = x.shape
     if real_length(positions) < S and not causal:
         raise ValueError(
             "non-causal attention over pad positions needs a key mask, which the "
             "kernel does not take: run it at exact length"
         )
-    q, kkv, vkv = _project_qkv(x, p, cfg)
+    hl = p["wq"].shape[-1] // cfg.head_dim
+    tp = _head_split(shard, cfg, hl)
+    q, kkv, vkv, off = _project_qkv(x, p, cfg, tp)
     if cfg.rope_theta > 0:
         index = torch.arange(S, device=x.device)[None, :]
         q = apply_rope(q, index, cfg.rope_theta)
         kkv = apply_rope(kkv, index, cfg.rope_theta)
-    k = _expand_kv(kkv, cfg.n_heads)
-    v = _expand_kv(vkv, cfg.n_heads)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    k, v = _expand_kv(kkv, rep, hl, off), _expand_kv(vkv, rep, hl, off)
     window = cfg.window if (is_local and cfg.window) else 0
     out = _attend(q, k, v, causal, window)
-    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    out = tp.leave(out.reshape(B, S, hl * cfg.head_dim) @ p["wo"])
     if return_kv:
         return out, (kkv, vkv)
     return out
 
 
-def cross_kv(enc: Tensor, p: Dict[str, Tensor], cfg: ModelConfig) -> Tuple[Tensor, Tensor]:
+def cross_kv(enc: Tensor, p: Dict[str, Tensor], cfg: ModelConfig,
+             shard=None, hl: Optional[int] = None) -> Tuple[Tensor, Tensor]:
     """One cross-attention layer's k and v of the encoder states (B, F, d),
     expanded to (B, F, H, hd), in the dtype JAX promotes ``enc @ wk`` to:
-    what prefill computes for attention and keeps in ``DecodeCache.cross``."""
-    B, F_ = enc.shape[:2]
-    hd = cfg.head_dim
-    k = _matmul(enc, p["wk"]).reshape(B, F_, cfg.n_kv_heads, hd)
-    v = _matmul(enc, p["wv"]).reshape(B, F_, cfg.n_kv_heads, hd)
-    return _expand_kv(k, cfg.n_heads), _expand_kv(v, cfg.n_heads)
+    what prefill computes for attention and keeps in ``DecodeCache.cross``.
+    Under the sharded step, ``hl`` q heads a rank (fewer than H where the
+    spec split ``wq``): the k and v of this rank's heads (the encoder
+    states enter the split)."""
+    hl = cfg.n_heads if hl is None else hl
+    tp = _head_split(shard, cfg, hl)
+    k, v, off = _project_kv(tp.enter(enc), p, cfg, tp, hl, cross=True)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    return _expand_kv(k, rep, hl, off), _expand_kv(v, rep, hl, off)
 
 
 def cross_attend(x: Tensor, k: Tensor, v: Tensor, p: Dict[str, Tensor],
-                 cfg: ModelConfig) -> Tensor:
+                 cfg: ModelConfig, shard=None) -> Tensor:
     """Queries of the decoder stream x (B, S, d) against the expanded
     encoder k/v (B, F, H, hd), non-causal, through K3 on the card. As in
     the JAX package the scores take the promoted dtype of q and k (bf16
-    queries against fp32 keys: fp32) and the output q's dtype."""
+    queries against fp32 keys: fp32) and the output q's dtype. Split heads
+    (``shard``) run this rank's and one psum closes the block."""
     B, S, _ = x.shape
-    q = _matmul(x, p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    hl = p["wq"].shape[-1] // cfg.head_dim
+    tp = _head_split(shard, cfg, hl)
+    q = _matmul(tp.enter(x), p["wq"]).reshape(B, S, hl, cfg.head_dim)
     dt = torch.promote_types(q.dtype, k.dtype)
     out = _attend(q.to(dt), k.to(dt), v.to(dt), causal=False).to(q.dtype)
-    return _matmul(out.reshape(B, S, cfg.n_heads * cfg.head_dim), p["wo"])
+    return tp.leave(_matmul(out.reshape(B, S, hl * cfg.head_dim), p["wo"]))
 
 
 def cross_attention_train(x: Tensor, enc: Tensor, p: Dict[str, Tensor],
@@ -255,7 +318,7 @@ def attention_decode(
     B = x.shape[0]
     hd = cfg.head_dim
     local = bool(is_local and cfg.window)
-    q, k, v = _project_qkv(x, p, cfg)  # (B,1,H,hd), (B,1,KV,hd)
+    q, k, v, _ = _project_qkv(x, p, cfg)  # (B,1,H,hd), (B,1,KV,hd)
     pos_v = torch.broadcast_to(position, (B,)).long()
     if cfg.rope_theta > 0:
         q = apply_rope(q, pos_v[:, None], cfg.rope_theta)
@@ -268,8 +331,9 @@ def attention_decode(
     cache["v"][rows, slot] = v[:, 0]
     cache["pos"][rows, slot] = pos_v.to(torch.int32)
 
-    kk = _expand_kv(cache["k"], cfg.n_heads).float()  # (B, size, H, hd)
-    vv = _expand_kv(cache["v"], cfg.n_heads).float()
+    rep = cfg.n_heads // cfg.n_kv_heads
+    kk = _expand_kv(cache["k"], rep).float()  # (B, size, H, hd)
+    vv = _expand_kv(cache["v"], rep).float()
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) * (1.0 / math.sqrt(hd))
     cpos = cache["pos"]
     valid = (cpos >= 0) & (cpos <= pos_v[:, None])

@@ -1,7 +1,8 @@
 """Shared model primitives: norms, activations, RoPE, init helpers.
 
-One card and no mesh: the JAX package's sharding hints (``maybe_shard``,
-``batch_axes``) have nothing to do here and are left out.
+The JAX package's sharding hints (``maybe_shard``, ``batch_axes``) have no
+counterpart: the sharded step splits the compute explicitly
+(``sharding.ModelSplit``).
 """
 from __future__ import annotations
 
@@ -29,9 +30,20 @@ def rms_norm(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
     return (out * (1.0 + scale.float())).to(x.dtype)
 
 
-def gated_rms_norm(x: Tensor, gate: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
-    """Mamba2-style: RMSNorm(x * silu(gate))."""
-    return rms_norm(x * F.silu(gate.float()).to(x.dtype), scale, eps)
+def gated_rms_norm(x: Tensor, gate: Tensor, scale: Tensor, eps: float = 1e-6,
+                   split=None) -> Tensor:
+    """Mamba2-style: RMSNorm(x * silu(gate)). With ``split`` (a
+    ``sharding.ModelSplit``) x, gate and scale are this rank's block of
+    channels split over ``model``: the mean of squares is taken over every
+    rank's channels (a psum of the sums, whose gradient each rank's block
+    shares)."""
+    v = x * F.silu(gate.float()).to(x.dtype)
+    if split is None or split.size == 1:
+        return rms_norm(v, scale, eps)
+    vf = v.float()
+    ss = split.psum_both(torch.sum(vf * vf, dim=-1, keepdim=True))
+    out = vf * torch.rsqrt(ss / (v.shape[-1] * split.size) + eps)
+    return (out * (1.0 + scale.float())).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,7 @@ from torch.autograd.function import once_differentiable
 
 from ..configs.base import ModelConfig
 from .common import activation, dense_init
+from .sharding import NO_SPLIT, model_split
 
 Tensor = torch.Tensor
 
@@ -45,12 +46,17 @@ def init_mlp_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict[str, 
     }
 
 
-def mlp(x: Tensor, p: Dict[str, Tensor], cfg: ModelConfig) -> Tensor:
+def mlp(x: Tensor, p: Dict[str, Tensor], cfg: ModelConfig, shard=None) -> Tensor:
+    """The dense feed-forward. Under the sharded step (``shard``) a hidden
+    dim split over ``model`` (``w_gate``/``w_up`` by columns, ``w_down``
+    by rows) runs this rank's block and one psum closes it."""
+    tp = model_split(shard) if p["w_up"].shape[-1] != cfg.d_ff else NO_SPLIT
+    x = tp.enter(x)
     if cfg.act == "swiglu":
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     else:
         h = activation(cfg.act)(x @ p["w_up"])
-    return h @ p["w_down"]
+    return tp.leave(h @ p["w_down"])
 
 
 def init_moe_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict[str, Tensor]:
@@ -159,11 +165,25 @@ def moe_ffn(x: Tensor, p: Dict[str, Tensor], cfg: ModelConfig,
     expert counts summed over the batch axes, and this rank's probabilities
     summed over its rows, both over the whole batch's size. The terms sum
     over the ranks to the batch's aux loss, and their gradients to its
-    gradient. Capacity and drops need nothing: a group is a batch row."""
+    gradient. Capacity and drops need nothing: a group is a batch row.
+
+    Experts split over ``model`` (expert parallelism, as the specs say):
+    the router is replicated, so every ``model`` rank routes alike and the
+    slot maps and drops are the whole layer's; each rank fills and runs
+    only its ``E / size`` experts' slots, the combine reads zeros for the
+    others', and one psum over ``model`` closes the block, with the shared
+    experts' row-parallel output. The ranks along ``model`` hold the same
+    tokens, so nothing is sent between them before the experts run."""
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     C = _capacity(S, cfg)
     dev = x.device
+    tp = model_split(shard)
+    El = p["w_up"].shape[0]
+    experts_split = El != E
+    shared_split = bool(cfg.n_shared_experts) and (
+        p["shared_up"].shape[-1] != cfg.d_ff * cfg.n_shared_experts)
+    xs = tp.enter(x) if (experts_split or shared_split) else x
 
     logits = x.float() @ p["router"]  # (B, S, E), fp32
     probs = torch.softmax(logits, dim=-1)
@@ -209,25 +229,46 @@ def moe_ffn(x: Tensor, p: Dict[str, Tensor], cfg: ModelConfig,
 
     slot_src = slot_map(S, sk // K)
     slot_sk = slot_map(S * K, sk)
-    buf = MoeDispatch.apply(x, slot_src, e_flat, pos_clip)  # (E, B, C, d)
+    w = (gates.reshape(B, S * K) * (~dropped)).to(x.dtype)
+    e_use, pos_use = e_flat, pos_clip
+    if experts_split:
+        # this rank's experts [e0, e0 + El): their slots, and every other
+        # (token, k) pointed at the empty column C (zeros both ways)
+        e0 = tp.coord * El
+        slot_src, slot_sk = slot_src[:, e0:e0 + El], slot_sk[:, e0:e0 + El]
+        mine = (e_flat >= e0) & (e_flat < e0 + El)
+        e_use = (e_flat - e0).clamp(0, El - 1)
+        pos_use = torch.where(mine, pos_clip, torch.full_like(pos_clip, C))
+        w = tp.enter(w)
+    buf = MoeDispatch.apply(xs if experts_split else x, slot_src, e_use, pos_use)
 
     # every expert over its C slots of every group, one batched product
-    xb = buf.reshape(E, B * C, d)
+    xb = buf.reshape(El, B * C, d)
     if cfg.act == "swiglu":
         h = F.silu(torch.matmul(xb, p["w_gate"])) * torch.matmul(xb, p["w_up"])
     else:
         h = activation(cfg.act)(torch.matmul(xb, p["w_up"]))
-    out_buf = torch.matmul(h, p["w_down"]).view(E, B, C, d)
+    out_buf = torch.matmul(h, p["w_down"]).view(El, B, C, d)
 
     # combine: each (token, k) gathers its slot's output (zero where
     # dropped), weighted by its renormalised gate
-    y_flat = MoeCombine.apply(out_buf, e_flat, pos_clip, slot_sk)  # (B, SK, d)
-    w = (gates.reshape(B, S * K) * (~dropped)).to(x.dtype)
+    y_flat = MoeCombine.apply(out_buf, e_use, pos_use, slot_sk)  # (B, SK, d)
     y = (y_flat * w[..., None]).reshape(B, S, K, d).sum(dim=2)
 
     if cfg.n_shared_experts:
-        sh = F.silu(x @ p["shared_gate"]) * (x @ p["shared_up"])
-        y = y + sh @ p["shared_down"]
+        xh = xs if shared_split else x
+        sh = F.silu(xh @ p["shared_gate"]) * (xh @ p["shared_up"])
+        sh = sh @ p["shared_down"]
+        if experts_split and shared_split:
+            y = tp.leave(y + sh)
+        elif experts_split:
+            y = tp.leave(y) + sh
+        elif shared_split:
+            y = y + tp.leave(sh)
+        else:
+            y = y + sh
+    elif experts_split:
+        y = tp.leave(y)
 
     aux = {
         "aux_loss": aux_loss,

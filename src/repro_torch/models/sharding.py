@@ -18,9 +18,10 @@ first the major). It compares equal to ``tuple(jax.sharding.PartitionSpec(
 operations the sharded train step needs, both from the spec and the rank's
 ``mesh.coord``: ``shard`` (this rank's block of a full tensor) and
 ``gather`` (the full tensor from the blocks). ``StepSharding`` is what the
-step hands the model: it gathers each layer's leaves where the layer uses
-them, under autograd (``core.distributed.AllGather``), and sums over the
-batch axes.
+step hands the model: it gathers each layer's leaves over the batch axes
+(FSDP) where the layer uses them, under autograd, and sums over the batch
+axes; ``ModelSplit`` splits the compute over ``model`` as the specs split
+the leaves.
 
 Specs need only ``mesh.shape`` (a dict of axis sizes); shard and gather
 need a ``core.distributed.Mesh``. A spec that names an axis the mesh
@@ -321,19 +322,24 @@ class NamedSharding:
                 t = dist_mod.all_gather_dim(t, self.mesh, a, dim)
         return t
 
-    def gather_grad(self, t: Tensor, lead: int = 0) -> Tensor:
+    def gather_grad(self, t: Tensor, lead: int = 0, axes=None, summed=()) -> Tensor:
         """``gather`` under autograd for a block ``t`` whose spec is this
         one without its first ``lead`` entries (one layer of a stacked
-        leaf: ``lead`` = 1). The backward hands this rank its block of the
-        full gradient, which every position along the gathered axes
-        computed alike."""
+        leaf: ``lead`` = 1), over ``axes`` only when given (the others'
+        blocks stay; the caller gathers the lead dims, as
+        ``StepSharding.gather_layers`` does). The backward of an axis in
+        ``summed`` sums the gradient over the axis and keeps this rank's
+        block (the positions along it computed different rows); of any
+        other axis it keeps this rank's block of the gradient as it is
+        (every position computed it alike)."""
         self._require_groups()
-        if spec_axes(self.spec[:lead]):
+        if axes is None and spec_axes(self.spec[:lead]):
             raise ValueError(f"spec {self.spec} shards the stacked layer dim: a layer's "
                              "block is not a layer")
         for i, entry in enumerate(self.spec[lead:]):
             for a in reversed(entry_axes(entry)):
-                t = dist_mod.all_gather_grad(t, self.mesh, a, i)
+                if axes is None or a in axes:
+                    t = dist_mod.all_gather_grad(t, self.mesh, a, i, sum_grad=a in summed)
         return t
 
 
@@ -395,22 +401,46 @@ class StepSharding:
     (``models.transformer``'s ``shard=`` argument): the params'
     ``NamedSharding`` tree and ``grad_axes``, the batch axes over which the
     ranks hold different rows (empty when the batch is replicated or its
-    sequence was gathered). ``gather`` builds the full leaves of one layer
-    (or an unstacked block or leaf) from this rank's blocks where the model
-    uses them; ``psum_batch`` sums over ``grad_axes``."""
+    sequence was gathered).
+
+    ``gather`` builds a leaf's ``model`` block from this rank's block where
+    the model uses it: it gathers the batch axes of the leaf's spec (FSDP)
+    under autograd, summing the gradient over those of ``grad_axes``
+    (``core.distributed.AllGatherSum``: a reduce-scatter) and keeping this
+    rank's block over the others. Nothing is gathered over ``model``: the
+    model code computes on each leaf's ``model`` block (``ModelSplit``).
+    ``psum_batch`` sums over ``grad_axes``."""
 
     def __init__(self, mesh, shardings, grad_axes: Tuple[str, ...] = ()):
         self.mesh = mesh
         self.shardings = shardings
         self.grad_axes = tuple(grad_axes)
         self.batch_positions = math.prod(mesh.shape[a] for a in self.grad_axes)
+        self.split = ModelSplit(mesh)
+        self._batch = batch_axes(mesh)
 
     def gather(self, tree, key: str, stacked: bool = True):
         """``tree``, a part of ``params[key]`` (one layer's views of a
         stacked tree when ``stacked``, else the block or leaf itself, or a
-        subset of its keys), with every leaf gathered under autograd."""
+        subset of its keys), with every leaf gathered over its batch axes
+        under autograd."""
         lead = 1 if stacked else 0
-        return tree_map(lambda t, s: s.gather_grad(t, lead), tree, self.shardings[key])
+        return tree_map(lambda t, s: s.gather_grad(t, lead, self._batch, self.grad_axes),
+                        tree, self.shardings[key])
+
+    def gather_layers(self, tree, key: str):
+        """``params[key]``, a stacked tree, with each leaf whose spec splits
+        the stacked layer dim over batch axes (``_apply_fsdp`` may choose
+        it for a 2-D leaf, e.g. ``A_log`` (L, H)) gathered along that dim
+        under autograd, whole: one layer's block is not a layer. Such
+        leaves are small (a scale or bias a layer)."""
+        def one(t, s):
+            for a in reversed(entry_axes(s.spec[0])):
+                if a in self._batch:
+                    t = dist_mod.all_gather_grad(t, self.mesh, a, 0, sum_grad=a in self.grad_axes)
+            return t
+
+        return tree_map(one, tree, self.shardings[key])
 
     def psum_batch(self, t: Tensor) -> Tensor:
         for a in self.grad_axes:
@@ -418,7 +448,58 @@ class StepSharding:
         return t
 
 
+class ModelSplit:
+    """The compute split over ``model`` (Megatron-style, as the specs say),
+    for the model code under the sharded step: the axis's ``size`` and this
+    rank's ``coord``, and the collectives that open and close a split
+    block. The residual stream is replicated over ``model`` (the ranks
+    there hold the same rows). A block takes the replicated tensors it
+    splits its work over through ``enter`` (identity forward, the psum of
+    the partial gradients backward), runs its column-parallel products on
+    this rank's column block, its heads, channels or experts, its
+    row-parallel product on this rank's row block, and closes with
+    ``leave`` (the psum of the partial results forward). A module splits
+    exactly where the spec split its leaves (the block's shape says so);
+    with ``size`` 1 nothing is split and no collective is called."""
+
+    def __init__(self, mesh=None):
+        self.mesh = mesh
+        self.size = _model_size(mesh) if mesh is not None else 1
+        self.coord = mesh.coord(MODEL_AXIS) if self.size > 1 else 0
+
+    def enter(self, t: Tensor) -> Tensor:
+        return dist_mod.copy_to(t, self.mesh, MODEL_AXIS) if self.size > 1 else t
+
+    def leave(self, t: Tensor) -> Tensor:
+        return dist_mod.reduce_from(t, self.mesh, MODEL_AXIS) if self.size > 1 else t
+
+    def psum_both(self, t: Tensor) -> Tensor:
+        """The psum of ``t`` forward and of its gradient backward: a sum that
+        each rank then uses on its own block (a norm over split channels)."""
+        return self.enter(self.leave(t))
+
+    def pmax(self, t: Tensor) -> Tensor:
+        return dist_mod.pmax(t, self.mesh, MODEL_AXIS) if self.size > 1 else t
+
+    def gather_last(self, t: Tensor) -> Tensor:
+        """The ranks' blocks of ``t`` along its last dim, whole (each rank
+        then uses it alike: the backward keeps this rank's block)."""
+        if self.size == 1:
+            return t
+        return dist_mod.all_gather_grad(t, self.mesh, MODEL_AXIS, t.dim() - 1)
+
+
+NO_SPLIT = ModelSplit()
+
+
+def model_split(shard: Optional[StepSharding]) -> ModelSplit:
+    """The ``ModelSplit`` of the sharded step's ``shard``; without one,
+    nothing is split."""
+    return NO_SPLIT if shard is None else shard.split
+
+
 def use(shard: Optional[StepSharding], tree, key: str, stacked: bool = True):
     """``tree`` (a part of ``params[key]``) as the model computes with it:
-    gathered by the sharded step's ``shard``, or as it is without one."""
+    gathered over the batch axes by the sharded step's ``shard``, or as it
+    is without one."""
     return tree if shard is None else shard.gather(tree, key, stacked)

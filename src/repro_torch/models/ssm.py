@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..kernels.ssd.ops import ssd_forward
 from .common import dense_init, gated_rms_norm
+from .sharding import NO_SPLIT, model_split
 
 Tensor = torch.Tensor
 
@@ -58,10 +59,13 @@ def init_ssm_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict[str, 
     }
 
 
-def _project(x: Tensor, p: Dict[str, Tensor], cfg: ModelConfig):
-    """Returns (z, xbc_preconv, dt_raw) with xbc = concat(x, B, C)."""
+def _project(x: Tensor, p: Dict[str, Tensor], cfg: ModelConfig, split=NO_SPLIT):
+    """Returns (z, xbc_preconv, dt_raw) with xbc = concat(x, B, C). Under a
+    split over heads, x enters it and so do the replicated ``w_B`` and
+    ``w_C`` (every head reads B and C)."""
+    x = split.enter(x)
     z = x @ p["w_z"]
-    xbc = torch.cat([x @ p["w_x"], x @ p["w_B"], x @ p["w_C"]], dim=-1)
+    xbc = torch.cat([x @ p["w_x"], x @ split.enter(p["w_B"]), x @ split.enter(p["w_C"])], dim=-1)
     dt_raw = x @ p["w_dt"]
     return z, xbc, dt_raw
 
@@ -128,29 +132,63 @@ def ssm_block_train(
     x: Tensor,  # (B, L, d_model)
     p: Dict[str, Tensor],
     cfg: ModelConfig,
+    shard=None,
 ) -> Tuple[Tensor, Tensor, Tensor]:
-    """Returns (out (B,L,d), final_state (B,H,P,N), final_conv_window)."""
+    """Returns (out (B,L,d), final_state (B,H,P,N), final_conv_window).
+
+    Under the sharded step (``shard``) heads split over ``model`` (``w_z``,
+    ``w_x``, ``w_dt`` by columns, ``A_log``, ``D``, ``dt_bias`` and
+    ``norm`` by heads, ``out_proj`` by rows) run this rank's heads: the
+    replicated ``w_B``, ``w_C``, ``conv_w`` and ``conv_b`` enter the split
+    block (every head reads B and C, and each rank convolves its own x
+    channels, so their gradients are this rank's parts), the gated norm
+    takes its mean of squares over every rank's channels, and one psum
+    closes the block. The final state and conv window are this rank's
+    heads' and channels'."""
     B, L, _ = x.shape
     h, n, g, di = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_groups, cfg.d_inner
     P = cfg.ssm_head_dim
-
-    z, xbc, dt_raw = _project(x, p, cfg)
-    xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
+    hl = p["A_log"].shape[0]
+    split = model_split(shard) if hl < h else NO_SPLIT
+    z, xbc, dt_raw = _project(x, p, cfg, split)
+    conv_w, conv_b = split.enter(p["conv_w"]), split.enter(p["conv_b"])
+    if hl < h:  # this rank's x channels of the conv, and all of B's and C's
+        c0, dl = split.coord * hl * P, hl * P
+        conv_w = torch.cat([conv_w[:, c0:c0 + dl], conv_w[:, di:]], dim=-1)
+        conv_b = torch.cat([conv_b[c0:c0 + dl], conv_b[di:]], dim=-1)
+        di = dl
+    xbc = _causal_conv(xbc, conv_w, conv_b)
     # views of xbc in the model's dtype, B and C per group: the chunk kernel
     # reads them in place and widens them to fp32 itself
-    xs = xbc[..., :di].reshape(B, L, h, P)
+    xs = xbc[..., :di].reshape(B, L, hl, P)
     Bm = xbc[..., di : di + g * n].reshape(B, L, g, n)
     Cm = xbc[..., di + g * n :].reshape(B, L, g, n)
+    Bm, Cm = _local_groups(Bm, h, hl, split.coord), _local_groups(Cm, h, hl, split.coord)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
 
     Y, state = ssd_forward(xs, dt, A, Bm, Cm, cfg.ssm_chunk)
     Y = Y + xs * p["D"][None, None, :, None]  # fp32: D is fp32
     y = Y.reshape(B, L, di).to(x.dtype)
-    y = gated_rms_norm(y, z, p["norm"], cfg.norm_eps)
-    out = y @ p["out_proj"]
+    y = gated_rms_norm(y, z, p["norm"], cfg.norm_eps, split)
+    out = split.leave(y @ p["out_proj"])
     conv_window = xbc_raw_tail(x, p, cfg)  # last K-1 pre-activation inputs
     return out, state, conv_window
+
+
+def _local_groups(m: Tensor, h: int, hl: int, coord: int) -> Tensor:
+    """B or C (B, L, G, N) for this rank's heads [coord hl, (coord + 1) hl):
+    the groups they read, one group per head where they straddle groups."""
+    if hl == h:
+        return m
+    G = m.shape[2]
+    hg = h // G
+    h0 = coord * hl
+    g0, g1 = h0 // hg, (h0 + hl - 1) // hg + 1
+    if hl == (g1 - g0) * hg or g1 - g0 == 1:
+        return m[:, :, g0:g1]
+    per_head = torch.repeat_interleave(m[:, :, g0:g1], hg, dim=2)
+    return per_head.narrow(2, h0 - g0 * hg, hl)
 
 
 def xbc_raw_tail(x: Tensor, p: Dict[str, Tensor], cfg: ModelConfig) -> Tensor:

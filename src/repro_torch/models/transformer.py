@@ -41,9 +41,13 @@ backward pass, so K3 and K4 run twice per layer and step.
 The sharded train step (``train.loop.make_sharded_train_step``) hands
 the training entry points this rank's blocks of the params and a
 ``sharding.StepSharding`` (``shard=``): each body gathers its layer's
-leaves as it starts, inside the remat checkpoint, so autograd keeps the
-blocks and the recompute gathers again; ``embed`` and ``lm_head`` are
-gathered where they are read.
+leaves over the batch axes (FSDP) as it starts, inside the remat
+checkpoint, so autograd keeps the blocks and the recompute gathers again;
+``embed`` and ``lm_head`` are gathered where they are read. The compute is
+split over ``model`` as the specs split the leaves (``sharding.ModelSplit``):
+attention by heads, the MLP by its hidden dim, the MoE by experts, Mamba2
+by heads, the embedding by columns (the rows gathered along d) and the
+loss by vocabulary (``_nll``), each block closing with one psum.
 
 Mixed dtypes follow JAX's type promotion, made explicit (torch does not
 promote inside a matmul): fp32 audio frames plus a bf16 model run the
@@ -65,7 +69,7 @@ from . import attention as attn_mod
 from . import mlp as mlp_mod
 from . import ssm as ssm_mod
 from .common import dense_init, dtype_of, embed_init, rms_norm
-from .sharding import use
+from .sharding import MODEL_AXIS, model_split, spec_axes, use
 
 Tensor = torch.Tensor
 
@@ -186,12 +190,15 @@ def _layer_params_at(params, i: int, key: str = "layers") -> Dict[str, Any]:
     return _tree_map(lambda a: a[i], params[key])
 
 
-def _layers_of(params, n: int, key: str = "layers") -> List[Dict[str, Any]]:
+def _layers_of(params, n: int, key: str = "layers", shard=None) -> List[Dict[str, Any]]:
     """The ``n`` layers' params of the stacked tree ``params[key]``: views
     from one ``unbind`` of each leaf, whose backward stacks the layers'
     gradients at once (indexing layer by layer would add one full-size
-    gradient per layer)."""
-    parts = _tree_map(lambda a: a.unbind(0), params[key])
+    gradient per layer). Under the sharded step the leaves whose layer dim
+    is split over the batch axes are gathered first
+    (``StepSharding.gather_layers``)."""
+    tree = params[key] if shard is None else shard.gather_layers(params[key], key)
+    parts = _tree_map(lambda a: a.unbind(0), tree)
     return [_tree_map(lambda t, i=i: t[i], parts) for i in range(n)]
 
 
@@ -224,7 +231,7 @@ def _ffn(cfg: ModelConfig, lp, x: Tensor, shard=None) -> Tuple[Tensor, Optional[
     if cfg.arch_type == "moe":
         y, aux = mlp_mod.moe_ffn(x, lp["moe"], cfg, shard=shard)
         return y, aux["aux_loss"]
-    return mlp_mod.mlp(x, lp["mlp"], cfg), None
+    return mlp_mod.mlp(x, lp["mlp"], cfg, shard), None
 
 
 def _dense_block(cfg: ModelConfig, lp, h: Tensor, positions: Tensor, is_local: bool,
@@ -233,7 +240,7 @@ def _dense_block(cfg: ModelConfig, lp, h: Tensor, positions: Tensor, is_local: b
     a MoE block appends its aux_loss to ``aux_losses``."""
     att, kv = attn_mod.attention_train(
         rms_norm(h, lp["ln1"], cfg.norm_eps), lp["attn"], cfg, positions, is_local,
-        return_kv=True,
+        return_kv=True, shard=shard,
     )
     h = h + att
     y, aux_loss = _ffn(cfg, lp, rms_norm(h, lp["ln2"], cfg.norm_eps), shard)
@@ -258,19 +265,20 @@ def _ssm_block(cfg: ModelConfig, lp, h: Tensor, shard=None):
     """(h + Mamba2(h), (state, conv_window))."""
     lp = use(shard, lp, "layers")
     out, state, conv = ssm_mod.ssm_block_train(
-        rms_norm(h, lp["ln1"], cfg.norm_eps), lp["ssm"], cfg
+        rms_norm(h, lp["ln1"], cfg.norm_eps), lp["ssm"], cfg, shard
     )
     return h + out, (state, conv)
 
 
-def _shared_block(cfg: ModelConfig, sp, h: Tensor, positions: Tensor):
+def _shared_block(cfg: ModelConfig, sp, h: Tensor, positions: Tensor, shard=None):
     """(h after the shared attention + SwiGLU block, its post-RoPE (k, v))."""
     att, kv = attn_mod.attention_train(
         rms_norm(h, sp["ln1"], cfg.norm_eps), sp["attn"], cfg, positions, False,
-        return_kv=True,
+        return_kv=True, shard=shard,
     )
     h = h + att
-    h = h + mlp_mod.mlp(rms_norm(h, sp["ln2"], cfg.norm_eps), sp["mlp"], _shared_mlp_cfg(cfg))
+    h = h + mlp_mod.mlp(rms_norm(h, sp["ln2"], cfg.norm_eps), sp["mlp"], _shared_mlp_cfg(cfg),
+                        shard)
     return h, kv
 
 
@@ -285,7 +293,7 @@ def _scan_layers(cfg: ModelConfig, params, h: Tensor, positions: Tensor, shard=N
     starts: under remat autograd keeps the blocks, and the recompute
     gathers again."""
     aux_losses: List[Tensor] = []
-    layers = _layers_of(params, cfg.n_layers)
+    layers = _layers_of(params, cfg.n_layers, shard=shard)
     if cfg.arch_type == "hybrid":
         every = cfg.hybrid_attn_every
 
@@ -295,7 +303,7 @@ def _scan_layers(cfg: ModelConfig, params, h: Tensor, positions: Tensor, shard=N
                 hh, c = _ssm_block(cfg, lp, hh, shard)
                 sc.append(c)
             sp = use(shard, params["shared"], "shared", stacked=False)
-            hh, kv = _shared_block(cfg, sp, hh, positions)
+            hh, kv = _shared_block(cfg, sp, hh, positions, shard)
             return hh, sc, kv
 
         ssm_out, shared_kv = [], []
@@ -333,22 +341,37 @@ def encode_audio(cfg: ModelConfig, params, frames: Tensor, shard=None) -> Tensor
         lp = _promoted(use(shard, lp, "enc_layers"), hh.dtype)
         hh = hh + attn_mod.attention_train(
             rms_norm(hh, lp["ln1"], cfg.norm_eps), lp["attn"], cfg, positions, False,
-            causal=False,
+            causal=False, shard=shard,
         )
-        return hh + mlp_mod.mlp(rms_norm(hh, lp["ln2"], cfg.norm_eps), lp["mlp"], cfg)
+        return hh + mlp_mod.mlp(rms_norm(hh, lp["ln2"], cfg.norm_eps), lp["mlp"], cfg, shard)
 
-    for lp in _layers_of(params, cfg.n_enc_layers, "enc_layers"):
+    for lp in _layers_of(params, cfg.n_enc_layers, "enc_layers", shard):
         h = _maybe_remat(cfg, layer, h, lp)
     return rms_norm(h, use(shard, params["enc_norm"], "enc_norm", stacked=False), cfg.norm_eps)
 
 
 def _embed(cfg: ModelConfig, params, tokens: Tensor, shard=None) -> Tensor:
-    h = use(shard, params["embed"], "embed", stacked=False)[tokens.long()]
+    """The token embeddings (plus an encoder-decoder's decoder positions).
+    Under the sharded step an ``embed`` split over ``model`` by columns
+    looks up this rank's columns, and the rows are gathered along d."""
+    embed = use(shard, params["embed"], "embed", stacked=False)
+    h = embed[tokens.long()]
+    if embed.shape[-1] != cfg.d_model:
+        h = model_split(shard).gather_last(h)
     if cfg.is_encoder_decoder:  # learned decoder positions; past the table they wrap
         dec_pos = use(shard, params["dec_pos"], "dec_pos", stacked=False)
         rows = dec_pos.shape[0]
         h = h + dec_pos[torch.arange(tokens.shape[1], device=h.device) % rows][None]
     return h
+
+
+def _cross_heads(cfg: ModelConfig, shard) -> Optional[int]:
+    """The q heads a rank runs in cross-attention under the sharded step
+    (all of them unless the spec splits ``wq`` over ``model``)."""
+    if shard is None:
+        return None
+    spec = shard.shardings["cross_layers"]["attn"]["wq"].spec
+    return cfg.n_heads // shard.split.size if MODEL_AXIS in spec_axes(spec) else cfg.n_heads
 
 
 def _forward(cfg: ModelConfig, params, tokens: Tensor, side: Optional[Tensor],
@@ -361,26 +384,29 @@ def _forward(cfg: ModelConfig, params, tokens: Tensor, side: Optional[Tensor],
     if side is None:
         raise ValueError(f"{cfg.name} is an encoder-decoder: it needs its encoder frames (side=)")
     enc = encode_audio(cfg, params, side, shard)
-    cross_layers = _layers_of(params, cfg.n_layers, "cross_layers")
+    cross_layers = _layers_of(params, cfg.n_layers, "cross_layers", shard)
     # the cross k/v are made outside the decoder bodies, from each layer's
     # wk and wv (gathered here alone under the sharded step)
+    cross_keys = ("wk", "wv")
+    hl = _cross_heads(cfg, shard)
     cross = [attn_mod.cross_kv(
-        enc, use(shard, {"attn": {k: cp["attn"][k] for k in ("wk", "wv")}},
-                 "cross_layers")["attn"], cfg) for cp in cross_layers]
+        enc, use(shard, {"attn": {k: cp["attn"][k] for k in cross_keys}},
+                 "cross_layers")["attn"], cfg, shard, hl) for cp in cross_layers]
     del enc
 
     def layer(hh, lp, cp, ck, cv):
         # wk and wv were read for the cross k/v: gather the rest alone
         cp = {"ln": cp["ln"], "attn": {k: w for k, w in cp["attn"].items()
-                                       if k not in ("wk", "wv")}}
+                                       if k not in cross_keys}}
         lp, cp = use(shard, lp, "layers"), use(shard, cp, "cross_layers")
-        hh, kv = _dense_block(cfg, lp, hh, positions, False)
+        hh, kv = _dense_block(cfg, lp, hh, positions, False, shard=shard)
         hh = hh + attn_mod.cross_attend(rms_norm(hh, cp["ln"], cfg.norm_eps), ck, cv,
-                                        cp["attn"], cfg)
+                                        cp["attn"], cfg, shard)
         return hh, kv
 
     collected = []
-    for lp, cp, (ck, cv) in zip(_layers_of(params, cfg.n_layers), cross_layers, cross):
+    for lp, cp, (ck, cv) in zip(_layers_of(params, cfg.n_layers, shard=shard), cross_layers,
+                                cross):
         h, kv = _maybe_remat(cfg, layer, h, lp, cp, ck, cv)
         collected.append(kv)
     return h, collected, torch.zeros((), dtype=torch.float32, device=h.device), cross
@@ -418,11 +444,41 @@ def forward_train(
 
     ``shard`` (a ``sharding.StepSharding``, from
     ``train.loop.make_sharded_train_step``) says that ``params`` hold this
-    rank's blocks: every leaf is gathered where it is used (a layer's
-    inside its remat body, ``embed`` and ``lm_head`` where they are read),
-    and the MoE's aux loss is this rank's term of the batch's."""
+    rank's blocks: each leaf is gathered over the batch axes where it is
+    used (a layer's inside its remat body), the compute is split over
+    ``model`` as the specs split the leaves, and the MoE's aux loss is this
+    rank's term of the batch's. The logits are then this rank's columns of
+    the vocabulary when ``lm_head`` is split."""
     h, aux = _trunk(cfg, params, tokens, side, shard)
-    return h @ use(shard, params["lm_head"], "lm_head", stacked=False), {"aux_loss": aux}
+    lm_head = use(shard, params["lm_head"], "lm_head", stacked=False)
+    if lm_head.shape[-1] != cfg.vocab_padded:
+        h = model_split(shard).enter(h)
+    return h @ lm_head, {"aux_loss": aux}
+
+
+def _nll(cfg: ModelConfig, logits: Tensor, labels: Tensor, shard=None) -> Tensor:
+    """The next-token negative log-likelihood in fp32 of each position, from
+    the logits (labels clipped into the padded vocabulary). Logits that are
+    this rank's columns of a vocabulary split over ``model`` give the
+    vocab-parallel cross entropy: the max over ``model``, the psum of the
+    exp-sums and the gold logit from the rank whose columns hold the label,
+    so the logsumexp still runs over every padded column and the full
+    logits are never built."""
+    logits = logits.float()
+    labels = labels.long().clamp(0, cfg.vocab_padded - 1)
+    vl = logits.shape[-1]
+    if vl == cfg.vocab_padded:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        return lse - gold
+    tp = model_split(shard)
+    m = tp.pmax(logits.detach().amax(dim=-1))
+    lse = m + torch.log(tp.leave(torch.exp(logits - m[..., None]).sum(dim=-1)))
+    local = labels - tp.coord * vl
+    mine = (local >= 0) & (local < vl)
+    gold = torch.gather(logits, -1, local.clamp(0, vl - 1)[..., None])[..., 0]
+    gold = tp.leave(torch.where(mine, gold, torch.zeros_like(gold)))
+    return lse - gold
 
 
 def loss_fn(cfg: ModelConfig, params, batch: Dict[str, Tensor], shard=None
@@ -434,14 +490,12 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, Tensor], shard=None
     encoder-decoder's ``frames``. Returns ``(total, {"ce", "aux_loss"})``.
 
     Under the sharded step (``shard``) ``batch`` is this rank's rows, the
-    mask's sum is taken over the batch axes, and the returned terms are
-    this rank's parts: summed over the batch axes they are the batch's."""
+    mask's sum is taken over the batch axes, a vocabulary split over
+    ``model`` takes the vocab-parallel cross entropy (``_nll``), and the
+    returned terms are this rank's parts: summed over the batch axes they
+    are the batch's."""
     logits, aux = forward_train(cfg, params, batch["tokens"], batch.get("frames"), shard)
-    logits = logits.float()
-    labels = batch["labels"].long().clamp(0, cfg.vocab_padded - 1)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    nll = lse - gold
+    nll = _nll(cfg, logits, batch["labels"], shard)
     mask = batch.get("mask")
     mask = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)
     count = torch.sum(mask)

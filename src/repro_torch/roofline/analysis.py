@@ -11,11 +11,12 @@ and keeps, for the one device whose ops it sees:
     formulas (elementwise work is not counted, as the JAX package's dot
     FLOPs do not count it);
   * bytes: each op's tensor inputs read once and its outputs written once
-    (an in-place op's tensor both), where a view, an alias and an
-    allocation move nothing. This is the unfused counterpart of XLA's
-    "bytes accessed": a fused XLA loop reads and writes less. A copy
-    between the host and the device is left out: it crosses the host
-    link, not device memory, and a run on the CPU has none;
+    (an in-place op's tensor both, an ``out=`` tensor only written), where
+    a view, an alias and an allocation move nothing. This is the unfused
+    counterpart of XLA's "bytes accessed": a fused XLA loop reads and
+    writes less. A copy between the host and the device is left out: it
+    crosses the host link, not device memory, and a run on the CPU has
+    none;
   * the hand-written kernels, each counted once at its dispatcher
     (``launch``) by its own formula, and none of the ops that run
     underneath it (the plain version on the CPU, the kernel on the card,
@@ -23,7 +24,8 @@ and keeps, for the one device whose ops it sees:
   * collective calls and bytes by kind, from ``core.distributed``'s
     ``COLLECTIVES`` and ``COLLECTIVE_BYTES`` (the larger of the tensor sent
     and the tensor received: JAX's "largest shape on the line"); the c10d
-    ops themselves add no bytes;
+    ops themselves add no bytes, nor do the ops a backend runs to complete
+    one (``IN_COLLECTIVE``);
   * the peak of live bytes: the storages created inside the context, each
     freed when its last reference dies.
 
@@ -171,6 +173,7 @@ class CostCounter(TorchDispatchMode):
         self._live: Dict[int, int] = {}
         self._live_bytes = 0
         self._coll0 = None
+        self._dist = None  # core.distributed, read while open
         # the output layouts of fresh ops on meta tensors, by op and input
         # signature: many of torch's meta kernels are Python references
         # (0.2-0.7 ms an op), and a step repeats its signatures layer after
@@ -183,6 +186,7 @@ class CostCounter(TorchDispatchMode):
             raise RuntimeError("a cost counter is already active")
         from ..core import distributed as dist_mod
 
+        self._dist = dist_mod
         self._coll0 = (collections.Counter(dist_mod.COLLECTIVES),
                        collections.Counter(dist_mod.COLLECTIVE_BYTES))
         out = super().__enter__()
@@ -228,7 +232,7 @@ class CostCounter(TorchDispatchMode):
         outs = out if isinstance(out, (tuple, list)) else (out,)
         if fresh:
             self._track(outs, args)
-        if self._paused:
+        if self._paused or self._dist.IN_COLLECTIVE:
             return out
         c = self.costs
         c.ops += 1
@@ -238,7 +242,8 @@ class CostCounter(TorchDispatchMode):
         if not alias and func not in _NO_WRITE and not _crosses(func, args, outs):
             seen = set()
             n = 0
-            for t in _tensors(list(args) + list(kwargs.values())):
+            # an ``out=`` tensor is written, not read
+            for t in _tensors(list(args) + [v for k, v in kwargs.items() if k != "out"]):
                 if id(t) not in seen:
                     seen.add(id(t))
                     n += tensor_bytes(t)

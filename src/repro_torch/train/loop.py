@@ -12,6 +12,7 @@ arch in ``configs/`` trains there.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -70,7 +71,7 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, microbatches: int = 1) -> Call
                 loss_sum = loss_sum + l
                 aux_sum = aux_sum + met["aux_loss"]
             inv = 1.0 / microbatches
-            grads = [a * inv for a in acc]
+            grads = [a.mul_(inv) for a in acc]  # in place: one fp32 copy of the grads
             loss = loss_sum * inv
             metrics = {"ce": loss, "aux_loss": aux_sum * inv}
         params, opt_state, opt_metrics = opt.update(
@@ -83,52 +84,107 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, microbatches: int = 1) -> Call
     return train_step
 
 
-def make_sharded_train_step(cfg: ModelConfig, opt: AdamW, mesh, global_batch: int,
-                            seq_len: int):
-    """The train step over a ``core.distributed.Mesh``, one process per
-    position (the JAX package's ``make_sharded_train_step``). Returns
-    ``(step, pshard, opt_shard, batch_shard)``: the step, and the
-    ``models.sharding.NamedSharding`` trees of the params, the AdamW state
-    and the batch, whose ``shard`` gives this rank its blocks.
+def _spec_axes_of(shardings) -> list:
+    from ..models import sharding
 
-    The specs are the JAX package's: ``param_shardings`` in its default
-    "serve" mode, so params and both moments are split over ``model`` and
-    replicated over ``data`` and ``pod``; the step count is replicated;
-    the batch follows ``train_batch_pspec``, an encoder-decoder's
-    ``frames`` its batch entry.
+    return [sharding.spec_axes(s.spec) for s in sharding.tree_leaves(shardings)]
+
+
+def _check_related(cfg: ModelConfig, name: str, specs, pshard, batch_ax) -> None:
+    """Raise unless each leaf's spec in ``specs`` is its param spec with
+    some batch axes left out at the minor end of their entries (where
+    ``_apply_fsdp`` put them): the only reshardings the step makes."""
+    from ..models import sharding
+
+    for s, ps in zip(sharding.tree_leaves(specs), sharding.tree_leaves(pshard)):
+        for i in range(max(len(s.spec), len(ps.spec))):
+            axes = sharding.entry_axes(s.spec[i]) if i < len(s.spec) else ()
+            have = sharding.entry_axes(ps.spec[i]) if i < len(ps.spec) else ()
+            if axes != have[:len(axes)] or any(a not in batch_ax for a in have[len(axes):]):
+                raise ValueError(f"{name} spec {s.spec} of {cfg.name} is not its param "
+                                 f"spec {ps.spec} less some batch axes")
+
+
+def make_sharded_train_step(cfg: ModelConfig, opt: AdamW, mesh, global_batch: int,
+                            seq_len: int, *, mode: str = "serve", microbatches: int = 1,
+                            inner_param_specs=None, grad_specs=None):
+    """The train step over a ``core.distributed.Mesh``, one process per
+    position (the JAX package's ``make_sharded_train_step`` with
+    ``make_train_step``'s options). Returns ``(step, pshard, opt_shard,
+    batch_shard)``: the step, and the ``models.sharding.NamedSharding``
+    trees of the params, the AdamW state and the batch, whose ``shard``
+    gives this rank its blocks.
+
+    The specs are the JAX package's: ``param_shardings(..., mode)`` for the
+    params and both moments ("serve": split over ``model``, replicated over
+    ``data`` and ``pod``; "train": FSDP over those batch axes too); the step
+    count replicated; the batch by ``train_batch_pspec``, an
+    encoder-decoder's ``frames`` by its batch entry.
 
     ``step(params, opt_state, batch)`` takes this rank's blocks (the batch
     of ``global_batch`` x ``seq_len`` tokens split as ``batch_shard`` says)
     and returns ``(params, opt_state, metrics)``, the blocks updated in
     place (``AdamW.update``) where JAX donates them. Each rank computes on
-    its rows with each layer's leaves gathered where the layer runs
-    (``models.sharding.StepSharding``), the masked mean over the whole
-    batch (the mask's sum taken over the batch axes) and the MoE's aux
-    loss as its term of the batch's. Each leaf's gradient is then summed
-    over the batch axes; the ranks along ``model`` hold the same rows, so
-    nothing is summed over ``model``: each keeps its block. The gradient
-    norm sums each leaf's squares over the axes that split that leaf. The
-    metrics ``ce``, ``aux_loss``, ``grad_norm``, ``lr`` and ``loss`` are
-    the whole batch's and equal on every rank.
+    its rows: each layer's leaves are gathered over their batch axes where
+    the layer runs, the gradient reduce-scattered back by the gather's
+    backward (``models.sharding.StepSharding``), and the compute is split
+    over ``model`` as the specs split the leaves (``sharding.ModelSplit``:
+    column- and row-parallel products, split heads, channels and experts,
+    the vocab-parallel cross entropy). The masked mean is over the whole
+    batch (the mask's sum taken over the batch axes), the MoE's aux loss
+    each rank's term of the batch's. A leaf's gradient that no gather
+    summed (a 1-D leaf, or one ``_apply_fsdp`` could not split) is summed
+    over the batch axes at the end of the step; the ranks along ``model``
+    hold the same rows, so nothing more is summed over ``model``. The
+    gradient norm sums each leaf's squares over the axes that split that
+    leaf. The metrics ``ce``, ``aux_loss``, ``grad_norm``, ``lr`` and
+    ``loss`` are the whole batch's and equal on every rank.
+
+    ``microbatches`` > 1 accumulates the gradients of the batch's row
+    blocks in fp32 and averages them, the loss and the aux loss, as
+    ``make_train_step`` does: microbatch i is the global rows [i B/m,
+    (i+1) B/m), which set its mask count and the MoE's f_e, so the step
+    re-lays the batch once (a gather over the batch axes) and each rank
+    takes its B / (m D) rows of each. ``inner_param_specs`` (ZeRO-2)
+    gathers the params to those specs once a step for every forward and
+    backward, and ``grad_specs`` holds the accumulated gradients at theirs:
+    each microbatch's gradients are reduce-scattered to them. Both must be
+    the param specs less some batch axes, as JAX's dry run passes them
+    (serve specs inside, train specs for the gradients).
 
     A batch too small for the batch axes is split along the sequence
     (``P(None, dp)``): the step first gathers tokens, labels and mask along
     the sequence, so every rank computes the whole batch (the ranks repeat
-    that compute) and nothing is summed over the batch axes; this gives
-    the JAX package's numbers.
+    that compute, and split it into microbatches as one device does) and
+    nothing is summed over the batch axes; this gives the JAX package's
+    numbers.
 
-    The ranks along ``model`` hold shards but repeat the same compute: the
-    compute split over ``model`` (column- and row-parallel products,
-    vocab-parallel cross entropy, expert parallelism) is not made here. On
-    one position (the local mesh, or a one-rank world) every gather is a
-    copy and every sum has one term: the step equals ``make_train_step``
-    bit for bit."""
+    With the defaults on one position (the local mesh, or a one-rank
+    world) nothing is split, every gather is a copy and every sum has one
+    term: the step equals ``make_train_step`` bit for bit, and so do the
+    train-mode and ZeRO-2 steps ``make_train_step(microbatches=m)``."""
+    return _sharded_train_step(cfg, opt, mesh, global_batch, seq_len, mode, microbatches,
+                               inner_param_specs, grad_specs)
+
+
+def _sharded_train_step(cfg: ModelConfig, opt: AdamW, mesh, global_batch: int, seq_len: int,
+                        mode: str, microbatches: int, inner_param_specs, grad_specs,
+                        run_microbatches: Optional[int] = None):
+    """``make_sharded_train_step``. With ``run_microbatches`` = k the step
+    runs only the first k of its microbatches, and its update takes k of
+    the m terms: a wrong update, built only for the dry run's scaled count
+    (``launch.dryrun.trace_step``), which runs every op of the step but the
+    other microbatches'."""
     from ..models import sharding
     from ..models.transformer import param_shapes
 
     if global_batch < 1 or seq_len < 1:
         raise ValueError(f"global_batch {global_batch} and seq_len {seq_len} must be positive")
-    pshard = sharding.param_shardings(cfg, param_shapes(cfg), mesh)
+    if microbatches < 1 or global_batch % microbatches:
+        raise ValueError(f"global_batch {global_batch} does not split into {microbatches} "
+                         "microbatches")
+    shapes_tree = param_shapes(cfg)
+    pshard = sharding.param_shardings(cfg, shapes_tree, mesh, mode)
     opt_shard = AdamWState(step=sharding.NamedSharding(mesh, sharding.P()), mu=pshard, nu=pshard)
     bspec = sharding.train_batch_pspec(mesh, global_batch)
     batch_shard: Dict[str, Any] = {k: sharding.NamedSharding(mesh, bspec)
@@ -140,12 +196,54 @@ def make_sharded_train_step(cfg: ModelConfig, opt: AdamW, mesh, global_batch: in
     local_shapes = {k: batch_shard[k].shard_shape(shapes[k]) for k in batch_shard}
     seq_axes = sharding.entry_axes(bspec[1])  # the sequence-split case
     grad_axes = () if seq_axes else sharding.entry_axes(bspec[0])
-    shard = sharding.StepSharding(mesh, pshard, grad_axes)
-    leaf_shardings = sharding.tree_leaves(pshard)
+    positions = math.prod(mesh.shape[a] for a in grad_axes)
+    if (global_batch // microbatches) % positions:
+        raise ValueError(f"a microbatch of {global_batch // microbatches} rows does not split "
+                         f"over the batch axes {grad_axes} ({positions} positions)")
+    batch_ax = sharding.batch_axes(mesh)
+
+    def bind(specs, name):
+        bound = sharding.tree_map(
+            lambda leaf, s: sharding.NamedSharding(mesh, s), shapes_tree, specs)
+        for leaf, s in zip(sharding.tree_leaves(shapes_tree), sharding.tree_leaves(bound)):
+            s.check(leaf.shape)
+        _check_related(cfg, name, bound, pshard, batch_ax)
+        return bound
+
+    ishard = pshard if inner_param_specs is None else bind(inner_param_specs, "inner_param_specs")
+    gshard = ishard if grad_specs is None else bind(grad_specs, "grad_specs")
+    p_axes, i_axes, g_axes = (_spec_axes_of(t) for t in (pshard, ishard, gshard))
+    for i_a, g_a in zip(i_axes, g_axes):
+        if any(a not in g_a for a in i_a):
+            raise ValueError("grad_specs must hold every batch axis of inner_param_specs")
+    zero2 = i_axes != p_axes
+    shard = sharding.StepSharding(mesh, ishard, grad_axes)
+    leaf_p, leaf_i, leaf_g = (sharding.tree_leaves(t) for t in (pshard, ishard, gshard))
+    full_shapes = [tuple(t.shape) for t in sharding.tree_leaves(shapes_tree)]
     # per leaf: the axes that split it, over which its sum of squares is
-    # summed for the norm (every gradient is summed over grad_axes)
-    norm_axes = [tuple(a for a in mesh.shape if a in sharding.spec_axes(s.spec))
-                 for s in leaf_shardings]
+    # summed for the norm; and the batch axes its gradient is still to be
+    # summed over once no gather, scatter or reshard has summed it
+    norm_axes = [tuple(a for a in mesh.shape if a in ax) for ax in p_axes]
+    rest_axes = [tuple(a for a in grad_axes if a not in g_a and a not in p_a)
+                 for g_a, p_a in zip(g_axes, p_axes)]
+    batch_block = batch_shard["tokens"].block_index(0)
+
+    def reshard(t, frm, to, summed):
+        """``t`` at spec ``frm`` to spec ``to`` (they differ by batch axes):
+        a gather over each axis ``to`` lacks (minor first), then over each
+        axis ``to`` adds its block (major first), reduce-scattered for the
+        axes in ``summed`` (a partial gradient)."""
+        have, want = sharding.spec_axes(frm.spec), sharding.spec_axes(to.spec)
+        for i in range(len(frm.spec)):
+            for a in reversed(sharding.entry_axes(frm.spec[i])):
+                if a not in want:
+                    t = dist_mod.all_gather_dim(t, mesh, a, i)
+        for i in range(len(to.spec)):
+            for a in sharding.entry_axes(to.spec[i]):
+                if a not in have:
+                    t = (dist_mod.psum_scatter(t, mesh, a, i) if a in summed
+                         else dist_mod.block_of(t, mesh, a, i).contiguous())
+        return t
 
     def psum_buckets(tensors, axes_of):
         """Each tensor summed over its axes: one psum per axis for each
@@ -177,6 +275,27 @@ def make_sharded_train_step(cfg: ModelConfig, opt: AdamW, mesh, global_batch: in
             out[k] = v
         return out
 
+    def microbatch_rows(batch):
+        """This rank's rows of each microbatch: JAX's global rows [i B/m,
+        (i+1) B/m) split over the batch axes, from the batch gathered whole
+        once (the sequence-split case holds it whole already)."""
+        rows = global_batch // microbatches // positions
+        full = {}
+        for k, v in batch.items():
+            for a in reversed(grad_axes):
+                v = dist_mod.all_gather_dim(v, mesh, a, 0)
+            full[k] = v
+        return [{k: v[i * rows * positions + batch_block * rows:][:rows] for k, v in full.items()}
+                for i in range(microbatches)]
+
+    def to_grad_specs(grads):
+        """The gradients (at the inner specs) at the grad specs, leaf by leaf:
+        the list's entries are replaced as they are resharded."""
+        if g_axes != i_axes:
+            for j, (si, sg) in enumerate(zip(leaf_i, leaf_g)):
+                grads[j] = reshard(grads[j], si, sg, grad_axes)
+        return grads
+
     def step(params, opt_state: AdamWState, batch: Dict[str, Tensor]):
         for k, v in batch.items():
             if k not in local_shapes:
@@ -186,12 +305,43 @@ def make_sharded_train_step(cfg: ModelConfig, opt: AdamW, mesh, global_batch: in
                                  f"of the {shapes[k]} batch is {local_shapes[k]}")
         if seq_axes:
             batch = gather_sequence(batch)
-        total, metrics, grads = _grads(cfg, params, batch, shard)
-        grads = psum_buckets(grads, [grad_axes] * len(grads))
+        live = params
+        if zero2:  # ZeRO-2: the params at the inner specs, once a step
+            with torch.no_grad():
+                live = tree_unflatten(params, [
+                    reshard(p, sp, si, ()) for p, sp, si in
+                    zip(tree_leaves(params), leaf_p, leaf_i)])
+        if microbatches == 1:
+            total, metrics, grads = _grads(cfg, live, batch, shard)
+            grads = to_grad_specs(grads)
+            terms = torch.stack([metrics["ce"], metrics["aux_loss"], total])
+        else:
+            acc = [torch.zeros(s.shard_shape(shape), dtype=torch.float32, device=p.device)
+                   for s, shape, p in zip(leaf_g, full_shapes, tree_leaves(params))]
+            loss_sum = aux_sum = 0.0
+            for mb in microbatch_rows(batch)[:run_microbatches]:
+                l, met, g = _grads(cfg, live, mb, shard)
+                for j, (a, si, sg) in enumerate(zip(acc, leaf_i, leaf_g)):
+                    # leaf by leaf, each microbatch gradient freed once added
+                    gi, g[j] = g[j], None
+                    if g_axes != i_axes:
+                        gi = reshard(gi, si, sg, grad_axes)
+                    a.add_(gi.float())
+                del g, gi
+                loss_sum = loss_sum + l
+                aux_sum = aux_sum + met["aux_loss"]
+            inv = 1.0 / microbatches
+            grads = [a.mul_(inv) for a in acc]  # in place: one fp32 copy of the grads
+            del acc
+            loss = loss_sum * inv
+            terms = torch.stack([loss, aux_sum * inv, loss])
+        del live
+        if g_axes != p_axes:
+            grads = [reshard(g, sg, sp, grad_axes) for g, sg, sp in zip(grads, leaf_g, leaf_p)]
+        grads = psum_buckets(grads, rest_axes)
         params, opt_state, opt_metrics = opt.update(
             tree_unflatten(params, grads), opt_state, params, sq_reduce=sq_reduce)
-        ce, aux, loss = shard.psum_batch(
-            torch.stack([metrics["ce"], metrics["aux_loss"], total])).unbind()
+        ce, aux, loss = shard.psum_batch(terms).unbind()
         out = {"ce": ce, "aux_loss": aux}
         out.update(opt_metrics)
         out["loss"] = loss

@@ -120,12 +120,21 @@ class AdamW:
             b1c = 1.0 - self.b1 ** step.float()
             b2c = 1.0 - self.b2 ** step.float()
             for p, g, m, v in zip(ps, gs, ms, vs):
+                # the JAX package's expressions, op for op, in two fp32
+                # buffers of the leaf's (block's) size and p's fp32 copy:
+                # m = b1 m + (1 - b1) g; v = b2 v + (1 - b2) g g;
+                # delta = m / b1c / (sqrt(v / b2c) + eps) + wd p;
+                # p = p - lr delta
                 g = g.float() * scale
-                m.mul_(self.b1).add_((1.0 - self.b1) * g)
-                v.mul_(self.b2).add_((1.0 - self.b2) * g * g)
-                delta = (m / b1c) / (torch.sqrt(v / b2c) + self.eps)
+                tmp = torch.mul(g, 1.0 - self.b1)
+                m.mul_(self.b1).add_(tmp)
+                torch.mul(g, 1.0 - self.b2, out=tmp).mul_(g)
+                v.mul_(self.b2).add_(tmp)
+                torch.div(v, b2c, out=tmp).sqrt_().add_(self.eps)
+                delta = torch.div(m, b1c, out=g).div_(tmp)
                 p32 = p.float()
-                delta = delta + self.weight_decay * p32
-                p.copy_(p32 - lr * delta)
+                delta.add_(torch.mul(p32, self.weight_decay, out=tmp))
+                p.copy_(torch.sub(p32, torch.mul(delta, lr, out=tmp), out=tmp))
+                del g, tmp, delta, p32
         return params, AdamWState(step=step, mu=state.mu, nu=state.nu), {
             "grad_norm": gnorm, "lr": lr}

@@ -11,7 +11,10 @@ otherwise) and, for a decode shape, the cache's leaves under the specs
 ``lower_step`` gives them (src/repro/launch/dryrun.py:155-186, with
 PartitionSpecs on a shape-only mesh in place of NamedShardings), and
 ``model_flops`` from the formulas of ``lower_step`` with the package's
-``active_param_count``. Not collected by pytest (no test_ prefix).
+``active_param_count``; for a train shape also ``at_rest`` (the params and
+two fp32 moments under train-mode specs, by the same ``_bytes_per_device``)
+and ``microbatches`` (``lower_step``'s rule). Not collected by pytest (no
+test_ prefix).
 """
 import json
 import sys
@@ -58,11 +61,13 @@ def main(out_path):
     import jax
     from jax.sharding import PartitionSpec as P
 
+    import jax.numpy as jnp
+    import numpy as np
     import repro.launch.dryrun as dr
     import repro.models.transformer as tf
     from repro.configs import ARCH_IDS, get_config
     from repro.launch.input_specs import INPUT_SHAPES, input_specs, shape_applicable
-    from repro.models.sharding import param_pspecs
+    from repro.models.sharding import param_pspecs, train_batch_pspec
 
     out = {}
     for arch in ARCH_IDS:
@@ -78,6 +83,17 @@ def main(out_path):
                     specs = param_pspecs(cfg, pshapes, mesh, mode="train")
                     row["arg_bytes"] = dr._bytes_per_device(pshapes, specs, mesh) * 3
                     row["model_flops"] = 6.0 * n_active * tokens
+                    # params and two fp32 moments under train-mode specs
+                    f32 = jax.tree.map(lambda l: jax.ShapeDtypeStruct(l.shape, jnp.float32),
+                                       pshapes)
+                    row["at_rest"] = (dr._bytes_per_device(pshapes, specs, mesh)
+                                      + 2 * dr._bytes_per_device(f32, specs, mesh))
+                    # lower_step's microbatch rule (its default, no env overrides)
+                    b0 = train_batch_pspec(mesh, shape.global_batch)[0]
+                    b0 = (b0,) if isinstance(b0, str) else (b0 or ())
+                    n_dp = int(np.prod([mesh.shape[a] for a in b0])) if b0 else 1
+                    b_loc = max(shape.global_batch // max(n_dp, 1), 1)
+                    row["microbatches"] = max(1, b_loc) if cfg.param_count() > 2e9 else 1
                 else:
                     specs = param_pspecs(cfg, pshapes, mesh, mode="serve")
                     row["arg_bytes"] = dr._bytes_per_device(pshapes, specs, mesh)

@@ -67,6 +67,56 @@ def test_arg_bytes_and_model_flops_match_jax(jax_rows, arch, shape_name, mesh_na
     assert dryrun.model_flops(cfg, shape) == want["model_flops"]
 
 
+@pytest.mark.parametrize("mesh_name", MESH_NAMES)
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_train_rows_take_jax_microbatches(jax_rows, arch, mesh_name):
+    """A train row's step takes JAX's microbatches: one row a rank above 2e9
+    parameters, else one; ZeRO-2 only when asked."""
+    cfg, shape = get_config(arch), INPUT_SHAPES["train_4k"]
+    rule = dryrun.microbatch_rule(cfg, shape, dryrun.shape_mesh(mesh_name))
+    assert rule["mode"] == "train" and "inner_param_specs" not in rule
+    assert rule["microbatches"] == jax_rows[f"{arch}|train_4k|{mesh_name}"]["microbatches"]
+
+
+@pytest.mark.parametrize("mesh_name", MESH_NAMES)
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_step_bytes_at_rest_under_train_specs(jax_rows, arch, mesh_name):
+    """step_bytes_at_rest is the params and two fp32 moments under JAX's
+    train-mode (FSDP) specs, by JAX's own per-device byte count."""
+    cfg = get_config(arch)
+    want = jax_rows[f"{arch}|train_4k|{mesh_name}"]["at_rest"]
+    assert dryrun.step_bytes_at_rest(cfg, dryrun.shape_mesh(mesh_name)) == want
+
+
+def test_step_bytes_at_rest_fits_the_card():
+    """The FSDP specs bring every arch's state at rest under a card's 80 GB
+    on (16, 16): kimi-k2 41.46 GB (663.35 GB under serve-mode specs)."""
+    mesh = dryrun.shape_mesh("single")
+    at_rest = {a: dryrun.step_bytes_at_rest(get_config(a), mesh) / 1e9 for a in ARCH_IDS}
+    assert round(at_rest["kimi-k2-1t-a32b"], 2) == 41.46
+    assert round(at_rest["gemma3-1b"], 2) == 0.26 and round(at_rest["qwen1_5-32b"], 2) == 5.31
+    assert max(at_rest.values()) < 80
+
+
+def test_scaled_counts_equal_the_full_trace():
+    """A step of 4 microbatches counted from its first two equals its whole
+    trace: every count and the peak (reduced qwen3-moe, data 2 x model 2,
+    remat on)."""
+    from repro_torch.core import make_mesh
+
+    cfg = ranks_mod.lm_config("qwen3-moe-30b-a3b")
+    shape = InputShape("scaled", 24, 8, "train")
+    with fake_world(4):
+        mesh = make_mesh((2, 2), ("data", "model"), device="meta")
+        full = dryrun.trace_step(cfg, shape, mesh, mode="train", microbatches=4)
+        scaled = dryrun.trace_step(cfg, shape, mesh, scaled=True, mode="train", microbatches=4)
+        one = dryrun.trace_step(cfg, shape, mesh, mode="train", microbatches=1)
+    assert scaled.counted() == full.counted()
+    assert (scaled.peak_bytes, scaled.ops) == (full.peak_bytes, full.ops)
+    assert full.kernels["K3"] == 4 * one.kernels["K3"]
+    assert full.collectives["all_gather"] > one.collectives["all_gather"]
+
+
 def _cpu_step_costs(cfg, shape):
     """The counter over one sharded step on real CPU tensors, one position."""
     return ranks_mod.lm_costs(cfg, make_host_mesh(1, 1, device="cpu"), shape.global_batch,
@@ -115,7 +165,7 @@ def gloo_counts(tmp_path_factory):
 
 @pytest.mark.parametrize("case", [c[0] for c in ranks_mod.LM_CASES])
 def test_fake_world_trace_equals_gloo_run(gloo_counts, case):
-    _, arch, lay, B, S = next(c for c in ranks_mod.LM_CASES if c[0] == case)
+    _, arch, lay, B, S, m = next(c for c in ranks_mod.LM_CASES if c[0] == case)
     shape, names = ranks_mod.LAYOUTS[lay]
     cfg = ranks_mod.lm_config(arch)
     from repro_torch.core import make_mesh
@@ -123,10 +173,12 @@ def test_fake_world_trace_equals_gloo_run(gloo_counts, case):
     with fake_world(math.prod(shape)):
         mesh = make_mesh(shape, names, device="meta")
         assert mesh.distributed and mesh.is_root and mesh.device.type == "meta"
-        costs = dryrun.trace_step(cfg, InputShape(case, S, B, "train"), mesh)
+        costs = dryrun.trace_step(cfg, InputShape(case, S, B, "train"), mesh, mode="train",
+                                  microbatches=m)
     want = gloo_counts[case]
     assert costs.counted() == want
     assert want["collectives"]["all_gather"] > 0 and want["collective_bytes"]["all_reduce"] > 0
+    assert want["collectives"]["reduce_scatter"] > 0
 
 
 def test_fake_world_refuses_a_live_group_and_cleans_up():
@@ -200,6 +252,7 @@ def test_run_one_rows(tmp_path):
     ok = next(r for r in recs if r["status"] == "ok")
     assert ok["kernel_launches"] == {"K3": 24, "K3-bwd": 12}  # 4 + 4 + 4 a pass, remat
     assert ok["microbatches"] == 1 and ok["arg_bytes_per_device"] > 0
+    assert ok["microbatch_counts"] == "traced" and not ok["zero2"]
     assert ok["step_bytes_at_rest"] > ok["arg_bytes_per_device"]
     assert ok["dominant"] in ("compute", "memory", "collective")
     assert ok["collective_counts"]["all_gather"] > 0

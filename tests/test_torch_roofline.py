@@ -173,10 +173,12 @@ def test_collective_bytes_on_a_fake_world():
             dist_mod.psum_scatter(torch.empty((4, 5), device=META), mesh, "model", 0)
             dist_mod.all_gather_dim(t, mesh, "model", 1)
             dist_mod.broadcast(t, mesh)
-    assert c.costs.collectives == {"all_gather": 2, "all_reduce": 2, "broadcast": 1}
-    # the larger of the tensor sent and the one received: the gathered one
-    assert c.costs.collective_bytes == {"all_gather": 2 * 4 * 30, "all_reduce": 4 * (15 + 20),
-                                        "broadcast": 4 * 15}
+    assert c.costs.collectives == {"all_gather": 2, "all_reduce": 1, "reduce_scatter": 1,
+                                   "broadcast": 1}
+    # the larger of the tensor sent and the one received: the gathered one,
+    # the reduce-scatter's input
+    assert c.costs.collective_bytes == {"all_gather": 2 * 4 * 30, "all_reduce": 4 * 15,
+                                        "reduce_scatter": 4 * 20, "broadcast": 4 * 15}
 
 
 # ---------------------------------------------------------------------------

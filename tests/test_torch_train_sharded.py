@@ -16,10 +16,14 @@ on every multi-device mesh of the installed jax (ROADMAP RC6), so:
     apart by a part of lr), and against the port's one-process step.
 
 The multi-rank cases run in one 4-rank gloo world that a module fixture
-spawns once (tests/torch_sharded_ranks.py: data 4, data 2 x model 2 and
-pod 2 x data 2 at batch 8, data 4 at batch 2 with the sequence split; the
-mesh makers, the differentiable gather, shard/gather round trips and the
-remat probe); the params are JAX's init, written for the ranks to an npz.
+spawns once (tests/torch_sharded_ranks.py: data 4, data 2 x model 2, pod 2
+x data 2 and model 4 at batch 8, data 4 at batch 2 with the sequence
+split; serve mode, train mode (FSDP), train mode with 2 microbatches and
+with ZeRO-2, each against JAX's make_train_step with the same
+microbatches; the mesh makers, the differentiable gathers and the
+reduce-scatter, shard/gather round trips, the remat probe and the counts
+of a step split over model 4); the params are JAX's init, written for the
+ranks to an npz.
 """
 import dataclasses
 import functools
@@ -115,7 +119,7 @@ def metrics_of(m):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_steps(arch, B):
+def jax_steps(arch, B, microbatches=1):
     """JAX's jitted make_train_step on the global batch: the metrics of each
     step and the params and both moments after the last."""
     _, jcfg = pair(arch)
@@ -123,7 +127,7 @@ def jax_steps(arch, B):
     params = jax.tree.map(jnp.asarray, jax_params_np(arch))
     state = jopt.init(params)
     batch = {k: jnp.asarray(v) for k, v in make_batch(arch, B).items()}
-    step = jax.jit(jax_make_train_step(jcfg, jopt))
+    step = jax.jit(jax_make_train_step(jcfg, jopt, microbatches=microbatches))
     hist = []
     for _ in range(STEPS):
         params, state, m = step(params, state, batch)
@@ -133,14 +137,14 @@ def jax_steps(arch, B):
 
 
 @functools.lru_cache(maxsize=None)
-def port_steps(arch, B):
+def port_steps(arch, B, microbatches=1):
     """The port's one-process make_train_step on the global batch."""
     cfg, _ = pair(arch)
     opt = AdamW(**OPT)
     params = to_port(arch)
     state = opt.init(params)
     batch = {k: torch.from_numpy(v) for k, v in make_batch(arch, B).items()}
-    step = make_train_step(cfg, opt)
+    step = make_train_step(cfg, opt, microbatches)
     hist = []
     for _ in range(STEPS):
         params, state, m = step(params, state, batch)
@@ -265,7 +269,7 @@ def world(tmp_path_factory):
     out = tmp_path_factory.mktemp("sharded_ranks")
     arrays = {}
     needed = {}
-    for _, arch, _, B in ranks_mod.STEP_CASES:
+    for _, arch, _, B, _ in ranks_mod.STEP_CASES:
         needed.setdefault(arch, set()).add(B)
     needed.setdefault("gemma3-1b", set()).add(8)  # the remat probe
     for arch, batches in needed.items():
@@ -302,13 +306,21 @@ def test_ranks_agree(world):
             assert r["steps"][case]["digest"] == res[0]["steps"][case]["digest"], case
 
 
-@pytest.mark.parametrize("case,arch,layout,B", ranks_mod.STEP_CASES,
-                         ids=[c[0] for c in ranks_mod.STEP_CASES])
+STEP_PARAMS = [c[:4] for c in ranks_mod.STEP_CASES]
+STEP_IDS = [c[0] for c in ranks_mod.STEP_CASES]
+OPTIONS = {c[0]: c[4] for c in ranks_mod.STEP_CASES}
+
+
+@pytest.mark.parametrize("case,arch,layout,B", STEP_PARAMS, ids=STEP_IDS)
 def test_four_ranks_equal_the_single_device_step(world, case, arch, layout, B):
+    """Two steps on four ranks against JAX's and the port's make_train_step
+    on the global batch with the case's microbatches (serve or train mode,
+    ZeRO-2 or not: the same function)."""
     out, res = world
     got = res[0]["steps"][case]
-    jhist, jp, jmu, jnu = jax_steps(arch, B)
-    phist, pp = port_steps(arch, B)
+    m = OPTIONS[case]["microbatches"]
+    jhist, jp, jmu, jnu = jax_steps(arch, B, m)
+    phist, pp = port_steps(arch, B, m)
     mesh_shape = mesh_shape_of(layout)
     dp = tuple(a for a in ("pod", "data") if a in mesh_shape)
     dsz = int(np.prod([mesh_shape[a] for a in dp]))
@@ -340,15 +352,15 @@ def test_four_ranks_equal_the_single_device_step(world, case, arch, layout, B):
         assert got["model_sharded"], "no leaf is sharded over model"
 
 
-@pytest.mark.parametrize("case,arch,layout,B", ranks_mod.STEP_CASES,
-                         ids=[c[0] for c in ranks_mod.STEP_CASES])
+@pytest.mark.parametrize("case,arch,layout,B", STEP_PARAMS, ids=STEP_IDS)
 def test_each_rank_holds_its_spec_bytes(world, case, arch, layout, B):
-    """Params and both moments take the bytes JAX's serve-mode specs give
-    one device (the moments in fp32)."""
+    """Params and both moments take the bytes JAX's specs of the case's mode
+    give one device (the moments in fp32): serve, or train (FSDP)."""
     _, res = world
     mesh_shape = mesh_shape_of(layout)
-    want_params = jax_spec_bytes(arch, "serve", mesh_shape)
-    want_moment = jax_spec_bytes(arch, "serve", mesh_shape, dtype_of=lambda l: 4)
+    mode = OPTIONS[case]["mode"]
+    want_params = jax_spec_bytes(arch, mode, mesh_shape)
+    want_moment = jax_spec_bytes(arch, mode, mesh_shape, dtype_of=lambda l: 4)
     for r in res:
         held = r["steps"][case]["held"]
         assert held == {"params": want_params, "mu": want_moment, "nu": want_moment}, case
@@ -381,22 +393,25 @@ def test_grad_norm_counts_replicated_leaves_once(world):
 
 
 def test_gather_on_use_under_remat(world):
-    """Under remat autograd keeps no gathered layer leaf: none of their
-    shapes is saved outside the checkpointed bodies, none is alive when the
-    backward starts, and each step gathers every sharded layer leaf twice
-    (forward and recompute) and embed and lm_head once. Without remat the
-    same probe finds every gathered leaf alive and saved."""
+    """The train-mode (FSDP) step on data 2 x model 2. Under remat autograd
+    keeps no layer matrix gathered over the batch axes: none is saved
+    outside the checkpointed bodies and none is alive when the backward
+    starts. Each step gathers every FSDP layer leaf twice (forward and
+    recompute), embed and lm_head once, and the embedding rows once over
+    model; each gather's backward is one reduce-scatter. Without remat the
+    same probe finds every gathered matrix alive and saved."""
     _, res = world
     for r in res:
         on, off = r["remat"]["True"], r["remat"]["False"]
-        n_layer = len(on["sharded_layer_leaves"])
-        assert n_layer >= 4 and on["top_sharded"] == ["embed", "lm_head"]
+        n_layer, n_matrix = len(on["sharded_layer_leaves"]), len(on["matrix_leaves"])
+        assert n_matrix >= 4 and on["top_sharded"] == ["embed", "lm_head"]
         assert on["saved_slice_shapes"] == []
         assert on["alive_at_backward"] == 0
-        assert on["collectives"]["all_gather"] == 2 * on["layers"] * n_layer + 2
-        assert off["alive_at_backward"] == off["layers"] * n_layer
+        assert on["collectives"]["all_gather"] == 2 * on["layers"] * n_layer + 2 + 1
+        assert on["collectives"]["reduce_scatter"] == on["layers"] * n_layer + 2
+        assert off["alive_at_backward"] == off["layers"] * n_matrix
         assert off["saved_slice_shapes"] == on["slice_shapes"]
-        assert off["collectives"]["all_gather"] == off["layers"] * n_layer + 2
+        assert off["collectives"]["all_gather"] == off["layers"] * n_layer + 2 + 1
 
 
 @pytest.mark.parametrize("arch", ranks_mod.ROUNDTRIP_ARCHS)
@@ -412,7 +427,8 @@ def test_shard_gather_round_trip(world, arch, layout, mode):
         assert rt["equal"]
         assert rt["held"] == want
         assert rt["sharded_leaves"] > 0
-        if mode == "train":  # FSDP over the batch axes holds less
+        batch_positions = np.prod([mesh_shape_of(layout).get(a, 1) for a in ("pod", "data")])
+        if mode == "train" and batch_positions > 1:  # FSDP over the batch axes holds less
             assert rt["held"] < r["round_trips"][f"{arch}|{layout}|serve"]["held"]
 
 
@@ -430,8 +446,10 @@ def test_mesh_makers(world):
 def test_all_gather_backward(world):
     """AllGather over data (2 positions): the full tensor is the blocks in
     data order and its backward hands each rank its block of the gradient
-    as it is (1 + data coord); psum_scatter sums over the axis (1 + 2 = 3
-    times the weights) and keeps this rank's rows."""
+    as it is (1 + data coord), AllGatherSum's the sum over the axis (1 + 2);
+    psum_scatter, one reduce_scatter, sums over the axis (1 + 2 = 3 times
+    the weights) and keeps this rank's rows, and along dim 1 equals psum
+    then the block."""
     _, res = world
     for r in res:
         c = r["coords"]["data2_model2"]["data"]
@@ -440,7 +458,74 @@ def test_all_gather_backward(world):
         blocks = [np.full((2, 3), float(2 * d + m)) for d in range(2)]  # rank = 2 data + model
         np.testing.assert_array_equal(gb["gather"]["full"], np.concatenate(blocks))
         np.testing.assert_array_equal(gb["gather"]["grad"], np.full((2, 3), c + 1.0))
+        np.testing.assert_array_equal(gb["gather_sum_grad"], np.full((2, 3), 3.0))
         np.testing.assert_array_equal(gb["psum_scatter"],
                                       3.0 * np.arange(12.0).reshape(4, 3)[2 * c:2 * c + 2])
+        np.testing.assert_array_equal(gb["psum_scatter_dim1"], gb["psum_then_block_dim1"])
+        assert gb["scatter_calls"] == {"reduce_scatter": 2, "all_reduce": 1}
         want = np.concatenate([np.arange(6.0).reshape(2, 3) + 10 * d for d in range(2)], axis=1)
         np.testing.assert_array_equal(gb["dim1"], want)
+
+
+@pytest.mark.parametrize("arch", ranks_mod.COUNT_ARCHS)
+def test_model_split_flops_per_rank(world, arch):
+    """Split over model 4, each rank's step does at most 0.4 of the FLOPs of
+    the one-position step on the same batch (a quarter of every split
+    product; the router, replicated kv heads and B/C projections, and the
+    norms stay whole), and launches the same kernels as often."""
+    from repro_torch.launch import dryrun, make_host_mesh
+    from repro_torch.launch.input_specs import InputShape
+
+    _, res = world
+    cfg = ranks_mod.reduced(arch)
+    one = dryrun.trace_step(cfg, InputShape("count", SEQ, 8, "train"),
+                            make_host_mesh(1, 1, device="meta"), mode="serve", microbatches=1)
+    for r in res:
+        got = r["split_counts"][arch]
+        print(f"{arch}: {got['flops']} FLOP a rank at model 4 against {one.flops} "
+              f"({got['flops'] / one.flops:.3f})")
+        assert got["flops"] <= 0.4 * one.flops
+        assert got["kernels"] == dict(one.kernels)
+
+
+def test_step_refuses_microbatches_that_do_not_split():
+    """B / m must split over the batch axes, and B over m."""
+    from repro_torch.launch import fake_world
+
+    cfg, _ = pair("gemma3-1b")
+    opt = AdamW(**OPT)
+    with pytest.raises(ValueError, match="microbatches"):
+        make_sharded_train_step(cfg, opt, make_host_mesh(1, 1, device="cpu"), 4, SEQ,
+                                microbatches=3)
+    with fake_world(4):
+        mesh = dist_mod.make_mesh((4, 1), ("data", "model"), device="meta")
+        make_sharded_train_step(cfg, opt, mesh, 8, SEQ, mode="train", microbatches=2)
+        with pytest.raises(ValueError, match="does not split over the batch axes"):
+            make_sharded_train_step(cfg, opt, mesh, 8, SEQ, mode="train", microbatches=4)
+
+
+def test_zero2_specs_must_be_the_param_specs_less_batch_axes():
+    """inner_param_specs and grad_specs may leave out batch axes of the
+    param specs, nothing else; grad_specs keeps the inner specs' axes."""
+    from repro_torch.launch import fake_world
+    from repro_torch.models.transformer import param_shapes
+
+    cfg, _ = pair("gemma3-1b")
+    opt = AdamW(**OPT)
+    with fake_world(4):
+        mesh = dist_mod.make_mesh((2, 2), ("data", "model"), device="meta")
+        shapes = param_shapes(cfg)
+        serve = sharding.param_pspecs(cfg, shapes, mesh, "serve")
+        train = sharding.param_pspecs(cfg, shapes, mesh, "train")
+        make_sharded_train_step(cfg, opt, mesh, 8, SEQ, mode="train", microbatches=2,
+                                inner_param_specs=serve, grad_specs=train)
+        with pytest.raises(ValueError, match="less some batch axes"):
+            make_sharded_train_step(cfg, opt, mesh, 8, SEQ, mode="serve",
+                                    inner_param_specs=train)
+        replicated = sharding.tree_map(lambda s: sharding.P(*((None,) * len(s))), serve)
+        with pytest.raises(ValueError, match="less some batch axes"):
+            make_sharded_train_step(cfg, opt, mesh, 8, SEQ, mode="train",
+                                    inner_param_specs=replicated)
+        with pytest.raises(ValueError, match="every batch axis"):
+            make_sharded_train_step(cfg, opt, mesh, 8, SEQ, mode="train",
+                                    inner_param_specs=train, grad_specs=serve)

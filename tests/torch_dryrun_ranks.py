@@ -29,13 +29,14 @@ LAYOUTS = {
     "data2_model2": ((2, 2), ("data", "model")),
     "pod2_data2": ((2, 2, 1), ("pod", "data", "model")),
 }
-# (case, arch, layout, global batch, seq): remat on, so the recompute's
-# gathers are counted too
+# (case, arch, layout, global batch, seq, microbatches): remat on, so the
+# recompute's gathers are counted too; the train-mode step of the dry run
 LM_CASES = [
-    ("gemma3-1b|data2_model2", "gemma3-1b", "data2_model2", 4, 40),
-    ("qwen3-moe-30b-a3b|data2_model2", "qwen3-moe-30b-a3b", "data2_model2", 4, 24),
-    ("mamba2-780m|pod2_data2", "mamba2-780m", "pod2_data2", 4, 40),
-    ("whisper-tiny|data2_model2", "whisper-tiny", "data2_model2", 4, 16),
+    ("gemma3-1b|data2_model2", "gemma3-1b", "data2_model2", 4, 40, 1),
+    ("qwen3-moe-30b-a3b|data2_model2", "qwen3-moe-30b-a3b", "data2_model2", 4, 24, 1),
+    ("mamba2-780m|pod2_data2", "mamba2-780m", "pod2_data2", 4, 40, 1),
+    ("whisper-tiny|data2_model2", "whisper-tiny", "data2_model2", 4, 16, 1),
+    ("qwen3-moe-30b-a3b|data2_model2|m2", "qwen3-moe-30b-a3b", "data2_model2", 4, 24, 2),
 ]
 # (case, layout, mesh axes (data, model, pod), solver, dist_block_hoisted)
 DMTRL_CASES = [
@@ -64,15 +65,17 @@ def lm_batch(cfg, B, S, seed=0):
     return batch
 
 
-def lm_costs(cfg, mesh, B, S):
-    """The counts of one sharded step on real CPU tensors at this rank."""
+def lm_costs(cfg, mesh, B, S, microbatches=1):
+    """The counts of one train-mode sharded step (the dry run's) on real CPU
+    tensors at this rank."""
     from repro_torch.models import init_params, sharding
     from repro_torch.roofline.analysis import CostCounter
     from repro_torch.train import AdamW
     from repro_torch.train.loop import make_sharded_train_step
 
     opt = AdamW()
-    step, pshard, _, bshard = make_sharded_train_step(cfg, opt, mesh, B, S)
+    step, pshard, _, bshard = make_sharded_train_step(cfg, opt, mesh, B, S, mode="train",
+                                                      microbatches=microbatches)
     params = sharding.shard_tree(pshard, init_params(cfg, 0, "cpu"))
     state = opt.init(params)
     batch = {k: bshard[k].shard(v) for k, v in lm_batch(cfg, B, S).items()}
@@ -103,8 +106,8 @@ def scenarios(mode):
     out = {}
     if mode == "lm":
         meshes = {k: make_mesh(s, n, device="cpu") for k, (s, n) in LAYOUTS.items()}
-        for case, arch, lay, B, S in LM_CASES:
-            out[case] = lm_costs(lm_config(arch), meshes[lay], B, S).counted()
+        for case, arch, lay, B, S, m in LM_CASES:
+            out[case] = lm_costs(lm_config(arch), meshes[lay], B, S, m).counted()
     else:
         for case, names, axes, solver, hoisted in DMTRL_CASES:
             mesh = make_mesh((2, 2), names, device="cpu")

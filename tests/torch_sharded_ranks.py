@@ -6,9 +6,11 @@ OUT_DIR/inputs.npz holds, for each arch of STEP_CASES, the init params of
 its reduced config ("<arch>/params/<path>") and its batches
 ("<arch>/b<B>/<key>"), written by tests/test_torch_train_sharded.py. main
 spawns four ranks (a FileStore under OUT_DIR: no ports) that run every
-multi-rank scenario in turn: the mesh makers, the differentiable gather,
-shard/gather round trips, two steps of make_sharded_train_step per case,
-and one step under remat with its saved tensors recorded. Each rank writes
+multi-rank scenario in turn: the mesh makers, the differentiable gathers
+and the reduce-scatter, shard/gather round trips, two steps of
+make_sharded_train_step per case (serve or train mode, microbatches,
+ZeRO-2), one train-mode step under remat with its saved tensors recorded,
+and the counts of one step split over model 4. Each rank writes
 rank<r>.json; rank 0 also writes each case's gathered params and both
 moments to <case>.npz. The ranks import only the port and numpy; the test
 compares their results with the JAX package in its own process. Not
@@ -21,7 +23,6 @@ import hashlib
 import json
 import os
 import sys
-import weakref
 
 import numpy as np
 import torch
@@ -36,13 +37,31 @@ LAYOUTS = {
     "data4": ((4, 1), ("data", "model")),
     "data2_model2": ((2, 2), ("data", "model")),
     "pod2_data2": ((2, 2, 1), ("pod", "data", "model")),
+    "model4": ((1, 4), ("data", "model")),
 }
 STEP_ARCHS = ("gemma3-1b", "qwen3-moe-30b-a3b", "mamba2-780m")
-# (case, arch, layout, global batch); batch 2 on data 4 splits the sequence
-STEP_CASES = [(f"{a}|{lay}|{b}", a, lay, b) for a in STEP_ARCHS
+SERVE = {"mode": "serve", "microbatches": 1, "zero2": False}
+TRAIN = {"mode": "train", "microbatches": 1, "zero2": False}
+TRAIN_M2 = {"mode": "train", "microbatches": 2, "zero2": False}
+ZERO2 = {"mode": "train", "microbatches": 2, "zero2": True}
+# (case, arch, layout, global batch, step options); batch 2 on data 4
+# splits the sequence. ZeRO-2 takes JAX's dry-run specs: serve inside,
+# train for the gradients
+STEP_CASES = [(f"{a}|{lay}|{b}", a, lay, b, SERVE) for a in STEP_ARCHS
               for lay, b in (("data4", 8), ("data2_model2", 8), ("pod2_data2", 8), ("data4", 2))]
-STEP_CASES.append(("whisper-tiny|data2_model2|8", "whisper-tiny", "data2_model2", 8))
+STEP_CASES.append(("whisper-tiny|data2_model2|8", "whisper-tiny", "data2_model2", 8, SERVE))
+STEP_CASES += [(f"{a}|model4|8", a, "model4", 8, SERVE) for a in STEP_ARCHS]
+STEP_CASES += [(f"{a}|{lay}|8|train", a, lay, 8, TRAIN) for a in STEP_ARCHS
+               for lay in ("model4", "data2_model2", "pod2_data2")]
+STEP_CASES += [(f"{a}|data2_model2|8|train|m2", a, "data2_model2", 8, TRAIN_M2)
+               for a in STEP_ARCHS]
+STEP_CASES += [(f"{a}|{lay}|8|train|m2|zero2", a, lay, 8, ZERO2) for a in STEP_ARCHS
+               for lay in ("pod2_data2", "data2_model2", "model4")]
+STEP_CASES += [(f"{a}|data2_model2|8|train", a, "data2_model2", 8, TRAIN)
+               for a in ("whisper-tiny", "zamba2-2_7b")]
 ROUNDTRIP_ARCHS = ("gemma3-1b", "qwen3-moe-30b-a3b")
+# the per-rank counts of one serve-mode step split over model 4
+COUNT_ARCHS = ("gemma3-1b", "qwen3-moe-30b-a3b", "mamba2-780m")
 
 
 def reduced(arch, **changes):
@@ -121,8 +140,10 @@ def mesh_makers(meshes):
 def gather_backward(mesh):
     """AllGather over 'data' of a (2, 3) block: the gradient of
     sum(w * full) with w = (data coord + 1) everywhere is this rank's block
-    of it, as it is; psum_scatter of the same weights along dim 0 sums over
-    the axis and keeps this rank's block; all_gather_dim along dim 1."""
+    of it, as it is; AllGatherSum's is the sum over the axis of it; the
+    reduce-scatter of the same weights along dim 0 sums over the axis and
+    keeps this rank's block, as psum then the block does, along dim 1 too,
+    one reduce_scatter call each; all_gather_dim along dim 1."""
     from repro_torch.core import distributed as dist_mod
 
     out = {}
@@ -131,8 +152,17 @@ def gather_backward(mesh):
     full = dist_mod.all_gather_grad(t, mesh, "data", 0)
     (full * (c + 1.0)).sum().backward()
     out["gather"] = {"full": full.detach().tolist(), "grad": t.grad.tolist()}
+    t = torch.full((2, 3), float(dist.get_rank()), requires_grad=True)
+    (dist_mod.all_gather_grad(t, mesh, "data", 0, sum_grad=True) * (c + 1.0)).sum().backward()
+    out["gather_sum_grad"] = t.grad.tolist()
     w = torch.arange(12.0).view(4, 3) * (c + 1.0)
+    dist_mod.reset_collective_counts()
     out["psum_scatter"] = dist_mod.psum_scatter(w, mesh, "data", 0).tolist()
+    w1 = torch.arange(24.0).view(3, 8) * (c + 1.0) + dist.get_rank()
+    out["psum_scatter_dim1"] = dist_mod.psum_scatter(w1, mesh, "data", 1).tolist()
+    out["psum_then_block_dim1"] = dist_mod.block_of(
+        dist_mod.psum(w1, mesh, "data"), mesh, "data", 1).tolist()
+    out["scatter_calls"] = dict(dist_mod.COLLECTIVES)
     # along dim 1 as well
     t = torch.arange(6.0).view(2, 3) + 10 * c
     out["dim1"] = dist_mod.all_gather_dim(t, mesh, "data", 1).tolist()
@@ -166,7 +196,20 @@ def round_trips(meshes):
     return out
 
 
-def step_case(case, arch, mesh, B, inputs, out_dir):
+def step_options(cfg, mesh, options):
+    """make_sharded_train_step's keyword arguments for a case's options."""
+    from repro_torch.models import sharding
+    from repro_torch.models.transformer import param_shapes
+
+    kw = {"mode": options["mode"], "microbatches": options["microbatches"]}
+    if options["zero2"]:
+        shapes = param_shapes(cfg)
+        kw["inner_param_specs"] = sharding.param_pspecs(cfg, shapes, mesh, "serve")
+        kw["grad_specs"] = sharding.param_pspecs(cfg, shapes, mesh, "train")
+    return kw
+
+
+def step_case(case, arch, mesh, B, options, inputs, out_dir):
     from repro_torch.models import loss_fn, sharding
     from repro_torch.train import AdamW
     from repro_torch.train.loop import make_sharded_train_step
@@ -175,7 +218,8 @@ def step_case(case, arch, mesh, B, inputs, out_dir):
     full = load_params(inputs, arch)
     batch = load_batch(inputs, arch, B)
     opt = AdamW(**OPT)
-    step, pshard, opt_shard, batch_shard = make_sharded_train_step(cfg, opt, mesh, B, SEQ)
+    step, pshard, opt_shard, batch_shard = make_sharded_train_step(
+        cfg, opt, mesh, B, SEQ, **step_options(cfg, mesh, options))
     params = sharding.shard_tree(pshard, full)
     state = opt.init(params)
     local = {k: batch_shard[k].shard(v) for k, v in batch.items()}
@@ -206,9 +250,10 @@ def step_case(case, arch, mesh, B, inputs, out_dir):
 
 
 def remat_probe(mesh, inputs, remat):
-    """One step of reduced gemma3 (remat on or off) on ``mesh``: the shapes
-    saved outside the checkpointed bodies, the gathered layer leaves still
-    alive when the backward starts, and the collectives of the step."""
+    """One train-mode step of reduced gemma3 (remat on or off) on ``mesh``:
+    the shapes saved outside the checkpointed bodies, the layer leaves
+    gathered over the batch axes (their model blocks) still alive when the
+    backward starts, and the collectives of the step."""
     from repro_torch.core import distributed as dist_mod
     from repro_torch.models import sharding
     from repro_torch.train import AdamW
@@ -218,30 +263,47 @@ def remat_probe(mesh, inputs, remat):
     full = load_params(inputs, "gemma3-1b")
     batch = load_batch(inputs, "gemma3-1b", 8)
     opt = AdamW(**OPT)
-    step, pshard, _, bshard = make_sharded_train_step(cfg, opt, mesh, 8, SEQ)
+    step, pshard, _, bshard = make_sharded_train_step(cfg, opt, mesh, 8, SEQ, mode="train")
     params = sharding.shard_tree(pshard, full)
     state = opt.init(params)
     local = {k: bshard[k].shard(v) for k, v in batch.items()}
     layer_specs = dict(flat_paths(pshard["layers"]))
     layer_full = dict(flat_paths(full["layers"]))
-    sharded_layer = [p for p, s in layer_specs.items() if sharding.spec_axes(s.spec)]
-    slice_shapes = {tuple(layer_full[p].shape[1:]) for p in sharded_layer}
+    batch_ax = sharding.batch_axes(mesh)
+    sharded_layer = [p for p, s in layer_specs.items()
+                     if set(sharding.spec_axes(s.spec[1:])) & set(batch_ax)]
+    msz = mesh.shape["model"]
+
+    def model_block(p):  # the shape a body gathers: the leaf's model block
+        return tuple(n // msz if "model" in sharding.entry_axes(e) else n for n, e in
+                     zip(layer_full[p].shape[1:], tuple(layer_specs[p].spec[1:])))
+
+    # the matrices among them: what autograd would save (a norm's scale is
+    # read into a fresh tensor)
+    matrices = [p for p in sharded_layer if len(model_block(p)) >= 2]
+    slice_shapes = {model_block(p) for p in matrices}
     top_sharded = [k for k, s in pshard.items()
                    if not isinstance(s, dict) and sharding.spec_axes(s.spec)]
 
-    gathered = []  # weakrefs to the gathered layer leaves
+    # weak refs to the gathered layer matrices' storages (a view, as a
+    # slice of a replicated wk is, keeps the storage and not the tensor)
+    gathered = []
     real_gather = dist_mod.all_gather_dim
+    expired = torch.UntypedStorage._expired
 
     def recording_gather(t, m, name, dim):
         g = real_gather(t, m, name, dim)
         if tuple(g.shape) in slice_shapes:
-            gathered.append(weakref.ref(g))
+            st = g.untyped_storage()
+            gathered.append((st._weak_ref(), st.data_ptr()))
         return g
 
     saved = []
 
-    def pack(t):
-        saved.append(tuple(t.shape))
+    def pack(t):  # the shapes of saved tensors on a live gathered storage
+        ptr = t.untyped_storage().data_ptr()
+        if any(p == ptr and not expired(r) for r, p in gathered):
+            saved.append(tuple(t.shape))
         return t
 
     alive = []
@@ -249,7 +311,7 @@ def remat_probe(mesh, inputs, remat):
 
     def grad_after_forward(*a, **kw):
         gc.collect()
-        alive.append(sum(r() is not None for r in gathered))
+        alive.append(sum(not expired(r) for r, _ in gathered))
         return real_grad(*a, **kw)
 
     dist_mod.reset_collective_counts()
@@ -261,9 +323,12 @@ def remat_probe(mesh, inputs, remat):
     finally:
         dist_mod.all_gather_dim = real_gather
         torch.autograd.grad = real_grad
+    for r, _ in gathered:
+        torch.UntypedStorage._free_weak_ref(r)
     return {
         "layers": cfg.n_layers,
         "sharded_layer_leaves": sharded_layer,
+        "matrix_leaves": matrices,
         "top_sharded": top_sharded,
         "slice_shapes": sorted(slice_shapes),
         "saved_slice_shapes": sorted({s for s in saved if s in slice_shapes}),
@@ -273,6 +338,28 @@ def remat_probe(mesh, inputs, remat):
     }
 
 
+def split_counts(mesh, inputs):
+    """The counts of one serve-mode step of each COUNT_ARCHS arch at this
+    rank of ``mesh`` (model 4): its FLOPs, and its kernel launches."""
+    from repro_torch.models import sharding
+    from repro_torch.roofline.analysis import CostCounter
+    from repro_torch.train import AdamW
+    from repro_torch.train.loop import make_sharded_train_step
+
+    out = {}
+    for arch in COUNT_ARCHS:
+        cfg = reduced(arch)
+        opt = AdamW(**OPT)
+        step, pshard, _, bshard = make_sharded_train_step(cfg, opt, mesh, 8, SEQ)
+        params = sharding.shard_tree(pshard, load_params(inputs, arch))
+        state = opt.init(params)
+        local = {k: bshard[k].shard(v) for k, v in load_batch(inputs, arch, 8).items()}
+        with CostCounter() as c:
+            step(params, state, local)
+        out[arch] = {"flops": c.costs.flops, "kernels": dict(c.costs.kernels)}
+    return out
+
+
 def scenarios(out_dir):
     inputs = np.load(os.path.join(out_dir, "inputs.npz"))
     meshes = make_meshes()
@@ -280,9 +367,10 @@ def scenarios(out_dir):
            "makers": mesh_makers(meshes),
            "gather_backward": gather_backward(meshes["data2_model2"]),
            "round_trips": round_trips(meshes), "steps": {}}
-    for case, arch, lay, B in STEP_CASES:
-        out["steps"][case] = step_case(case, arch, meshes[lay], B, inputs, out_dir)
+    for case, arch, lay, B, options in STEP_CASES:
+        out["steps"][case] = step_case(case, arch, meshes[lay], B, options, inputs, out_dir)
     out["remat"] = {str(r): remat_probe(meshes["data2_model2"], inputs, r) for r in (True, False)}
+    out["split_counts"] = split_counts(meshes["model4"], inputs)
     return out
 
 
