@@ -176,10 +176,24 @@ Phases, each printing its own lines:
               (c) every arch x input shape x mesh through launch.dryrun on
               the host (fake worlds of 256 and 512 ranks, meta tensors):
               every train row "ok" (the train-mode step with JAX's
-              microbatches, its state at rest plus its traced peak under
-              the card's 80 GB), prefill and decode "analytic", long_500k
-              "skipped" where shape_applicable says, within
-              DRYRUN_TABLE_S.
+              microbatches), every prefill and decode row "ok" (the
+              sharded serving step under JAX's serve-mode specs and
+              decode cache layouts), each row's state at rest plus its
+              traced peak under the card's 80 GB but kimi-k2's serve rows
+              ("fits" false), long_500k "skipped" where shape_applicable
+              says; the train rows within DRYRUN_TABLE_S, the serve rows
+              within DRYRUN_SERVE_S.
+ 14. the sharded serving step — gemma3-1b and zamba2-2.7b whole (bf16,
+              seed 0): a 2 x 512-token prefill and 16 greedy decode ticks
+              through models.make_sharded_prefill and
+              make_sharded_decode_step on the local mesh and on a
+              one-rank NCCL world, against prefill and decode_step in the
+              same call: logits, every cache leaf and the position
+              bit-equal; K3 (and K4) launches a prefill, collectives a
+              tick, warm prefill and tick ms beside the unsharded ones;
+              the meta trace of the same prefill and tick
+              (dryrun.trace_serve) equals the counter over the card's
+              calls, exactly.
 
 It exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository. The line before the last is a JSON object with
@@ -390,13 +404,25 @@ STREAM_TEMPERATURE = 0.8
 # gather is a copy and every sum has one term, so the params and metrics
 # are held bit for bit
 SHARDED_STEPS = {"gemma3-1b": 10, "mamba2-780m": 3}
-# phase 13c: the whole dry-run table (20 traced train rows, 60 analytic or
-# skipped; a row of more than two microbatches counted from its first two)
-# must stay well inside the script's own time limit (137.9 and 171.8 s on
-# the card's host so far); every train row's state at rest plus its traced
-# peak within the card's memory
+# phase 13c: the dry-run table's 20 train rows (a row of more than two
+# microbatches counted from its first two) must stay well inside the
+# script's own time limit (the whole table took 137.9 and 171.8 s on the
+# card's host when they were its only traced rows); every row's state at
+# rest plus its traced peak within the card's memory but kimi-k2's serve
+# rows
 DRYRUN_TABLE_S = 240.0
 CARD_BYTES = 80e9
+# phase 13c's 40 traced prefill and decode rows (a sharded serving step
+# each), timed apart from the train rows: 31.7-33.4 s summed on the
+# card's host
+DRYRUN_SERVE_S = 120.0
+# phase 14, the sharded serving step on one position: gemma3-1b and
+# zamba2-2.7b whole (bf16, seed 0), a 2 x 512-token prefill and 16 greedy
+# decode ticks through make_sharded_prefill and make_sharded_decode_step,
+# on the local mesh and on a one-rank NCCL world, each against prefill and
+# decode_step in the same call, bit for bit
+SERVE_SHARDED = ("gemma3-1b", "zamba2-2.7b")
+SERVE_BATCH, SERVE_PROMPT, SERVE_TICKS = 2, 512, 16
 
 
 def fail(msg: str) -> None:
@@ -2834,6 +2860,168 @@ def dryrun_against_card(torch, dev, card: str, arch: str, tag: str, step_ms: flo
     return launches
 
 
+def sharded_serve_path(torch, dev, card: str, arch: str, tag: str) -> dict:
+    """Phase 14: ``arch`` whole (bf16, random weights from seed 0), a
+    SERVE_BATCH x SERVE_PROMPT prefill and SERVE_TICKS greedy decode ticks
+    through ``models.make_sharded_prefill`` and
+    ``make_sharded_decode_step``, (a) on the local mesh and (b) on a
+    one-rank NCCL world, each against ``prefill`` and ``decode_step`` in
+    the same call: the logits of the prefill and of every tick, every
+    cache leaf after the prefill and after the last tick and the position
+    bit-equal. Counts K3 and K4 a prefill and the collectives a tick;
+    prints the warm prefill and tick ms beside the unsharded ones. Then
+    the meta trace of the same sharded prefill and tick
+    (``dryrun.trace_serve``) equals the counter over the card's calls,
+    exactly. Returns each run's prefill launches."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import distributed as dist_mod
+    from repro_torch.core import make_mesh
+    from repro_torch.launch import dryrun, make_host_mesh
+    from repro_torch.launch.input_specs import InputShape
+    from repro_torch.models import (
+        decode_step, init_params, make_sharded_decode_step, make_sharded_prefill, prefill,
+        sharding,
+    )
+
+    cfg = get_config(arch)
+    B, S, T = SERVE_BATCH, SERVE_PROMPT, SERVE_TICKS
+    params = init_params(cfg, 0, dev)  # on one position a rank's blocks are the leaves
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)
+    n_attn, n_ssm = attention_and_ssm_layers(cfg)
+    per_prefill = {"K3": n_attn, "K4": n_ssm}
+    kernels = lm_kernels()
+
+    def leaves(cache):
+        return [(p, t.clone()) for p, t in sharding.cache_items(cache)]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def serve(pre, tick):
+        """A warm prefill, then the timed one and its ticks: the logits, the
+        caches, launches, ms and collectives a tick."""
+        pre()  # warm: the first call's allocations and libraries
+        for k in kernels.values():
+            k.launches = 0
+        (logits, cache), pre_ms = timed(pre)
+        out = {"prefill_ms": pre_ms, "logits": [logits.clone()], "prefill_cache": leaves(cache),
+               "launches": {n: kernels[n].launches for n in per_prefill}, "tick_ms": [],
+               "collectives": []}
+        for i in range(T):
+            token = toks[i]
+            dist_mod.reset_collective_counts()
+            (logits, cache), ms = timed(lambda: tick(token, cache))
+            out["tick_ms"].append(ms)
+            out["collectives"].append(dict(dist_mod.COLLECTIVES))
+            out["logits"].append(logits.clone())
+        out["cache"] = leaves(cache)
+        return out
+
+    # the reference and its greedy tokens
+    ref_logits, ref_cache = prefill(cfg, params, tokens, extra_len=T)
+    toks = []
+    for _ in range(T):
+        toks.append(ref_logits[:, :cfg.vocab_size].argmax(-1).to(torch.int32))
+        ref_logits, ref_cache = decode_step(cfg, params, toks[-1], ref_cache)
+    del ref_cache
+    ref = serve(lambda: prefill(cfg, params, tokens, extra_len=T),
+                lambda tok, c: decode_step(cfg, params, tok, c))
+
+    def sharded(mesh):
+        pstep, _, bshard, _ = make_sharded_prefill(cfg, mesh, B, S, extra_len=T)
+        dstep, _, tshard, _ = make_sharded_decode_step(cfg, mesh, B, S + T)
+        batch = {"tokens": bshard["tokens"].shard(tokens)}
+        return serve(lambda: pstep(params, batch),
+                     lambda tok, c: dstep(params, tshard.shard(tok), c))
+
+    runs = {"local": sharded(make_host_mesh(1, 1, device=dev))}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device=dev)
+        check(mesh.distributed, f"[{tag}] not a process-group mesh: {mesh}")
+        dist_mod.psum(torch.zeros(1, device=dev), mesh, "data")  # the communicator
+        runs["nccl"] = sharded(mesh)
+    finally:
+        dist.destroy_process_group()
+
+    def same(a, b):
+        return all(pa == pb and torch.equal(ta, tb) for (pa, ta), (pb, tb) in zip(a, b))
+
+    warm = slice(1, T)
+    line = {"phase": tag, "arch": arch, "batch": B, "prompt": S, "ticks": T, "card": card,
+            "prefill/decode_step": {"prefill_ms": ref["prefill_ms"],
+                                    "tick_ms_median": float(np.median(ref["tick_ms"][warm])),
+                                    "launches_per_prefill": ref["launches"]}}
+    for name, r in runs.items():
+        logits_equal = all(torch.equal(a, b) for a, b in zip(r["logits"], ref["logits"]))
+        cache_equal = same(r["prefill_cache"], ref["prefill_cache"]) and same(r["cache"],
+                                                                                ref["cache"])
+        check(logits_equal, f"[{tag} {arch} {name}] logits differ from prefill/decode_step's")
+        check(cache_equal, f"[{tag} {arch} {name}] a cache leaf differs from prefill/"
+              "decode_step's")
+        check(r["launches"] == per_prefill, f"[{tag} {arch} {name}] launches a prefill "
+              f"{r['launches']}, expected {per_prefill}")
+        coll = r["collectives"]
+        check(all(c == coll[0] for c in coll), f"[{tag} {arch} {name}] collectives vary: {coll}")
+        line[name] = {"prefill_ms": r["prefill_ms"],
+                      "tick_ms_median": float(np.median(r["tick_ms"][warm])),
+                      "tick_ms_range": [float(min(r["tick_ms"][warm])),
+                                        float(max(r["tick_ms"][warm]))],
+                      "logits_bit_equal": logits_equal, "cache_bit_equal": cache_equal,
+                      "launches_per_prefill": r["launches"], "collectives_per_tick": coll[0]}
+    print(f"[{tag} {arch} sharded serve] " + json.dumps(line))
+
+    # the meta trace of the same prefill and tick against the card's counter
+    one = make_host_mesh(1, 1, device="meta")
+    pstep, _, bshard, _ = make_sharded_prefill(cfg, make_host_mesh(1, 1, device=dev), B, S,
+                                               extra_len=T)
+    dstep, _, tshard, _ = make_sharded_decode_step(cfg, make_host_mesh(1, 1, device=dev), B,
+                                                   S + T)
+    for kind, seq in (("prefill", S), ("decode", S + T)):
+        rec_trace = recording_counter()
+        t0 = time.perf_counter()
+        trace = dryrun.trace_serve(cfg, InputShape(f"{tag} {kind}", seq, B, kind), one,
+                                   rec_trace, extra_len=T)
+        trace_s = time.perf_counter() - t0
+        logits, cache = pstep(params, {"tokens": tokens})  # warm, and the tick's cache
+        torch.cuda.synchronize()
+        rec_card = recording_counter()
+        with rec_card:
+            if kind == "prefill":
+                pstep(params, {"tokens": tokens})
+            else:
+                dstep(params, toks[0], cache)
+            torch.cuda.synchronize()
+        check_same_counts(f"{tag} {arch} {kind}", trace, rec_trace.log, rec_card.costs,
+                          rec_card.log)
+        print(f"[{tag} {arch} {kind} counted] the meta trace ({trace_s:.2f} s) equals the "
+              f"counter over the card's call: {trace.flops} FLOP, {trace.bytes} bytes, "
+              f"{trace.ops} ops, kernels {dict(trace.kernels)}, collectives "
+              f"{dict(trace.collectives)}; peak live bytes trace {trace.peak_bytes}, card "
+              f"counter {rec_card.costs.peak_bytes}")
+        del logits, cache
+    print(f"[{tag} {arch}] warm ms: prefill {B} x {S} " + ", ".join(
+        f"{k} {v['prefill_ms']:.1f}" for k, v in line.items() if isinstance(v, dict))
+        + f"; decode tick median " + ", ".join(
+        f"{k} {v['tick_ms_median']:.2f}" for k, v in line.items() if isinstance(v, dict))
+        + f"; K3 / K4 a prefill {per_prefill}; collectives a tick "
+        + ", ".join(f"{name} {line[name]['collectives_per_tick']}" for name in runs)
+        + f"; bit-equal " + ", ".join(
+            f"{name} {line[name]['logits_bit_equal'] and line[name]['cache_bit_equal']}"
+            for name in runs) + f" on {card}")
+    del params, ref, runs
+    torch.cuda.empty_cache()
+    return {f"{tag} {arch} sharded prefill {name}": {**dict.fromkeys(kernels, 0), **per_prefill}
+            for name in ("local", "nccl")}
+
+
 def dmtrl_dryrun_against_card(torch, dev, card: str, data) -> dict:
     """Phase 13b: one make_distributed_round at phase 11e's size (the 4096
     tasks of Synthetic-1, d = 100, hinge, one local epoch, one position),
@@ -2901,9 +3089,13 @@ def dmtrl_dryrun_against_card(torch, dev, card: str, data) -> dict:
 
 def dryrun_table(card: str) -> None:
     """Phase 13c: every arch x input shape x mesh through launch.dryrun on
-    the host (meta tensors, fake worlds of 256 and 512 ranks): every train
-    row "ok", prefill and decode "analytic", long_500k "skipped" exactly
-    where shape_applicable says, the whole under DRYRUN_TABLE_S."""
+    the host (meta tensors, fake worlds of 256 and 512 ranks): every
+    train, prefill and decode row "ok" (traced), long_500k "skipped"
+    exactly where shape_applicable says; each row's state at rest plus
+    its traced peak within the card's memory ("fits") but kimi-k2's serve
+    rows (its params alone under the serve-mode specs pass 80 GB); the
+    train rows' traces under DRYRUN_TABLE_S, the serve rows' under
+    DRYRUN_SERVE_S."""
     import collections
 
     from repro_torch.configs import ARCH_IDS, get_config
@@ -2916,31 +3108,35 @@ def dryrun_table(card: str) -> None:
     total = time.perf_counter() - t0
     for r in recs:
         shape = INPUT_SHAPES[r["shape"]]
-        want = ("skipped" if not shape_applicable(get_config(r["arch"]), shape)[0]
-                else "ok" if shape.kind == "train" else "analytic")
-        check(r["status"] == want, f"[13c {r['arch']} {r['shape']} {r['mesh']}] "
-              f"{r['status']}, expected {want}: {r.get('error', r.get('reason'))}")
-        if r["status"] == "ok":
-            print(f"[13c {r['arch']} {r['shape']} {r['mesh']}] {r['trace_s']:.2f} s, "
-                  f"{r['microbatches']} microbatches: "
-                  f"{r['flops_per_device']:.4e} FLOP, {r['bytes_per_device']:.4e} bytes, "
-                  f"collective {r['collective_bytes_per_device']:.4e} bytes "
-                  f"{r['collective_counts']}; compute {r['compute_s']:.4f} s, memory "
-                  f"{r['memory_s']:.4f} s, collective {r['collective_s']:.4f} s "
-                  f"({r['dominant']}); useful {r['useful_flops_ratio']:.4f}; peak "
-                  f"{r['peak_bytes_per_device'] / 1e9:.2f} GB; at rest "
-                  f"{r['step_bytes_at_rest'] / 1e9:.2f} GB, JAX arg bytes "
-                  f"{r['arg_bytes_per_device'] / 1e9:.2f} GB")
-        if r["status"] == "ok":
-            held = r["step_bytes_at_rest"] + r["peak_bytes_per_device"]
-            check(held < CARD_BYTES, f"[13c {r['arch']} {r['shape']} {r['mesh']}] the state at "
-                  f"rest and the traced peak take {held / 1e9:.2f} GB, past the card's "
-                  f"{CARD_BYTES / 1e9:.0f} GB")
+        where = f"[13c {r['arch']} {r['shape']} {r['mesh']}]"
+        want = "skipped" if not shape_applicable(get_config(r["arch"]), shape)[0] else "ok"
+        check(r["status"] == want, f"{where} {r['status']}, expected {want}: "
+              f"{r.get('error', r.get('reason'))}")
+        if r["status"] != "ok":
+            continue
+        micro = f"{r['microbatches']} microbatches" if shape.kind == "train" else shape.kind
+        held = r["step_bytes_at_rest"] + r["peak_bytes_per_device"]
+        print(f"{where} {r['trace_s']:.2f} s, {micro}: "
+              f"{r['flops_per_device']:.4e} FLOP, {r['bytes_per_device']:.4e} bytes, "
+              f"collective {r['collective_bytes_per_device']:.4e} bytes "
+              f"{r['collective_counts']}; compute {r['compute_s']:.4f} s, memory "
+              f"{r['memory_s']:.4f} s, collective {r['collective_s']:.4f} s "
+              f"({r['dominant']}); useful {r['useful_flops_ratio']:.4f}; peak "
+              f"{r['peak_bytes_per_device'] / 1e9:.2f} GB; at rest "
+              f"{r['step_bytes_at_rest'] / 1e9:.2f} GB, JAX arg bytes "
+              f"{r['arg_bytes_per_device'] / 1e9:.2f} GB; fits {r['fits']}")
+        check(r["fits"] == (held <= CARD_BYTES), f"{where} fits {r['fits']} for {held} bytes")
+        too_big = r["arch"] == "kimi-k2-1t-a32b" and shape.kind != "train"
+        check(r["fits"] != too_big, f"{where} the state at rest and the traced peak take "
+              f"{held / 1e9:.2f} GB against the card's {CARD_BYTES / 1e9:.0f} GB")
     counts = collections.Counter(r["status"] for r in recs)
-    print(f"[13c table] {len(recs)} rows {dict(counts)} in {total:.1f} s (rows "
-          f"{sum(r.get('trace_s', 0.0) for r in recs):.1f} s; limit {DRYRUN_TABLE_S:.0f} s); "
-          f"host side of {card}")
-    check(total < DRYRUN_TABLE_S, f"[13c] the table took {total:.1f} s")
+    train_s = sum(r.get("trace_s", 0.0) for r in recs if r["shape"] == "train_4k")
+    serve_s = sum(r.get("trace_s", 0.0) for r in recs if r["shape"] != "train_4k")
+    print(f"[13c table] {len(recs)} rows {dict(counts)} in {total:.1f} s (train rows "
+          f"{train_s:.1f} s, limit {DRYRUN_TABLE_S:.0f} s; serve rows {serve_s:.1f} s, limit "
+          f"{DRYRUN_SERVE_S:.0f} s); host side of {card}")
+    check(train_s < DRYRUN_TABLE_S, f"[13c] the train rows took {train_s:.1f} s")
+    check(serve_s < DRYRUN_SERVE_S, f"[13c] the serve rows took {serve_s:.1f} s")
 
 
 def main() -> int:
@@ -3287,6 +3483,11 @@ def main() -> int:
     mesh_launches.update(dmtrl_dryrun_against_card(torch, dev, card, many.train.to(dev)))
     dryrun_table(card)
     print(f"[13] {time.perf_counter() - t13:.1f} s wall")
+    # -- phase 14: the sharded serving step on one position -----------------
+    t14 = time.perf_counter()
+    for i, arch in enumerate(SERVE_SHARDED):
+        train_by_path.update(sharded_serve_path(torch, dev, card, arch, f"14{'ab'[i]}"))
+    print(f"[14] {time.perf_counter() - t14:.1f} s wall")
 
     def by_kernel(name):
         return {k: v[name] for k, v in {"5c zamba2-2.7b stream": stream_launches,

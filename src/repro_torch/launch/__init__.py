@@ -1,5 +1,5 @@
 """Launchers of the port: the training CLI (``python -m repro_torch.launch.train``),
-the meshes of the sharded train step with the H100's constants
+the meshes of the sharded train and serving steps with the H100's constants
 (``launch.mesh``), and the dry run (``python -m repro_torch.launch.dryrun``,
 ``python -m repro_torch.launch.dryrun_dmtrl``) over ``launch.input_specs``.
 
@@ -8,6 +8,7 @@ of them may be imported here or alone.
 """
 from .mesh import (
     HBM_BW,
+    HBM_BYTES,
     NVLINK_BW,
     PEAK_FLOPS_BF16,
     fake_world,
@@ -18,6 +19,7 @@ from .mesh import (
 
 __all__ = [
     "HBM_BW",
+    "HBM_BYTES",
     "NVLINK_BW",
     "PEAK_FLOPS_BF16",
     "fake_world",

@@ -34,14 +34,17 @@ dtypes and two fp32 moments under the same specs). A trace that raises is
 an ``"error"`` row: JAX's retry without microbatches (an XLA workaround)
 has no counterpart.
 
-Prefill and decode shapes are filled analytically (``model_flops``,
-``arg_bytes_per_device``) with ``"status": "analytic"``: the port has no
-sharded prefill or decode step (JAX gets one from ``jit`` with
-``in_shardings``), and gathering a serve-mode cache per step, with the
-compute repeated on every ``model`` rank, would count collective bytes
-that GSPMD does not move. ``long_500k`` on a pure full-attention arch is
-``"skipped"``, as in JAX; a trace that raises is ``"error"`` with its
-traceback.
+Prefill and decode shapes trace the sharded serving step
+(``models.make_sharded_prefill`` with JAX's ``extra_len`` of 128,
+``models.make_sharded_decode_step`` on ``input_specs``' cache) the same
+way, under JAX's serve-mode specs and decode cache layouts
+(``sharding.decode_cache_shardings``, which ``arg_bytes_per_device`` reads
+too). Their ``step_bytes_at_rest`` is the params under serve-mode specs,
+plus the cache for a decode step (JAX's ``arg_bytes_per_device``). Every
+traced row carries ``fits``: its bytes at rest plus its traced peak within
+one card's memory (``launch.mesh.HBM_BYTES``). ``long_500k`` on a pure
+full-attention arch is ``"skipped"``, as in JAX; a trace that raises is
+``"error"`` with its traceback.
 """
 from __future__ import annotations
 
@@ -60,14 +63,8 @@ from ..configs import ARCH_IDS, get_config
 from ..configs.base import ModelConfig
 from ..roofline.analysis import CostCounter, Costs, roofline_terms
 from .input_specs import INPUT_SHAPES, InputShape, input_specs, shape_applicable
-from .mesh import fake_world, make_dryrun_mesh, production_layout
+from .mesh import HBM_BYTES, fake_world, make_dryrun_mesh, production_layout
 
-ANALYTIC_REASON = (
-    "the port has no sharded prefill or decode step: model_flops and "
-    "arg_bytes_per_device are analytic; a gathered serve-mode cache with the "
-    "compute repeated on every model rank would count collective bytes that "
-    "GSPMD does not move"
-)
 MESH_NAMES = ("single", "multi")
 
 
@@ -98,28 +95,13 @@ def _bytes_per_device(leaves, specs, mesh) -> int:
 
 
 def _cache_leaves(cfg: ModelConfig, cache, mesh, batch: int) -> List[Tuple[torch.Tensor, Any]]:
-    """(leaf, spec) of every leaf of a ``DecodeCache``: the JAX dry run's
-    ``cache_shardings`` (a stacked cache's leading layer axis replicated,
-    the position replicated, the cross k/v split like the batch)."""
-    from ..models.sharding import P, decode_cache_pspec, train_batch_pspec
+    """(leaf, spec) of every leaf of a ``DecodeCache`` under
+    ``sharding.decode_cache_shardings``: the JAX dry run's
+    ``cache_shardings``, the one definition the traced decode step uses."""
+    from ..models.sharding import cache_items, decode_cache_shardings
 
-    out = []
-    if isinstance(cache.layers, dict):
-        spec = decode_cache_pspec(cfg, mesh, batch, "ssm" if cfg.arch_type == "ssm" else "attn")
-        out += [(t, P(*((None,) + tuple(spec[k])))) for k, t in cache.layers.items()]
-    else:
-        for layer, k in zip(cache.layers, cfg.layer_kinds()):
-            kind = "ssm" if k == "ssm" else ("local" if k == "local" else "attn")
-            spec = decode_cache_pspec(cfg, mesh, batch, kind)
-            out += [(t, spec[kk]) for kk, t in layer.items()]
-    out.append((cache.position, P()))
-    if cache.shared is not None:
-        spec = decode_cache_pspec(cfg, mesh, batch, "attn")
-        out += [(t, spec[kk]) for c in cache.shared for kk, t in c.items()]
-    if cache.cross is not None:
-        cross = P(train_batch_pspec(mesh, batch)[0], None, None, None)
-        out += [(t, cross) for kv in cache.cross for t in kv]
-    return out
+    shardings = dict(cache_items(decode_cache_shardings(cfg, mesh, batch, cache)))
+    return [(t, shardings[path].spec) for path, t in cache_items(cache)]
 
 
 def model_flops(cfg: ModelConfig, shape: InputShape) -> float:
@@ -155,7 +137,8 @@ def arg_bytes_per_device(cfg: ModelConfig, shape: InputShape, mesh) -> int:
 def step_bytes_at_rest(cfg: ModelConfig, mesh) -> int:
     """What the port's sharded train step holds per device between steps:
     the params in their dtypes and AdamW's two fp32 moments, under the
-    step's train-mode (FSDP) specs (the step count's 4 bytes left out)."""
+    step's train-mode (FSDP) specs (the step count's 4 bytes left out). A
+    serving step holds its ``arg_bytes_per_device``."""
     from ..models.sharding import param_pspecs, tree_leaves
     from ..models.transformer import param_shapes
 
@@ -253,13 +236,46 @@ def trace_step(cfg: ModelConfig, shape: InputShape, mesh, counter=None, *,
     return count(counter)
 
 
+SERVE_EXTRA_LEN = 128  # the JAX dry run's prefill extra_len
+
+
+def trace_serve(cfg: ModelConfig, shape: InputShape, mesh, counter=None,
+                extra_len: int = SERVE_EXTRA_LEN) -> Costs:
+    """The counts of one sharded serving step at this rank of ``mesh``: a
+    prefill shape's ``make_sharded_prefill`` (``extra_len`` slots past
+    the prompt) on ``input_specs``' batch, a decode shape's
+    ``make_sharded_decode_step`` on its token and cache of ``seq_len``
+    slots; the params from ``param_shapes``, every input sharded by the
+    step's own shardings. ``counter`` (a fresh ``CostCounter`` by default)
+    counts the step."""
+    from ..models import make_sharded_decode_step, make_sharded_prefill, sharding
+    from ..models.transformer import param_shapes
+
+    counter = counter or CostCounter()
+    specs = input_specs(cfg, shape)
+    B = shape.global_batch
+    if shape.kind == "prefill":
+        step, pshard, bshard, _ = make_sharded_prefill(cfg, mesh, B, shape.seq_len,
+                                                       extra_len=extra_len)
+        args = ({k: bshard[k].shard(v) for k, v in specs.items()},)
+    elif shape.kind == "decode":
+        step, pshard, tshard, cshard = make_sharded_decode_step(cfg, mesh, B, shape.seq_len)
+        args = (tshard.shard(specs["token"]), sharding.shard_cache(cshard, specs["cache"]))
+    else:
+        raise ValueError(f"{shape.name} is a {shape.kind} shape: trace_step traces it")
+    params = sharding.shard_tree(pshard, param_shapes(cfg))
+    with counter:
+        step(params, *args)
+    return counter.costs
+
+
 def run_one(arch: str, shape_name: str, mesh_name: str, out_dir: str, mesh=None,
             scaled: bool = True) -> Dict[str, Any]:
-    """One row: traced for a train shape (at rank 0 of ``mesh``, else of a
-    fake world opened for this row), analytic for the others. A step of
-    more than two microbatches is counted from its first two
-    (``trace_step(scaled=True)``) unless ``scaled`` is false; the row says
-    which (``microbatch_counts``)."""
+    """One row, traced at rank 0 of ``mesh`` (else of a fake world opened
+    for this row): the train step for a train shape, the serving step for
+    the others. A train step of more than two microbatches is counted
+    from its first two (``trace_step(scaled=True)``) unless ``scaled`` is
+    false; the row says which (``microbatch_counts``)."""
     cfg = get_config(arch)
     shape = INPUT_SHAPES[shape_name]
     ok, why = shape_applicable(cfg, shape)
@@ -275,24 +291,27 @@ def run_one(arch: str, shape_name: str, mesh_name: str, out_dir: str, mesh=None,
     try:
         flops = model_flops(cfg, shape)
         arg_bytes = arg_bytes_per_device(cfg, shape, sm)
-        if shape.kind != "train":
-            rec.update(status="analytic", reason=ANALYTIC_REASON, model_flops=flops,
-                       arg_bytes_per_device=arg_bytes)
+
+        def trace(m):
+            if shape.kind == "train":
+                return trace_step(cfg, shape, m, scaled=scaled)
+            return trace_serve(cfg, shape, m)
+
+        if mesh is None:
+            with fake_world(n_chips):
+                costs = trace(make_dryrun_mesh(multi_pod=mesh_name == "multi"))
         else:
+            costs = trace(mesh)
+        terms = roofline_terms(costs, arch=arch, shape=shape_name, mesh_name=mesh_name,
+                               n_chips=n_chips, model_flops=flops)
+        at_rest = step_bytes_at_rest(cfg, sm) if shape.kind == "train" else arg_bytes
+        rec.update(status="ok", arg_bytes_per_device=arg_bytes, step_bytes_at_rest=at_rest,
+                   fits=at_rest + costs.peak_bytes <= HBM_BYTES)
+        if shape.kind == "train":
             micro = microbatch_rule(cfg, shape, sm)["microbatches"]
-            if mesh is None:
-                with fake_world(n_chips):
-                    costs = trace_step(cfg, shape, make_dryrun_mesh(multi_pod=mesh_name == "multi"),
-                                       scaled=scaled)
-            else:
-                costs = trace_step(cfg, shape, mesh, scaled=scaled)
-            terms = roofline_terms(costs, arch=arch, shape=shape_name, mesh_name=mesh_name,
-                                   n_chips=n_chips, model_flops=flops)
-            rec.update(status="ok", arg_bytes_per_device=arg_bytes,
-                       step_bytes_at_rest=step_bytes_at_rest(cfg, sm), microbatches=micro,
-                       zero2=os.environ.get("DRYRUN_ZERO2") == "1",
-                       microbatch_counts="scaled" if scaled and micro > 2 else "traced",
-                       **terms.to_row())
+            rec.update(microbatches=micro, zero2=os.environ.get("DRYRUN_ZERO2") == "1",
+                       microbatch_counts="scaled" if scaled and micro > 2 else "traced")
+        rec.update(**terms.to_row())
     except Exception as e:
         rec.update(status="error", error=f"{type(e).__name__}: {e}",
                    traceback=traceback.format_exc()[-4000:])
@@ -323,7 +342,7 @@ def run_all(archs, shapes, meshes, out_dir: str, skip_done: bool = False, echo=p
                     fn = os.path.join(out_dir, f"{arch}__{shape}__{mesh_name}.json")
                     if skip_done and os.path.exists(fn):
                         with open(fn) as f:
-                            if json.load(f).get("status") in ("ok", "skipped", "analytic"):
+                            if json.load(f).get("status") in ("ok", "skipped"):
                                 continue
                     rec = run_one(arch, shape, mesh_name, out_dir, mesh=mesh, scaled=scaled)
                     recs.append(rec)

@@ -76,5 +76,6 @@ def make_host_mesh(data: int = 1, model: int = 1, device="cuda") -> Mesh:
 # direction over its 18 links (900 GB/s both ways): the counterpart of the
 # JAX package's ICI_BW. The card's power limit lowers what it sustains.
 PEAK_FLOPS_BF16 = 989e12
+HBM_BYTES = 80e9  # device memory: an H100 SXM's 80 GB of HBM3
 HBM_BW = 3.35e12
 NVLINK_BW = 450e9

@@ -11,6 +11,8 @@ from .transformer import (
     init_decode_cache,
     init_params,
     loss_fn,
+    make_sharded_decode_step,
+    make_sharded_prefill,
     prefill,
 )
 
@@ -27,5 +29,7 @@ __all__ = [
     "init_decode_cache",
     "init_params",
     "loss_fn",
+    "make_sharded_decode_step",
+    "make_sharded_prefill",
     "prefill",
 ]

@@ -60,11 +60,13 @@ def init_attn_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict[str,
     return p
 
 
-def _project_qkv(x: Tensor, p: Dict[str, Tensor], cfg: ModelConfig, tp=NO_SPLIT):
+def _project_qkv(x: Tensor, p: Dict[str, Tensor], cfg: ModelConfig, tp=NO_SPLIT,
+                 all_kv: bool = False):
     """q of this rank's q heads (all of them unless the spec split ``wq``),
-    the k and v heads they read, and the offset of its first q head in the
-    expansion of those (``_expand_kv``). Under a split (``tp``) x enters
-    it, and so do the per-head q and k norms."""
+    the k and v heads they read (every kv head of a replicated ``wk`` with
+    ``all_kv``), and the offset of its first q head in the expansion of
+    those (``_expand_kv``). Under a split (``tp``) x enters it, and so do
+    the per-head q and k norms."""
     B, S, _ = x.shape
     x = tp.enter(x)
     q = x @ p["wq"]
@@ -74,7 +76,7 @@ def _project_qkv(x: Tensor, p: Dict[str, Tensor], cfg: ModelConfig, tp=NO_SPLIT)
     q = q.reshape(B, S, hl, cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm(q, tp.enter(p["q_norm"]), cfg.norm_eps)
-    k, v, off = _project_kv(x, p, cfg, tp, hl)
+    k, v, off = _project_kv(x, p, cfg, tp, hl, all_kv=all_kv)
     return q, k, v, off
 
 
@@ -86,14 +88,15 @@ def _head_split(shard, cfg: ModelConfig, hl: int):
 
 
 def _project_kv(src: Tensor, p: Dict[str, Tensor], cfg: ModelConfig, tp, hl: int,
-                cross: bool = False) -> Tuple[Tensor, Tensor, int]:
+                cross: bool = False, all_kv: bool = False) -> Tuple[Tensor, Tensor, int]:
     """The k and v heads that this rank's ``hl`` q heads read, from ``src``
     (already through ``tp.enter``), and the offset of its first q head in
     their expansion. Split kv heads (``wk`` by columns) are this rank's
     own; replicated ones enter the split block (their gradient is this
     rank's part) and only the needed heads are computed (all of them, and
-    offset 0, without a split). Cross-attention (``cross``) takes no bias
-    and no k norm."""
+    offset 0, without a split), or all of them with ``all_kv`` (the
+    serving step's cache holds every kv head). Cross-attention (``cross``)
+    takes no bias and no k norm."""
     hd, rep = cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
     kvl = p["wk"].shape[-1] // hd
     wk, wv = p["wk"], p["wv"]
@@ -101,7 +104,7 @@ def _project_kv(src: Tensor, p: Dict[str, Tensor], cfg: ModelConfig, tp, hl: int
     off = 0
     if kvl == cfg.n_kv_heads:  # replicated: the kv heads of q heads [q0, q0 + hl)
         q0 = tp.coord * hl
-        kv0, kv1 = q0 // rep, (q0 + hl - 1) // rep + 1
+        kv0, kv1 = (0, cfg.n_kv_heads) if all_kv else (q0 // rep, (q0 + hl - 1) // rep + 1)
         off = q0 - kv0 * rep
         cols = slice(kv0 * hd, kv1 * hd)
         wk, wv = tp.enter(wk)[:, cols], tp.enter(wv)[:, cols]
@@ -185,7 +188,10 @@ def attention_train(
     kv heads when the spec splits them too, else the replicated ones those
     heads read (their k and v computed here, their gradient this rank's
     part, completed by ``enter``). One psum closes the block. Unsplit
-    heads run as without a shard."""
+    heads run as without a shard. Under the serving step
+    (``shard.serving``) the returned k/v are what this rank's decode cache
+    keeps: every kv head of a replicated ``wk``, at its block of
+    ``head_dim`` where the cache splits it."""
     B, S, _ = x.shape
     if real_length(positions) < S and not causal:
         raise ValueError(
@@ -194,7 +200,7 @@ def attention_train(
         )
     hl = p["wq"].shape[-1] // cfg.head_dim
     tp = _head_split(shard, cfg, hl)
-    q, kkv, vkv, off = _project_qkv(x, p, cfg, tp)
+    q, kkv, vkv, off = _project_qkv(x, p, cfg, tp, all_kv=shard is not None and shard.serving)
     if cfg.rope_theta > 0:
         index = torch.arange(S, device=x.device)[None, :]
         q = apply_rope(q, index, cfg.rope_theta)
@@ -205,6 +211,11 @@ def attention_train(
     out = _attend(q, k, v, causal, window)
     out = tp.leave(out.reshape(B, S, hl * cfg.head_dim) @ p["wo"])
     if return_kv:
+        if shard is not None and shard.serving and shard.hd_split:
+            # the cache keeps this rank's block of head_dim: a copy, so that
+            # the whole k and v are freed with the layer
+            d0, n = shard.hd_block(cfg.head_dim)
+            kkv, vkv = kkv.narrow(-1, d0, n).contiguous(), vkv.narrow(-1, d0, n).contiguous()
         return out, (kkv, vkv)
     return out
 
@@ -222,6 +233,19 @@ def cross_kv(enc: Tensor, p: Dict[str, Tensor], cfg: ModelConfig,
     k, v, off = _project_kv(tp.enter(enc), p, cfg, tp, hl, cross=True)
     rep = cfg.n_heads // cfg.n_kv_heads
     return _expand_kv(k, rep, hl, off), _expand_kv(v, rep, hl, off)
+
+
+def cross_cache_kv(enc: Tensor, p: Dict[str, Tensor], cfg: ModelConfig,
+                   shard=None) -> Tuple[Tensor, Tensor]:
+    """Every head's cross k and v (B, F, H, hd) of the encoder states, for
+    the serving step's cross cache (split only like the batch, as JAX's dry
+    run says): ``wk`` and ``wv`` gathered whole over ``model`` first where
+    the spec split them (a weight, not the cache), then ``cross_kv``."""
+    wk, wv = p["wk"], p["wv"]
+    if wk.shape[-1] != cfg.n_kv_heads * cfg.head_dim:
+        split = model_split(shard)
+        wk, wv = split.gather(wk, -1), split.gather(wv, -1)
+    return cross_kv(enc, {"wk": wk, "wv": wv}, cfg)
 
 
 def cross_attend(x: Tensor, k: Tensor, v: Tensor, p: Dict[str, Tensor],
@@ -254,6 +278,7 @@ def cache_from_kv(
     is_local: bool,
     max_len: int,
     positions: Optional[Tensor] = None,  # (S,): arange(L) then -1s; None = arange(S)
+    shard=None,
 ) -> Dict[str, Tensor]:
     """Assemble a decode cache from prefill k/v, with ring placement for
     local (sliding-window) layers.
@@ -261,7 +286,21 @@ def cache_from_kv(
     Real entries keep the slot == position layout the decode writer
     assumes (a local layer: slot == position % window, the last ``window``
     real entries kept); pad entries (position -1) land with ``pos = -1``,
-    so ``attention_decode`` masks them."""
+    so ``attention_decode`` masks them.
+
+    Under the serving step (``shard``, a ``sharding.ServeSharding``) k and
+    v are this rank's rows, kv heads and block of ``head_dim``, as
+    ``attention_train`` returns them there, and the cache is this rank's
+    block of the whole: its slots cut to its block where the batch axes
+    split the sequence."""
+    cache = _cache_from_kv(cfg, k, v, is_local, max_len, positions)
+    if shard is None or shard.seq_parts == 1:
+        return cache
+    s0, n = shard.seq_block(cache["pos"].shape[1])
+    return {key: t.narrow(1, s0, n).clone() for key, t in cache.items()}
+
+
+def _cache_from_kv(cfg, k, v, is_local, max_len, positions):
     B, S = k.shape[:2]
     L = S if positions is None else real_length(positions)
     dev = k.device
@@ -310,40 +349,105 @@ def attention_decode(
     cfg: ModelConfig,
     position: Tensor,  # scalar OR (B,) int — current absolute position(s)
     is_local: bool,
+    shard=None,
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """One-token decode; ``position`` is a scalar or per-row ``(B,)``.
     Writes land at ``slot == position`` per row (a local layer's ring:
     ``position % size``), IN PLACE in ``cache`` (the JAX package returns
-    updated copies); the same dict comes back."""
+    updated copies); the same dict comes back.
+
+    Under the serving step (``shard``, a ``sharding.ServeSharding``) x is
+    this rank's rows and ``cache`` this rank's block in the layout of
+    ``decode_cache_pspec``; a rank attends over the cache it holds, and no
+    collective moves a cache block:
+
+      * kv heads split over ``model``: this rank's kv heads are those its q
+        heads read; one psum closes ``wo``'s rows, as in prefill;
+      * ``head_dim`` split over ``model`` (the kv heads do not divide): the
+        rank holds every kv head at its block of ``hd``. k is roped whole
+        (RoPE rotates pairs across blocks) from the replicated ``wk`` and
+        cut to the block; q of every head, gathered over ``model`` where
+        ``wq`` splits the heads, is cut likewise. The scores are partial
+        sums over the blocks: one psum of the (B, H, S) fp32 scores, the
+        softmax on every rank, then each rank's block of the output,
+        gathered along ``hd``, into ``wo`` (its rows of this rank's heads
+        and a psum, or whole where ``wq`` is replicated);
+      * the slots split over the batch axes (B = 1): the new token's k/v is
+        written only by the rank whose block holds its slot; each rank's
+        scores over its slots are combined flash-decoding style: the
+        ``pmax`` of the row max, then one psum of the exp-sums and the
+        weighted v.
+
+    On one position this runs today's ops."""
     B = x.shape[0]
     hd = cfg.head_dim
     local = bool(is_local and cfg.window)
-    q, k, v, _ = _project_qkv(x, p, cfg)  # (B,1,H,hd), (B,1,KV,hd)
+    hl = p["wq"].shape[-1] // hd
+    tp = _head_split(shard, cfg, hl)
+    split = model_split(shard)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    all_kv = cache["k"].shape[2] == cfg.n_kv_heads  # the cache holds every kv head
+    q, k, v, off = _project_qkv(x, p, cfg, tp, all_kv=all_kv)  # (B,1,hl,hd), (B,1,KV,hd)
     pos_v = torch.broadcast_to(position, (B,)).long()
     if cfg.rope_theta > 0:
         q = apply_rope(q, pos_v[:, None], cfg.rope_theta)
         k = apply_rope(k, pos_v[:, None], cfg.rope_theta)
+    hd_split = shard is not None and shard.hd_split
+    if hd_split:  # this rank's block of every head's q and of the new k/v
+        d0, hdc = shard.hd_block(hd)
+        if hl < cfg.n_heads:
+            q = split.gather(q, 2)
+        q, k, v = q.narrow(-1, d0, hdc), k.narrow(-1, d0, hdc), v.narrow(-1, d0, hdc)
 
     size = cache["k"].shape[1]
-    slot = torch.clamp(pos_v % size if local else pos_v, max=size - 1)
+    seq_parts = 1 if shard is None else shard.seq_parts
+    total = size * seq_parts
+    slot = torch.clamp(pos_v % total if local else pos_v, max=total - 1)
     rows = torch.arange(B, device=x.device)
-    cache["k"][rows, slot] = k[:, 0]
-    cache["v"][rows, slot] = v[:, 0]
-    cache["pos"][rows, slot] = pos_v.to(torch.int32)
+    if seq_parts == 1:
+        cache["k"][rows, slot] = k[:, 0]
+        cache["v"][rows, slot] = v[:, 0]
+        cache["pos"][rows, slot] = pos_v.to(torch.int32)
+    else:  # only the rank whose block holds the slot writes it
+        s0, _ = shard.seq_block(total)
+        at = slot - s0
+        mine = (at >= 0) & (at < size)
+        at = at.clamp(0, size - 1)
+        for key, new in (("k", k[:, 0]), ("v", v[:, 0]), ("pos", pos_v.to(torch.int32))):
+            old = cache[key][rows, at]
+            m = mine.view((B,) + (1,) * (new.dim() - 1))
+            cache[key][rows, at] = torch.where(m, new, old)
 
-    rep = cfg.n_heads // cfg.n_kv_heads
-    kk = _expand_kv(cache["k"], rep).float()  # (B, size, H, hd)
-    vv = _expand_kv(cache["v"], rep).float()
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) * (1.0 / math.sqrt(hd))
+    heads = cfg.n_heads if hd_split else hl
+    q0 = 0 if hd_split else off
+    kk = _expand_kv(cache["k"], rep, heads, q0).float()  # (B, size, heads, hd or block)
+    vv = _expand_kv(cache["v"], rep, heads, q0).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk)
+    if hd_split:  # the blocks' partial sums
+        s = split.leave(s)
+    s = s * (1.0 / math.sqrt(hd))
     cpos = cache["pos"]
     valid = (cpos >= 0) & (cpos <= pos_v[:, None])
     if local:
         valid &= cpos > pos_v[:, None] - cfg.window
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
-    w = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", w, vv)
-    out = out.to(x.dtype).reshape(B, 1, cfg.n_heads * hd)
-    return out @ p["wo"], cache
+    if seq_parts == 1:
+        w = torch.softmax(s, dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", w, vv)
+    else:  # flash-decoding combine over the blocks of slots
+        m = shard.seq_max(s.amax(dim=-1, keepdim=True))
+        e = torch.exp(s - m)
+        part = torch.cat([torch.einsum("bhqk,bkhd->bqhd", e, vv),
+                          e.sum(dim=-1).permute(0, 2, 1)[..., None]], dim=-1)
+        part = shard.seq_sum(part)
+        out = part[..., :-1] / part[..., -1:]
+    out = out.to(x.dtype)
+    if hd_split:  # every head whole, then this rank's heads
+        out = split.gather(out, -1)
+        if hl < cfg.n_heads:
+            out = out.narrow(2, tp.coord * hl, hl)
+    out = out.reshape(B, 1, hl * hd)
+    return tp.leave(out @ p["wo"]), cache
 
 
 def cross_attention_decode(
@@ -351,14 +455,22 @@ def cross_attention_decode(
     enc_kv: Tuple[Tensor, Tensor],  # the cached expanded (B, F, H, hd) k, v
     p: Dict[str, Tensor],
     cfg: ModelConfig,
+    shard=None,
 ) -> Tensor:
     """One token's cross-attention against the cached encoder k/v, plain
-    torch in fp32 as in the JAX package; the output in x's dtype."""
+    torch in fp32 as in the JAX package; the output in x's dtype. Under
+    the serving step the cross cache holds every head of this rank's rows
+    (split like the batch, as JAX's dry run says): q heads split over
+    ``model`` read their own heads of it, and one psum closes ``wo``."""
     B = x.shape[0]
     hd = cfg.head_dim
-    q = _matmul(x, p["wq"]).reshape(B, 1, cfg.n_heads, hd)
+    hl = p["wq"].shape[-1] // hd
+    tp = _head_split(shard, cfg, hl)
+    q = _matmul(tp.enter(x), p["wq"]).reshape(B, 1, hl, hd)
     k, v = enc_kv
+    if hl < k.shape[2]:
+        k, v = k.narrow(2, tp.coord * hl, hl), v.narrow(2, tp.coord * hl, hl)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(hd))
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", w, v.float())
-    return _matmul(out.to(x.dtype).reshape(B, 1, cfg.n_heads * hd), p["wo"])
+    return tp.leave(_matmul(out.to(x.dtype).reshape(B, 1, hl * hd), p["wo"]))

@@ -29,6 +29,7 @@ lacks, or splits a dim its axes do not divide, raises.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Optional, Tuple
 
@@ -393,6 +394,106 @@ def decode_cache_pspec(cfg: ModelConfig, mesh, batch: int, kind: str) -> Any:
             "pos": P(b_ax, s_ax)}
 
 
+def _cache_map(fn, cache, *rest):
+    """``fn`` over the leaves of a ``transformer.DecodeCache`` (a stacked
+    dict or a list of per-layer dicts, the position, the shared-block and
+    cross caches) and the matching leaves of ``rest``."""
+    def layers(node, *r):
+        if isinstance(node, dict):
+            return {k: fn(v, *(x[k] for x in r)) for k, v in node.items()}
+        return [layers(n, *(x[i] for x in r)) for i, n in enumerate(node)]
+
+    shared = (None if cache.shared is None else
+              [layers(c, *(x.shared[i] for x in rest)) for i, c in enumerate(cache.shared)])
+    cross = (None if cache.cross is None else
+             [tuple(fn(t, *(x.cross[i][j] for x in rest)) for j, t in enumerate(kv))
+              for i, kv in enumerate(cache.cross)])
+    return dataclasses.replace(cache, layers=layers(cache.layers, *(x.layers for x in rest)),
+                               position=fn(cache.position, *(x.position for x in rest)),
+                               shared=shared, cross=cross)
+
+
+def cache_items(cache, prefix: str = ""):
+    """(path, leaf) of every leaf of a ``DecodeCache``, in a fixed order:
+    ``layers/<i or key>/<key>``, ``position``, ``shared/<i>/<key>``,
+    ``cross/<i>/<0 or 1>``."""
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                yield from walk(node[k], f"{path}/{k}")
+        elif isinstance(node, (list, tuple)):
+            for i, n in enumerate(node):
+                yield from walk(n, f"{path}/{i}")
+        else:
+            yield path, node
+
+    yield from walk(cache.layers, "layers")
+    yield "position", cache.position
+    if cache.shared is not None:
+        yield from walk(cache.shared, "shared")
+    if cache.cross is not None:
+        yield from walk(cache.cross, "cross")
+
+
+def decode_cache_shardings(cfg: ModelConfig, mesh, batch: int, cache):
+    """The ``NamedSharding`` of every leaf of ``cache`` (a
+    ``transformer.DecodeCache`` of any tensors, e.g. meta ones, giving the
+    structure), as a ``DecodeCache`` of shardings: the JAX dry run's
+    ``cache_shardings`` leaf for leaf (``src/repro/launch/dryrun.py``).
+    Each layer's leaves take ``decode_cache_pspec`` of its kind; a stacked
+    cache's leading layer axis is replicated; the position is replicated;
+    the shared block's caches are global attention's; the cross k/v are
+    split like the batch (``train_batch_pspec``'s first entry). ``mesh``
+    needs only ``.shape`` (the dry run's shape-only mesh) unless the
+    shardings shard or gather."""
+    def bind(spec):
+        return NamedSharding(mesh, spec)
+
+    def kind_of(k):
+        return "ssm" if k == "ssm" else ("local" if k == "local" else "attn")
+
+    if isinstance(cache.layers, dict):
+        spec = decode_cache_pspec(cfg, mesh, batch, "ssm" if cfg.arch_type == "ssm" else "attn")
+        layers: Any = {k: bind(P(None, *spec[k])) for k in cache.layers}
+    else:
+        layers = []
+        for layer, k in zip(cache.layers, cfg.layer_kinds()):
+            spec = decode_cache_pspec(cfg, mesh, batch, kind_of(k))
+            layers.append({kk: bind(spec[kk]) for kk in layer})
+    shared = None
+    if cache.shared is not None:
+        spec = decode_cache_pspec(cfg, mesh, batch, "attn")
+        shared = [{kk: bind(spec[kk]) for kk in c} for c in cache.shared]
+    cross = None
+    if cache.cross is not None:
+        ns = bind(P(train_batch_pspec(mesh, batch)[0], None, None, None))
+        cross = [(ns, ns) for _ in cache.cross]
+    return dataclasses.replace(cache, layers=layers, position=bind(P()), shared=shared,
+                               cross=cross)
+
+
+def shard_cache(shardings, cache):
+    """This rank's blocks of a ``DecodeCache`` of full tensors."""
+    return _cache_map(lambda t, s: s.shard(t), cache, shardings)
+
+
+def gather_cache(shardings, cache):
+    """The full tensors of a ``DecodeCache`` of this rank's blocks."""
+    return _cache_map(lambda t, s: s.gather(t), cache, shardings)
+
+
+def logits_sharding(cfg: ModelConfig, mesh, batch: int) -> "NamedSharding":
+    """Where the sharded serving step's logits (B, Vp) lie: the rows split
+    like the batch (when it divides the batch axes), the vocabulary over
+    ``model`` where ``lm_head``'s spec splits it. Its ``gather`` gives the
+    whole logits."""
+    dp = batch_axes(mesh)
+    dsz = math.prod(mesh.shape[a] for a in dp)
+    rows = dp if _div(batch, dsz) else None
+    vocab = MODEL_AXIS if _div(cfg.vocab_padded, _model_size(mesh)) else None
+    return NamedSharding(mesh, P(rows, vocab))
+
+
 # ---------------------------------------------------------------------------
 # the sharded train step's view, handed to the model
 # ---------------------------------------------------------------------------
@@ -410,6 +511,9 @@ class StepSharding:
     rank's block over the others. Nothing is gathered over ``model``: the
     model code computes on each leaf's ``model`` block (``ModelSplit``).
     ``psum_batch`` sums over ``grad_axes``."""
+
+    # the serving step's view (``ServeSharding``) also builds decode caches
+    serving = False
 
     def __init__(self, mesh, shardings, grad_axes: Tuple[str, ...] = ()):
         self.mesh = mesh
@@ -448,6 +552,74 @@ class StepSharding:
         return t
 
 
+class ServeSharding(StepSharding):
+    """What the sharded serving step (``transformer.make_sharded_prefill``,
+    ``make_sharded_decode_step``) hands the model: the serve-mode param
+    shardings (split over ``model`` only: nothing is gathered over the
+    batch axes) and no ``grad_axes``, plus the decode cache's layout for a
+    global batch of ``batch`` rows, ``decode_cache_pspec``'s:
+
+      * ``row_axes``: the batch axes that split the rows, when the batch
+        divides them; each rank then runs its rows (``rows``);
+      * ``seq_axes``: else (B = 1, context parallelism) the same axes split
+        the cache's slots: every rank runs the whole batch, holds its block
+        of each cache's slots (``seq_block``) and attends over it alone,
+        the softmax combined over ``seq_axes`` (``seq_max``, ``seq_sum``);
+      * ``kv_split``: the cache's kv heads split over ``model`` (a rank's
+        kv heads are those its q heads read), else ``hd_split``: every kv
+        head at this rank's block of ``head_dim`` (``hd_block``), whose
+        scores are partial sums over ``model``;
+      * ``serving``: prefill computes every kv head a replicated ``wk``
+        gives (the cache holds them all), not only those its q heads read.
+
+    On one position nothing is split and every call is the identity."""
+
+    serving = True
+
+    def __init__(self, mesh, shardings, cfg: ModelConfig, batch: int):
+        super().__init__(mesh, shardings, ())
+        dp = batch_axes(mesh)
+        dsz = math.prod(mesh.shape[a] for a in dp)
+        self.row_axes = dp if _div(batch, dsz) else ()
+        self.seq_axes = () if self.row_axes else dp
+        self.seq_parts = math.prod(mesh.shape[a] for a in self.seq_axes)
+        self.seq_index = NamedSharding(mesh, P(self.seq_axes or None)).block_index(0)
+        self.row_parts = math.prod(mesh.shape[a] for a in self.row_axes)
+        self.row_index = NamedSharding(mesh, P(self.row_axes or None)).block_index(0)
+        msz = _model_size(mesh)
+        self.kv_split = msz > 1 and _div(cfg.n_kv_heads, msz)
+        self.hd_split = msz > 1 and not self.kv_split and _div(cfg.head_dim, msz)
+
+    def rows(self, t: Tensor) -> Tensor:
+        """This rank's block of the rows (dim 0) of a tensor every rank
+        holds whole (the replicated tokens, a per-row position)."""
+        if self.row_parts == 1:
+            return t
+        n = t.shape[0] // self.row_parts
+        return t.narrow(0, self.row_index * n, n)
+
+    def seq_block(self, size: int) -> Tuple[int, int]:
+        """(first slot, slots) of this rank's block of a cache of ``size``
+        slots in all."""
+        n = size // self.seq_parts
+        return self.seq_index * n, n
+
+    def hd_block(self, hd: int) -> Tuple[int, int]:
+        """(first, width) of this rank's block of ``head_dim``."""
+        n = hd // self.split.size if self.hd_split else hd
+        return (self.split.coord * n if self.hd_split else 0), n
+
+    def seq_max(self, t: Tensor) -> Tensor:
+        for a in self.seq_axes:
+            t = dist_mod.pmax(t, self.mesh, a)
+        return t
+
+    def seq_sum(self, t: Tensor) -> Tensor:
+        for a in self.seq_axes:
+            t = dist_mod.psum(t, self.mesh, a)
+        return t
+
+
 class ModelSplit:
     """The compute split over ``model`` (Megatron-style, as the specs say),
     for the model code under the sharded step: the axis's ``size`` and this
@@ -480,6 +652,13 @@ class ModelSplit:
 
     def pmax(self, t: Tensor) -> Tensor:
         return dist_mod.pmax(t, self.mesh, MODEL_AXIS) if self.size > 1 else t
+
+    def gather(self, t: Tensor, dim: int) -> Tensor:
+        """The ranks' blocks of ``t`` along ``dim``, whole; not
+        differentiable (the serving step's)."""
+        if self.size == 1:
+            return t
+        return dist_mod.all_gather_dim(t, self.mesh, MODEL_AXIS, dim)
 
     def gather_last(self, t: Tensor) -> Tensor:
         """The ranks' blocks of ``t`` along its last dim, whole (each rank

@@ -213,39 +213,73 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, device) -> Dict[str, Ten
     }
 
 
+def full_conv_window(conv: Tensor, cfg: ModelConfig, split=NO_SPLIT) -> Tensor:
+    """A conv window (B, K-1, ch) whole over ``model``: under a split of the
+    heads a rank computes only its own x channels (``w_x`` by columns), so
+    their block is gathered over ``model`` (B and C are every rank's);
+    without one, the window as it is."""
+    bc = 2 * cfg.ssm_groups * cfg.ssm_state
+    dl = conv.shape[-1] - bc
+    if dl == cfg.d_inner:
+        return conv
+    return torch.cat([split.gather(conv[..., :dl], -1), conv[..., dl:]], dim=-1)
+
+
 def ssm_block_decode(
     x: Tensor,  # (B, 1, d_model)
     cache: Dict[str, Tensor],
     p: Dict[str, Tensor],
     cfg: ModelConfig,
+    shard=None,
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """One-token step. The state and the conv window are updated IN PLACE
     in ``cache`` (the JAX package returns new arrays); the same dict comes
-    back."""
+    back.
+
+    Under the serving step (``shard``) heads split over ``model`` run this
+    rank's heads: the state is this rank's heads' (``P(b, model, None,
+    None)``); the conv window is whole on every rank, as JAX's spec keeps
+    it (``P(b, None, None)``), so the new column's x channels, which each
+    rank computes for its own heads, are gathered over ``model`` before
+    the window moves, and each rank convolves its own x channels and all
+    of B's and C's. The gated norm's mean of squares is summed over
+    ``model`` and one psum closes ``out_proj``'s rows, as in prefill."""
     B = x.shape[0]
     h, n, g, di = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_groups, cfg.d_inner
     P = cfg.ssm_head_dim
+    hl = p["A_log"].shape[0]
+    split = model_split(shard) if hl < h else NO_SPLIT
 
-    z, xbc_t, dt_raw = _project(x[:, 0], p, cfg)
+    z, xbc_t, dt_raw = _project(x[:, 0], p, cfg, split)
+    xbc_t = full_conv_window(xbc_t, cfg, split)
     window = torch.cat([cache["conv"], xbc_t[:, None]], dim=1)  # (B, K, ch)
-    conv_out = torch.einsum("bkc,kc->bc", window, p["conv_w"]) + p["conv_b"]
+    conv_w, conv_b, win = p["conv_w"], p["conv_b"], window
+    if hl < h:  # this rank's x channels of the conv, and all of B's and C's
+        c0, dl = split.coord * hl * P, hl * P
+        conv_w = torch.cat([conv_w[:, c0:c0 + dl], conv_w[:, di:]], dim=-1)
+        conv_b = torch.cat([conv_b[c0:c0 + dl], conv_b[di:]], dim=-1)
+        win = torch.cat([window[..., c0:c0 + dl], window[..., di:]], dim=-1)
+        di = dl
+    conv_out = torch.einsum("bkc,kc->bc", win, conv_w) + conv_b
     xbc = F.silu(conv_out)
 
-    xs = xbc[..., :di].float().reshape(B, h, P)
-    Bm = xbc[..., di : di + g * n].float().reshape(B, g, n)
-    Cm = xbc[..., di + g * n :].float().reshape(B, g, n)
-    if g != h:
-        Bm = torch.repeat_interleave(Bm, h // g, dim=1)
-        Cm = torch.repeat_interleave(Cm, h // g, dim=1)
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])  # (B, h)
+    xs = xbc[..., :di].float().reshape(B, hl, P)
+    Bm = xbc[..., di : di + g * n].float().reshape(B, 1, g, n)
+    Cm = xbc[..., di + g * n :].float().reshape(B, 1, g, n)
+    Bm = _local_groups(Bm, h, hl, split.coord)[:, 0]
+    Cm = _local_groups(Cm, h, hl, split.coord)[:, 0]
+    if Bm.shape[1] != hl:
+        Bm = torch.repeat_interleave(Bm, hl // Bm.shape[1], dim=1)
+        Cm = torch.repeat_interleave(Cm, hl // Cm.shape[1], dim=1)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])  # (B, hl)
     A = -torch.exp(p["A_log"])
-    a = torch.exp(dt * A)  # (B, h)
+    a = torch.exp(dt * A)  # (B, hl)
 
-    u = xs * dt[..., None]  # (B, h, P)
+    u = xs * dt[..., None]  # (B, hl, P)
     s = cache["state"]
     s.mul_(a[..., None, None]).add_(torch.einsum("bhp,bhn->bhpn", u, Bm))
     y = torch.einsum("bhn,bhpn->bhp", Cm, s) + xs * p["D"][None, :, None]
     y = y.reshape(B, 1, di).to(x.dtype)
-    y = gated_rms_norm(y, z[:, None], p["norm"], cfg.norm_eps)
+    y = gated_rms_norm(y, z[:, None], p["norm"], cfg.norm_eps, split)
     cache["conv"].copy_(window[:, 1:])
-    return y @ p["out_proj"], cache
+    return split.leave(y @ p["out_proj"]), cache

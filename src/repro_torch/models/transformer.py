@@ -15,6 +15,8 @@ Entry points:
     encode_audio(cfg, params, frames)            -> encoder states (B, F, d)
     prefill(cfg, params, tokens, side)           -> (last_logits, DecodeCache)
     decode_step(cfg, params, token, cache)       -> (logits, DecodeCache)
+    make_sharded_prefill(cfg, mesh, B, S)        -> (step, param, batch, cache shardings)
+    make_sharded_decode_step(cfg, mesh, B, L)    -> (step, param, token, cache shardings)
 
 Params are a plain dict with the JAX package's pytree keys, the layer axis
 stacked in front (``params["layers"]["attn"]["wq"]`` is (n_layers, d,
@@ -49,6 +51,15 @@ attention by heads, the MLP by its hidden dim, the MoE by experts, Mamba2
 by heads, the embedding by columns (the rows gathered along d) and the
 loss by vocabulary (``_nll``), each block closing with one psum.
 
+The sharded serving step (``make_sharded_prefill``,
+``make_sharded_decode_step``: JAX's ``jit(prefill / decode_step,
+in_shardings=...)`` of its dry run) hands ``prefill`` and ``decode_step``
+a ``sharding.ServeSharding``: serve-mode params split over ``model`` only,
+each rank its rows, and the decode cache in the layout of
+``decode_cache_pspec`` (kv heads, or ``head_dim``, split over ``model``;
+the slots over the batch axes when the batch is 1), over which each rank
+attends alone.
+
 Mixed dtypes follow JAX's type promotion, made explicit (torch does not
 promote inside a matmul): fp32 audio frames plus a bf16 model run the
 encoder in fp32 against the bf16 weights, so the cross-attention k/v and
@@ -69,7 +80,20 @@ from . import attention as attn_mod
 from . import mlp as mlp_mod
 from . import ssm as ssm_mod
 from .common import dense_init, dtype_of, embed_init, rms_norm
-from .sharding import MODEL_AXIS, model_split, spec_axes, use
+from ..core import distributed as dist_mod
+from .sharding import (
+    MODEL_AXIS,
+    NamedSharding,
+    P,
+    ServeSharding,
+    decode_cache_shardings,
+    entry_axes,
+    model_split,
+    param_shardings,
+    spec_axes,
+    train_batch_pspec,
+    use,
+)
 
 Tensor = torch.Tensor
 
@@ -377,7 +401,9 @@ def _cross_heads(cfg: ModelConfig, shard) -> Optional[int]:
 def _forward(cfg: ModelConfig, params, tokens: Tensor, side: Optional[Tensor],
              positions: Tensor, shard=None):
     """(h before the final norm, per-layer cache material, the MoE aux_loss,
-    the cross-attention (k, v) of each decoder layer or None)."""
+    the cross-attention (k, v) of each decoder layer or None: under the
+    serving step every head's, for the cache, of which this rank's heads
+    attend)."""
     h = _embed(cfg, params, tokens, shard)
     if not cfg.is_encoder_decoder:
         return _scan_layers(cfg, params, h, positions, shard) + (None,)
@@ -389,10 +415,18 @@ def _forward(cfg: ModelConfig, params, tokens: Tensor, side: Optional[Tensor],
     # wk and wv (gathered here alone under the sharded step)
     cross_keys = ("wk", "wv")
     hl = _cross_heads(cfg, shard)
-    cross = [attn_mod.cross_kv(
-        enc, use(shard, {"attn": {k: cp["attn"][k] for k in cross_keys}},
-                 "cross_layers")["attn"], cfg, shard, hl) for cp in cross_layers]
-    del enc
+    weights = [use(shard, {"attn": {k: cp["attn"][k] for k in cross_keys}},
+                   "cross_layers")["attn"] for cp in cross_layers]
+    if shard is not None and shard.serving:
+        # the cross cache holds every head: this rank's heads attend
+        cross = [attn_mod.cross_cache_kv(enc, w, cfg, shard) for w in weights]
+        q0 = shard.split.coord * hl
+        heads = [(k, v) if hl == cfg.n_heads else
+                 (k.narrow(2, q0, hl).contiguous(), v.narrow(2, q0, hl).contiguous())
+                 for k, v in cross]
+    else:
+        cross = heads = [attn_mod.cross_kv(enc, w, cfg, shard, hl) for w in weights]
+    del enc, weights
 
     def layer(hh, lp, cp, ck, cv):
         # wk and wv were read for the cross k/v: gather the rest alone
@@ -406,7 +440,7 @@ def _forward(cfg: ModelConfig, params, tokens: Tensor, side: Optional[Tensor],
 
     collected = []
     for lp, cp, (ck, cv) in zip(_layers_of(params, cfg.n_layers, shard=shard), cross_layers,
-                                cross):
+                                heads):
         h, kv = _maybe_remat(cfg, layer, h, lp, cp, ck, cv)
         collected.append(kv)
     return h, collected, torch.zeros((), dtype=torch.float32, device=h.device), cross
@@ -434,6 +468,14 @@ def trunk(cfg: ModelConfig, params, tokens: Tensor, side: Optional[Tensor] = Non
     return _trunk(cfg, params, tokens, side)[0]
 
 
+def _lm_head_input(cfg: ModelConfig, lm_head: Tensor, h: Tensor, shard) -> Tensor:
+    """h as it meets ``lm_head``: entering the split where the spec split
+    the vocabulary (each rank then forms its columns of the logits)."""
+    if lm_head.shape[-1] != cfg.vocab_padded:
+        return model_split(shard).enter(h)
+    return h
+
+
 def forward_train(
     cfg: ModelConfig, params, tokens: Tensor, side: Optional[Tensor] = None, shard=None
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
@@ -451,9 +493,7 @@ def forward_train(
     the vocabulary when ``lm_head`` is split."""
     h, aux = _trunk(cfg, params, tokens, side, shard)
     lm_head = use(shard, params["lm_head"], "lm_head", stacked=False)
-    if lm_head.shape[-1] != cfg.vocab_padded:
-        h = model_split(shard).enter(h)
-    return h @ lm_head, {"aux_loss": aux}
+    return _lm_head_input(cfg, lm_head, h, shard) @ lm_head, {"aux_loss": aux}
 
 
 def _nll(cfg: ModelConfig, logits: Tensor, labels: Tensor, shard=None) -> Tensor:
@@ -569,52 +609,71 @@ def init_decode_cache(
 
 
 def decode_step(
-    cfg: ModelConfig, params, token: Tensor, cache: DecodeCache
+    cfg: ModelConfig, params, token: Tensor, cache: DecodeCache, shard=None
 ) -> Tuple[Tensor, DecodeCache]:
     """One-token decode. token: (B,) int. Returns (logits (B, Vp), cache).
 
     ``cache.position`` may be a scalar or a per-row ``(B,)`` vector. The
     layer caches are updated in place; the returned cache holds the same
-    tensors and the advanced position."""
+    tensors and the advanced position.
+
+    Under the sharded serving step (``shard``, a
+    ``sharding.ServeSharding``; ``make_sharded_decode_step``) ``params``
+    and ``cache`` are this rank's blocks under JAX's serve-mode and decode
+    cache specs, ``token`` and a per-row position the whole batch's (they
+    are replicated): the rank runs its rows, splits the compute over
+    ``model`` as the specs split the leaves and attends over the cache
+    block it holds (``attention.attention_decode``). The logits are this
+    rank's rows and columns of the vocabulary (``sharding.logits_sharding``)."""
     _require_ported(cfg)
     pos = cache.position
-    h = params["embed"][token.long()][:, None, :]  # (B, 1, d)
+    split = model_split(shard)
+    rows_pos = pos
+    if shard is not None:
+        token = shard.rows(token)
+        rows_pos = shard.rows(pos) if pos.ndim else pos
+    embed = params["embed"]
+    h = embed[token.long()][:, None, :]  # (B, 1, d)
+    if embed.shape[-1] != cfg.d_model:  # this rank's columns
+        h = split.gather(h, -1)
     if cfg.is_encoder_decoder:
-        pe = params["dec_pos"][(pos % params["dec_pos"].shape[0]).long()]  # (d,) or (B, d)
-        h = h + (pe[None, None] if pe.ndim == 1 else pe[:, None])
+        # a (1,) or (B,) index: a 0-d one would be read on the host
+        idx = (rows_pos % params["dec_pos"].shape[0]).long().reshape(-1)
+        h = h + params["dec_pos"][idx][:, None]  # (1 or B, 1, d)
     period = cfg.hybrid_attn_every
     for i, kind in enumerate(cfg.layer_kinds()):
         lp = _layer_params_at(params, i)
         lc = _layer_cache_at(cache, i)
         if kind == "ssm":
             out, _ = ssm_mod.ssm_block_decode(
-                rms_norm(h, lp["ln1"], cfg.norm_eps), lc, lp["ssm"], cfg
+                rms_norm(h, lp["ln1"], cfg.norm_eps), lc, lp["ssm"], cfg, shard
             )
             h = h + out
         else:
             out, _ = attn_mod.attention_decode(
-                rms_norm(h, lp["ln1"], cfg.norm_eps), lc, lp["attn"], cfg, pos,
-                _is_local(cfg, kind),
+                rms_norm(h, lp["ln1"], cfg.norm_eps), lc, lp["attn"], cfg, rows_pos,
+                _is_local(cfg, kind), shard,
             )
             h = h + out
-            h = h + _ffn(cfg, lp, rms_norm(h, lp["ln2"], cfg.norm_eps))[0]
+            h = h + _ffn(cfg, lp, rms_norm(h, lp["ln2"], cfg.norm_eps), shard)[0]
         if cfg.is_encoder_decoder:
             cp = _layer_params_at(params, i, "cross_layers")
             h = h + attn_mod.cross_attention_decode(
-                rms_norm(h, cp["ln"], cfg.norm_eps), cache.cross[i], cp["attn"], cfg
+                rms_norm(h, cp["ln"], cfg.norm_eps), cache.cross[i], cp["attn"], cfg, shard
             )
         if cfg.arch_type == "hybrid" and (i + 1) % period == 0:  # the shared block
             sp = params["shared"]
             out, _ = attn_mod.attention_decode(
                 rms_norm(h, sp["ln1"], cfg.norm_eps), cache.shared[(i + 1) // period - 1],
-                sp["attn"], cfg, pos, False,
+                sp["attn"], cfg, rows_pos, False, shard,
             )
             h = h + out
             h = h + mlp_mod.mlp(
-                rms_norm(h, sp["ln2"], cfg.norm_eps), sp["mlp"], _shared_mlp_cfg(cfg)
+                rms_norm(h, sp["ln2"], cfg.norm_eps), sp["mlp"], _shared_mlp_cfg(cfg), shard
             )
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    logits = (h @ params["lm_head"])[:, 0]
+    lm_head = params["lm_head"]
+    logits = (_lm_head_input(cfg, lm_head, h, shard) @ lm_head)[:, 0]
     return logits, DecodeCache(cache.layers, pos + 1, cache.shared, cache.cross)
 
 
@@ -625,6 +684,7 @@ def prefill(
     side: Optional[Tensor] = None,  # enc-dec: encoder frames (B, F, d)
     extra_len: int = 1024,
     true_len: Optional[int] = None,
+    shard=None,
 ) -> Tuple[Tensor, DecodeCache]:
     """Run the full prompt; return last-position logits (B, Vp) and a FILLED
     cache (k/v of every attention layer, ring placement for local layers;
@@ -640,7 +700,17 @@ def prefill(
     the hybrid and the encoder-decoder prefill at exact length and raise
     on ``true_len``, as in the JAX package. A MoE routes the pad tokens
     too (after the real ones in the dispatch order, so they displace no
-    real token), and its capacity follows the bucket's length."""
+    real token), and its capacity follows the bucket's length.
+
+    Under the sharded serving step (``shard``, a
+    ``sharding.ServeSharding``; ``make_sharded_prefill``) ``params`` are
+    this rank's blocks under JAX's serve-mode specs and ``tokens`` its
+    rows (all of them where the batch axes split the sequence: the step
+    gathers it first); the compute splits over ``model`` as in the train
+    step (``_forward``), and the cache comes back as this rank's block of
+    it under ``decode_cache_shardings`` (``attention.cache_from_kv``; the
+    conv windows whole over ``model``), the logits as this rank's
+    columns of the vocabulary."""
     _require_ported(cfg)
     B, S = tokens.shape
     max_len = S + extra_len
@@ -655,18 +725,22 @@ def prefill(
         if not 1 <= true_len <= S:
             raise ValueError(f"true_len must be in [1, {S}], got {true_len}")
     positions = _host_positions(S, true_len)
-    h, collected, _, cross = _forward(cfg, params, tokens, side, positions)
+    h, collected, _, cross = _forward(cfg, params, tokens, side, positions, shard)
+    split = model_split(shard)
 
     shared = None
     if cfg.arch_type == "hybrid":
         ssm_out, shared_kv = collected
-        layers = [{"state": st, "conv": cv} for st, cv in ssm_out]
-        shared = [attn_mod.cache_from_kv(cfg, k, v, False, max_len) for k, v in shared_kv]
+        layers = [{"state": st, "conv": ssm_mod.full_conv_window(cv, cfg, split)}
+                  for st, cv in ssm_out]
+        shared = [attn_mod.cache_from_kv(cfg, k, v, False, max_len, shard=shard)
+                  for k, v in shared_kv]
     elif cfg.arch_type == "ssm":
-        layers = [{"state": st, "conv": cv} for st, cv in collected]
+        layers = [{"state": st, "conv": ssm_mod.full_conv_window(cv, cfg, split)}
+                  for st, cv in collected]
     else:
         layers = [
-            attn_mod.cache_from_kv(cfg, k, v, _is_local(cfg, kind), max_len, positions)
+            attn_mod.cache_from_kv(cfg, k, v, _is_local(cfg, kind), max_len, positions, shard)
             for (k, v), kind in zip(collected, cfg.layer_kinds())
         ]
     if uniform_layers(cfg):
@@ -674,7 +748,91 @@ def prefill(
     del collected
     # only the last real position's logits are returned, so only they are formed
     last = S if true_len is None else true_len
-    h = rms_norm(h[:, last - 1:last], params["final_norm"], cfg.norm_eps)
-    logits = (h @ params["lm_head"])[:, 0]
+    h = rms_norm(h[:, last - 1:last], use(shard, params["final_norm"], "final_norm", False),
+                 cfg.norm_eps)
+    lm_head = use(shard, params["lm_head"], "lm_head", stacked=False)
+    logits = (_lm_head_input(cfg, lm_head, h, shard) @ lm_head)[:, 0]
     position = torch.tensor(last, dtype=torch.int32, device=h.device)
     return logits, DecodeCache(layers, position, shared, cross)
+
+
+# ---------------------------------------------------------------------------
+# the sharded serving step
+# ---------------------------------------------------------------------------
+def _serve_shardings(cfg: ModelConfig, mesh, global_batch: int, max_len: int):
+    """(param shardings, cache shardings, the model's ``ServeSharding``) of
+    the serving step for a global batch and a cache of ``max_len`` slots."""
+    pshard = param_shardings(cfg, param_shapes(cfg), mesh, "serve")
+    cache = init_decode_cache(cfg, global_batch, max_len, device="meta")
+    cshard = decode_cache_shardings(cfg, mesh, global_batch, cache)
+    return pshard, cshard, ServeSharding(mesh, pshard, cfg, global_batch)
+
+
+def make_sharded_prefill(cfg: ModelConfig, mesh, global_batch: int, seq_len: int, *,
+                         extra_len: int = 1024):
+    """The prefill over a ``core.distributed.Mesh``, one process per
+    position: the JAX dry run's ``jit(prefill, in_shardings=(serve-mode
+    params, the batch by train_batch_pspec))``. Returns ``(step, pshard,
+    batch_shard, cache_shard)``: the step and the ``NamedSharding`` trees
+    of the params, the batch (``tokens``; an encoder-decoder's ``frames``
+    by the batch's entry) and the cache it returns
+    (``sharding.decode_cache_shardings`` for ``seq_len + extra_len``
+    slots), whose ``shard`` gives a rank its blocks and ``gather`` (or
+    ``sharding.gather_cache``) the whole.
+
+    ``step(params, batch, true_len=None)`` takes this rank's blocks and
+    returns ``(logits, cache)``: the logits this rank's block
+    (``sharding.logits_sharding``), the cache its blocks, ready for
+    ``make_sharded_decode_step``. A batch too small for the batch axes
+    comes split along the sequence: the step gathers it, every rank runs
+    the whole batch and keeps its block of the cache's slots. On one
+    position it equals ``prefill`` bit for bit."""
+    pshard, cshard, shard = _serve_shardings(cfg, mesh, global_batch, seq_len + extra_len)
+    bspec = train_batch_pspec(mesh, global_batch)
+    bshard = {"tokens": NamedSharding(mesh, bspec)}
+    local = {"tokens": bshard["tokens"].shard_shape((global_batch, seq_len))}
+    if cfg.is_encoder_decoder:
+        bshard["frames"] = NamedSharding(mesh, P(bspec[0], None, None))
+    seq_axes = entry_axes(bspec[1])
+
+    def step(params, batch: Dict[str, Tensor], true_len: Optional[int] = None):
+        for k in batch:
+            if k not in bshard:
+                raise ValueError(f"unknown batch entry {k!r}")
+        if tuple(batch["tokens"].shape) != local["tokens"]:
+            raise ValueError(f"batch['tokens'] has shape {tuple(batch['tokens'].shape)}; this "
+                             f"rank's block of the ({global_batch}, {seq_len}) batch is "
+                             f"{local['tokens']}")
+        tokens = batch["tokens"]
+        for a in reversed(seq_axes):  # the whole sequence on every rank
+            tokens = dist_mod.all_gather_dim(tokens, mesh, a, 1)
+        with torch.no_grad():
+            return prefill(cfg, params, tokens, batch.get("frames"), extra_len, true_len,
+                           shard=shard)
+
+    return step, pshard, bshard, cshard
+
+
+def make_sharded_decode_step(cfg: ModelConfig, mesh, global_batch: int, max_len: int):
+    """One decode tick over a ``core.distributed.Mesh``: the JAX dry run's
+    ``jit(decode_step, in_shardings=(serve-mode params, the token
+    replicated, the cache shardings))``. Returns ``(step, pshard,
+    token_shard, cache_shard)``, the cache's for ``max_len`` slots.
+
+    ``step(params, token, cache)`` takes this rank's param and cache blocks
+    and the whole (B,) token, updates the cache blocks in place and
+    returns ``(logits, cache)``, the logits this rank's block
+    (``sharding.logits_sharding``). Each rank attends over the cache block
+    it holds; no collective moves a cache block
+    (``attention.attention_decode``). On one position it equals
+    ``decode_step`` bit for bit."""
+    pshard, cshard, shard = _serve_shardings(cfg, mesh, global_batch, max_len)
+    tshard = NamedSharding(mesh, P())
+
+    def step(params, token: Tensor, cache: DecodeCache):
+        if tuple(token.shape) != (global_batch,):
+            raise ValueError(f"token has shape {tuple(token.shape)}, expected ({global_batch},)")
+        with torch.no_grad():
+            return decode_step(cfg, params, token, cache, shard=shard)
+
+    return step, pshard, tshard, cshard

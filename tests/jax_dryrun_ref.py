@@ -13,8 +13,9 @@ PartitionSpecs on a shape-only mesh in place of NamedShardings), and
 ``model_flops`` from the formulas of ``lower_step`` with the package's
 ``active_param_count``; for a train shape also ``at_rest`` (the params and
 two fp32 moments under train-mode specs, by the same ``_bytes_per_device``)
-and ``microbatches`` (``lower_step``'s rule). Not collected by pytest (no
-test_ prefix).
+and ``microbatches`` (``lower_step``'s rule); for a decode shape also
+``cache_specs``, each cache leaf's spec by path. Not collected by pytest
+(no test_ prefix).
 """
 import json
 import sys
@@ -55,6 +56,34 @@ def cache_specs(cfg, cache, mesh, batch):
         ns = P(train_batch_pspec(mesh, batch)[0], None, None, None)
         cross = [(ns, ns) for _ in cache.cross]
     return tf.DecodeCache(layers, P(), shared, cross)
+
+
+def cache_items(cache):
+    """(path, leaf) of a JAX DecodeCache (arrays or specs), named as the
+    port's ``repro_torch.models.sharding.cache_items`` names them."""
+    from jax.sharding import PartitionSpec as P
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                yield from walk(node[k], f"{path}/{k}")
+        elif isinstance(node, (list, tuple)) and not isinstance(node, P):
+            for i, n in enumerate(node):
+                yield from walk(n, f"{path}/{i}")
+        else:
+            yield path, node
+
+    yield from walk(cache.layers, "layers")
+    yield "position", cache.position
+    if cache.shared is not None:
+        yield from walk(cache.shared, "shared")
+    if cache.cross is not None:
+        yield from walk(cache.cross, "cross")
+
+
+def spec_list(spec):
+    """A PartitionSpec as JSON: each entry None, a name or a list of names."""
+    return [list(e) if isinstance(e, tuple) else e for e in spec]
 
 
 def main(out_path):
@@ -105,6 +134,7 @@ def main(out_path):
                         jax.tree.leaves(cache),
                         jax.tree.leaves(cspecs, is_leaf=lambda s: isinstance(s, P)), mesh)
                     row["model_flops"] = 2.0 * n_active * shape.global_batch
+                    row["cache_specs"] = {p: spec_list(sp) for p, sp in cache_items(cspecs)}
                 out[f"{arch}|{shape_name}|{mesh_name}"] = row
     with open(out_path, "w") as f:
         json.dump(out, f)

@@ -8,7 +8,10 @@ run and against real runs.
   * The meta trace of one train step at one position equals the cost
     counter over the same step on CPU tensors, exactly: FLOPs, bytes,
     kernel launches by kind (reduced gemma3, qwen3-moe, mamba2, zamba2,
-    whisper; remat on).
+    whisper; remat on); so does that of one sharded prefill and one
+    decode tick.
+  * decode_cache_shardings gives JAX's cache_shardings leaf for leaf, and
+    every traced decode row's collective bytes follow PERF.md's formula.
   * The trace at rank 0 of a fake 4-rank world equals rank 0 of a real
     4-rank gloo world running the step (tests/torch_dryrun_ranks.py, one
     world for the module): FLOPs, bytes, kernels, and collective calls
@@ -17,6 +20,7 @@ run and against real runs.
     repro.roofline.hlo_parse.analyze_hlo's dot FLOPs of JAX's step
     compiled on one CPU device.
 """
+import collections
 import dataclasses
 import json
 import math
@@ -243,13 +247,14 @@ def test_traced_flops_against_jax_hlo_parse():
 
 
 def test_run_one_rows(tmp_path):
-    """One row of each status through run_one and the CLI's loop."""
+    """One row of each status through run_one and the CLI's loop: the train
+    and serve shapes traced, long_500k skipped for a full-attention arch."""
     recs = dryrun.run_all(["whisper-tiny"], list(INPUT_SHAPES), ["single"], str(tmp_path),
                           echo=None)
     status = {r["shape"]: r["status"] for r in recs}
-    assert status == {"train_4k": "ok", "prefill_32k": "analytic", "decode_32k": "analytic",
+    assert status == {"train_4k": "ok", "prefill_32k": "ok", "decode_32k": "ok",
                       "long_500k": "skipped"}
-    ok = next(r for r in recs if r["status"] == "ok")
+    ok = next(r for r in recs if r["shape"] == "train_4k")
     assert ok["kernel_launches"] == {"K3": 24, "K3-bwd": 12}  # 4 + 4 + 4 a pass, remat
     assert ok["microbatches"] == 1 and ok["arg_bytes_per_device"] > 0
     assert ok["microbatch_counts"] == "traced" and not ok["zero2"]
@@ -258,10 +263,138 @@ def test_run_one_rows(tmp_path):
     assert ok["collective_counts"]["all_gather"] > 0
     row = json.loads((tmp_path / "whisper-tiny__train_4k__single.json").read_text())
     assert row["flops_per_device"] == ok["flops_per_device"]
-    assert "reason" in next(r for r in recs if r["status"] == "analytic")
+    assert "reason" in next(r for r in recs if r["status"] == "skipped")
+    serve = {r["shape"]: r for r in recs if r["shape"] in ("prefill_32k", "decode_32k")}
+    # the encoder's 4 layers, the decoder's 4 and its 4 cross-attentions; a
+    # tick is plain torch
+    assert serve["prefill_32k"]["kernel_launches"] == {"K3": 12}
+    assert serve["decode_32k"]["kernel_launches"] == {}
+    for r in serve.values():
+        assert r["fits"] and ok["fits"] and "microbatches" not in r
+        assert r["step_bytes_at_rest"] == r["arg_bytes_per_device"]
+        assert r["flops_per_device"] > 0 and r["peak_bytes_per_device"] > 0
     # --skip-done leaves finished rows alone
     assert dryrun.run_all(["whisper-tiny"], list(INPUT_SHAPES), ["single"], str(tmp_path),
                           skip_done=True, echo=None) == []
+
+
+@pytest.mark.parametrize("mesh_name", MESH_NAMES)
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_cache_shardings_match_jax(jax_rows, arch, mesh_name):
+    """decode_cache_shardings, which the traced decode step and the
+    analytic bytes both read, gives every cache leaf JAX's spec from the
+    dry run's cache_shardings, at decode_32k and (where it applies)
+    long_500k."""
+    from repro_torch.launch.input_specs import input_specs
+    from repro_torch.models import sharding
+
+    cfg = get_config(arch)
+    for shape_name in ("decode_32k", "long_500k"):
+        shape = INPUT_SHAPES[shape_name]
+        cache = input_specs(cfg, shape)["cache"]
+        got = sharding.decode_cache_shardings(cfg, dryrun.shape_mesh(mesh_name),
+                                              shape.global_batch, cache)
+        got = {p: [list(e) if isinstance(e, tuple) else e for e in s.spec]
+               for p, s in sharding.cache_items(got)}
+        assert got == jax_rows[f"{arch}|{shape_name}|{mesh_name}"]["cache_specs"]
+
+
+SERVE_SMALL = (InputShape("prefill_small", 40, 2, "prefill"),
+               InputShape("decode_small", 40, 2, "decode"))
+
+
+@pytest.mark.parametrize("arch", META_ARCHS)
+def test_serve_meta_trace_equals_cpu_step(arch):
+    """The meta trace of one sharded prefill and of one decode tick at one
+    position equals the counter over the same steps on CPU tensors,
+    exactly: FLOPs, bytes, kernel launches and collectives."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import (
+        init_decode_cache, init_params, make_sharded_decode_step, make_sharded_prefill,
+        sharding,
+    )
+    from repro_torch.roofline.analysis import CostCounter
+
+    cfg = ranks_mod.lm_config(arch)
+    params = init_params(cfg, 0, "cpu")
+    mesh = make_host_mesh(1, 1, device="cpu")
+    rs = np.random.RandomState(0)
+    for shape in SERVE_SMALL:
+        meta = dryrun.trace_serve(cfg, shape, make_host_mesh(1, 1, device="meta"))
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind == "prefill":
+            step, pshard, bshard, _ = make_sharded_prefill(cfg, mesh, B, S,
+                                                           extra_len=dryrun.SERVE_EXTRA_LEN)
+            batch = {"tokens": torch.from_numpy(rs.randint(0, cfg.vocab_size, (B, S)))
+                     .to(torch.int32)}
+            if cfg.is_encoder_decoder:
+                batch["frames"] = torch.randn(B, cfg.enc_frames, cfg.d_model,
+                                              dtype=torch.bfloat16)
+            args = (batch,)
+        else:
+            step, pshard, _, _ = make_sharded_decode_step(cfg, mesh, B, S)
+            args = (torch.from_numpy(rs.randint(0, cfg.vocab_size, (B,))).to(torch.int32),
+                    init_decode_cache(cfg, B, S, device="cpu"))
+        blocks = sharding.shard_tree(pshard, params)
+        with CostCounter() as c:
+            step(blocks, *args)
+        assert meta.counted() == c.costs.counted(), shape.name
+        assert meta.flops > 0 and meta.bytes > 0
+        assert bool(meta.kernels) == (shape.kind == "prefill")
+
+
+DECODE_ROWS = [(a, sh) for a in ARCH_IDS for sh in ("decode_32k", "long_500k")
+               if shape_applicable(get_config(a), INPUT_SHAPES[sh])[0]]
+# a decode row of every cache layout: gemma3's head_dim split with its
+# slots split (long_500k), nemotron's head_dim split with q heads split,
+# qwen1.5-4b's with q, k and v replicated, zamba2's kv heads split with its
+# slots split and its SSM heads, qwen3-moe's experts, mamba2's SSM heads
+LAYOUT_ROWS = (("gemma3-1b", "long_500k"), ("nemotron-4-15b", "decode_32k"),
+               ("qwen1_5-4b", "decode_32k"), ("zamba2-2_7b", "long_500k"),
+               ("qwen3-moe-30b-a3b", "decode_32k"), ("mamba2-780m", "decode_32k"))
+
+
+def _decode_bytes(arch, shape, mesh_name):
+    """The traced tick's collective bytes at rank 0 of the fake world, and
+    PERF.md's formula for it (``torch_serve_ranks.tick_bytes``, bf16)."""
+    import torch_serve_ranks as serve_ranks
+
+    cfg = get_config(arch)
+    sm = dryrun.shape_mesh(mesh_name)
+    with fake_world(math.prod(sm.shape.values())):
+        costs = dryrun.trace_serve(cfg, shape, dryrun.make_dryrun_mesh(
+            multi_pod=mesh_name == "multi"))
+    return (collections.Counter(costs.collective_bytes),
+            collections.Counter(serve_ranks.tick_bytes(cfg, sm.shape, shape.global_batch,
+                                                       shape.seq_len, 2)))
+
+
+@pytest.mark.parametrize("mesh_name", MESH_NAMES)
+@pytest.mark.parametrize("arch,shape_name", DECODE_ROWS)
+def test_decode_row_collectives_follow_the_formula(arch, shape_name, mesh_name):
+    """Every traced decode row's collective bytes by kind equal PERF.md's
+    per-layer formula: its gathers are the token's embedding columns, q,
+    the output blocks along head_dim and the SSM layers' new x columns,
+    none of them a cache block; only the partial scores' psum grows with
+    the slots a rank holds."""
+    traced, formula = _decode_bytes(arch, INPUT_SHAPES[shape_name], mesh_name)
+    assert traced == formula
+
+
+@pytest.mark.parametrize("mesh_name", MESH_NAMES)
+@pytest.mark.parametrize("arch,shape_name", LAYOUT_ROWS)
+def test_a_tick_gathers_the_same_at_half_the_slots(arch, shape_name, mesh_name):
+    """At half the cache's slots a tick gathers the same bytes (no gather
+    moves the cache) and still follows the formula."""
+    shape = INPUT_SHAPES[shape_name]
+    half = InputShape(shape_name + "_half", shape.seq_len // 2, shape.global_batch, "decode")
+    full_bytes, _ = _decode_bytes(arch, shape, mesh_name)
+    traced, formula = _decode_bytes(arch, half, mesh_name)
+    assert traced == formula
+    assert traced["all_gather"] == full_bytes["all_gather"]
+    assert traced["all_reduce"] <= full_bytes["all_reduce"]
 
 
 def test_trace_error_is_a_row(tmp_path, monkeypatch):
