@@ -193,7 +193,21 @@ Phases, each printing its own lines:
               tick, warm prefill and tick ms beside the unsharded ones;
               the meta trace of the same prefill and tick
               (dryrun.trace_serve) equals the counter over the card's
-              calls, exactly.
+              calls, exactly;
+ 15. the examples — every port example (examples/torch) as its own
+              process at the JAX examples' default sizes, four at a
+              time: quickstart, serve_batch (gemma3-1b and mamba2-780m
+              reduced, --mtl), serve_stream (and --interleave),
+              serve_fleet, train_lm_mtl, distributed_workers and
+              async_workers (--trace), the two mesh examples also under
+              a one-rank torchrun world (nccl; async_workers there at
+              its --tiny schedule); each exits 0 with its
+              main's dict as its last line, which the phase checks (the
+              gap shrinks, W against the reference engine, async ticks
+              against sync, the threaded lag, the trace's spans, no
+              served version regresses, the interleaved shorts finish
+              first) along with each LM example's K3, K3-bwd and K4
+              launches against its reduced config's layers.
 
 It exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository. The line before the last is a JSON object with
@@ -3139,6 +3153,167 @@ def dryrun_table(card: str) -> None:
     check(serve_s < DRYRUN_SERVE_S, f"[13c] the serve rows took {serve_s:.1f} s")
 
 
+EXAMPLES = ROOT / "examples" / "torch"
+EXAMPLES_AT_ONCE = 4  # phase 15's example processes sharing the card at a time
+EXAMPLE_TIMEOUT_S = 300.0
+EXAMPLES_BUDGET_S = 150.0
+EXAMPLE_TAU = 2  # async_workers' staleness bound
+FEATURE_BATCHES = 24  # train_lm_mtl's phi batches: 2 sets x 6 tasks x ceil(48 / 32)
+
+
+def example_runs(trace: str) -> list:
+    """Phase 15's runs, (tag, argv after the interpreter): every port
+    example at its JAX twin's default sizes, and the mesh examples also as
+    a one-rank torchrun world (NCCL refuses two ranks on one card).
+    async_workers's torchrun form takes its twin's ``--tiny`` schedule: at
+    the default one its threaded and gossip servers alone hold the host
+    for about 120 s (8 worker threads of host-bound block_gram solves),
+    which its plain run, first in the list, already spends."""
+    def ex(name, *args):
+        return [str(EXAMPLES / f"{name}.py"), *args]
+
+    torchrun = ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1"]
+    return [
+        ("async_workers --trace", ex("async_workers", "--trace", trace)),
+        ("async_workers torchrun --tiny", torchrun + ex("async_workers", "--tiny")),
+        ("train_lm_mtl", ex("train_lm_mtl")),
+        ("serve_fleet", ex("serve_fleet")),
+        ("serve_stream", ex("serve_stream")),
+        ("quickstart", ex("quickstart")),
+        ("distributed_workers", ex("distributed_workers")),
+        ("distributed_workers torchrun", torchrun + ex("distributed_workers")),
+        ("serve_batch gemma3-1b", ex("serve_batch")),
+        ("serve_batch mamba2-780m", ex("serve_batch", "--arch", "mamba2-780m")),
+        ("serve_batch --mtl", ex("serve_batch", "--mtl")),
+        ("serve_stream --interleave", ex("serve_stream", "--interleave")),
+    ]
+
+
+def run_example(tag: str, argv: list) -> tuple:
+    """One example in its own process group (so a torchrun's worker dies
+    with it on a timeout): (tag, return code, wall s, stdout, stderr)."""
+    import os
+    import signal
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(SRC), env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, *argv], cwd=ROOT, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        err += f"\n(killed after {EXAMPLE_TIMEOUT_S:.0f} s)"
+    return tag, proc.returncode, time.perf_counter() - t0, out, err
+
+
+def examples_path(card: str) -> dict:
+    """Phase 15: every port example (examples/torch) on the card as a
+    subprocess, EXAMPLES_AT_ONCE at a time, at the JAX examples' default
+    sizes (the reduced LM configs are the examples' own; phases 5, 8-10
+    and 12-14 run the same entry points at full width). Each must exit 0
+    with its ``main``'s dict as its last line. Checks: the quickstart's gap
+    shrinks; max |W_dist - W_ref| <= TOL_W (both mesh forms); async
+    reaches the target in no more ticks than sync, the threaded server's
+    max lag <= tau, the trace file holds spans; no served version
+    regresses (stream, fleet); the interleaved shorts finish before the
+    longest generation; each LM example's K3, K3-bwd and K4 launches
+    equal what its reduced config's layers give. Returns the launches by
+    path."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.configs import get_config
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    trace = str(Path(tmp) / "trace.json")
+    t0 = time.perf_counter()
+    try:
+        with ThreadPoolExecutor(EXAMPLES_AT_ONCE) as pool:
+            runs = list(pool.map(lambda r: run_example(*r), example_runs(trace)))
+        total = time.perf_counter() - t0
+        results = {}
+        for tag, rc, wall, out, err in runs:
+            lines = out.strip().splitlines()
+            if rc != 0 or not lines:
+                print(out[-2000:])
+                fail(f"[15 {tag}] exited {rc}: {err[-3000:]}")
+            try:
+                res = json.loads(lines[-1])
+            except json.JSONDecodeError:
+                fail(f"[15 {tag}] the last line is not main's dict: {lines[-1][:200]!r}")
+            results[tag] = res
+            shown = {}
+            for k, v in res.items():  # scalars, and one level of nested dicts
+                if isinstance(v, dict):
+                    shown.update({f"{k}.{i}": x for i, x in v.items()
+                                  if not isinstance(x, (list, dict))})
+                elif not isinstance(v, list):
+                    shown[k] = v
+            print(f"[15 {tag}] exit 0 in {wall:.1f} s wall ({EXAMPLES_AT_ONCE} examples at "
+                  f"once) on {card}; {json.dumps(shown)}")
+        with open(trace) as f:
+            spans = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    spans = spans["traceEvents"] if isinstance(spans, dict) else spans
+
+    q = results["quickstart"]
+    check(q["gap_last"] < q["gap_first"], f"[15 quickstart] gap {q['gap_first']} -> "
+          f"{q['gap_last']}")
+    for tag in ("distributed_workers", "distributed_workers torchrun"):
+        d = results[tag]
+        check(d["max_abs_w_diff"] <= TOL_W, f"[15 {tag}] max|W_dist - W_ref| "
+              f"{d['max_abs_w_diff']:.3e} over {TOL_W:.0e}")
+    for tag in ("async_workers --trace", "async_workers torchrun --tiny"):
+        a = results[tag]
+        check(a["ticks_async"] <= a["ticks_sync"], f"[15 {tag}] async took "
+              f"{a['ticks_async']} ticks to the target, sync {a['ticks_sync']}")
+        check(a["threaded"]["max_lag"] <= EXAMPLE_TAU,
+              f"[15 {tag}] threaded max lag {a['threaded']['max_lag']} over tau")
+    traced = results["async_workers --trace"]["trace"]
+    check(traced["spans"] > 0 and len(spans) > 0,
+          "[15 async_workers --trace] the trace holds no spans")
+    print(f"[15 async_workers --trace] {traced['spans']} spans; inclusive host wall by phase "
+          f"(summed over the worker threads): " + ", ".join(
+              f"{r['name']} {r['count']} x = {r['total_s']:.1f} s" for r in traced["top"])
+          + f" on {card}")
+    check(results["serve_stream"]["monotonic"], "[15 serve_stream] a served version regressed")
+    check(results["serve_fleet"]["monotonic_reads"],
+          "[15 serve_fleet] a client saw the model version regress")
+    inter = results["serve_stream --interleave"]
+    check(inter["short_max_latency_ms"] < inter["long_max_latency_ms"],
+          "[15 serve_stream --interleave] head-of-line blocking")
+
+    def layers(arch):
+        cfg = get_config(arch).reduced()
+        return (*attention_and_ssm_layers(cfg), 2 if cfg.remat else 1)
+
+    steps = results["train_lm_mtl"]["steps"]
+    n_attn, _, fwd = layers("gemma3-1b")
+    expected = {
+        "serve_batch gemma3-1b": {"K3": 3 * layers("gemma3-1b")[0]},  # 3 prefills
+        "serve_batch mamba2-780m": {"K4": 3 * layers("mamba2-780m")[1]},
+        "serve_stream --interleave": {"K3": inter["completed"] * layers("qwen1_5-4b")[0]},
+        "train_lm_mtl": {"K3": (fwd * steps + FEATURE_BATCHES) * n_attn,
+                         "K3-bwd": steps * n_attn},
+    }
+    by_path = {}
+    for tag, want in expected.items():
+        got = results[tag]["launches"]
+        want = {k: want.get(k, 0) for k in got}
+        check(got == want, f"[15 {tag}] launches {got}, expected {want}")
+        by_path[f"15 {tag}"] = got
+    print("[15 launches] " + "; ".join(f"{k}: {v}" for k, v in by_path.items()))
+    print(f"[15] {total:.1f} s wall for {len(runs)} runs, {EXAMPLES_AT_ONCE} at once (budget "
+          f"{EXAMPLES_BUDGET_S:.0f} s) on {card}")
+    return by_path
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: run it from a checkout of the repository "
@@ -3488,6 +3663,8 @@ def main() -> int:
     for i, arch in enumerate(SERVE_SHARDED):
         train_by_path.update(sharded_serve_path(torch, dev, card, arch, f"14{'ab'[i]}"))
     print(f"[14] {time.perf_counter() - t14:.1f} s wall")
+    # -- phase 15: the examples on the port, each its own process -----------
+    train_by_path.update(examples_path(card))
 
     def by_kernel(name):
         return {k: v[name] for k, v in {"5c zamba2-2.7b stream": stream_launches,

@@ -234,6 +234,7 @@ class GossipTransport(ThreadedTransport):
         self._M_off = torch.as_tensor(self.M - np.diag(diag), dtype=dtype, device=self.device)
         self._mix_ef = ErrorFeedback(self.codec)
         self.W_nodes = self._broadcast(self.W)
+        self._boundary_nodes = self.W_nodes
         # gossip-only event-history keys (per-edge staleness at each
         # exchange); staleness_summary picks them up when present
         for k in ("e_src", "e_dst", "e_stal", "e_tick"):
@@ -308,9 +309,13 @@ class GossipTransport(ThreadedTransport):
             self._check_abort()
             self._maybe_install(worker)
             _W_b, sigma_b = self._boundary
-            # the node-LOCAL replica, live: between two exchanges only the
-            # node's own commits change it
-            W_rows = self.W_nodes[worker][self._rows(worker)]
+            # the node-LOCAL replica as the last exchange left it, plus the
+            # node's own commits since, at the server's scale (the replica
+            # holds them G-scaled, for the mean: read live, a fast node at
+            # tau > 0 would take its own step G times and diverge)
+            W_rows = self._boundary_nodes[worker][self._rows(worker)]
+            if self._own[worker] is not None:  # read-your-writes
+                W_rows = W_rows + self._own[worker]
             return self._boundary_snapshot(worker, W_rows, sigma_b)
 
     def _apply(self, worker, upd):
@@ -326,6 +331,12 @@ class GossipTransport(ThreadedTransport):
         self._mix(tick)
         self._freeze_boundary()
 
+    def _freeze_boundary(self):
+        super()._freeze_boundary()
+        # the replicas the next round's snapshots read (none before setup
+        # has made them)
+        self._boundary_nodes = getattr(self, "W_nodes", None)
+
     def _install(self, sig, om):
         # consensus reset: the server install recomputes W from the exact
         # global dual state; broadcast it, so all replicas agree and any
@@ -333,6 +344,7 @@ class GossipTransport(ThreadedTransport):
         super()._install(sig, om)
         self.W_nodes = self._broadcast(self.W)
         self._mix_ef.reset()
+        self._freeze_boundary()
 
     # -- driver lifecycle ---------------------------------------------------
     def _begin_w_step(self, p):

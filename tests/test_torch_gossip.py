@@ -152,6 +152,21 @@ def test_ring_gap_shrinks_near_server(port_problem, port_cfg, threaded_result):
     assert abs(obj_g - obj_t) <= 0.2 * abs(obj_t)
 
 
+def test_stale_nodes_converge_like_the_server(port_problem, port_cfg):
+    """At tau = 2 with a 4x straggler a fast node snapshots before the
+    round's exchange: it must read its replica as the exchange left it plus
+    its own commits at the server's scale (the replica holds them G-scaled
+    for the mean; read live, each node took its own step G times and the
+    objective climbed to 1.7-2.2x the server's). On a complete graph the
+    gossip fit then lands where the threaded server does at the same tau."""
+    opts = dict(tau=2, async_delays=(1, 1, 1, 4))
+    _, _, _, ht = _fit(port_cfg, port_problem.train, "threaded", 4, **opts)
+    _, _, _, hg = _fit(port_cfg, port_problem.train, "gossip", 4, topology="complete", **opts)
+    assert hg["gap"][-1] < hg["gap"][0]
+    obj_g, obj_t = float(hg["primal"][-1]), float(ht["primal"][-1])
+    assert abs(obj_g - obj_t) <= 0.05 * abs(obj_t)
+
+
 @pytest.mark.parametrize("codec", ["bf16", "int8"])
 def test_codec_sweep_objective_gap(port_problem, port_cfg, threaded_result, codec):
     _, _, _, ht = threaded_result

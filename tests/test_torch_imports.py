@@ -1,6 +1,6 @@
-"""The port stands alone: no module of src/repro_torch, and not
-chip_smoke.py, imports jax or the JAX package (repro), and importing the
-port pulls neither into a fresh interpreter."""
+"""The port stands alone: no module of src/repro_torch, no example of
+examples/torch, and not chip_smoke.py, imports jax or the JAX package
+(repro), and importing the port pulls neither into a fresh interpreter."""
 import ast
 import os
 import subprocess
@@ -11,11 +11,12 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
+EXAMPLES = REPO / "examples" / "torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + sorted(EXAMPLES.glob("*.py")) + [REPO / "chip_smoke.py"]
 
 
 def _imported(path: Path):
@@ -53,6 +54,12 @@ def test_port_has_modules():
     for cu in ("sdca/csrc/sdca_round.cu", "sdca/csrc/sdca_block.cu",
                "flash/csrc/flash_fwd.cu", "flash/csrc/flash_bwd.cu", "ssd/csrc/ssd_chunk.cu"):
         assert (PORT / "kernels" / cu).exists(), cu
+
+
+def test_every_jax_example_has_a_port():
+    jax_examples = {p.name for p in (REPO / "examples").glob("*.py")}
+    assert len(jax_examples) == 7
+    assert jax_examples <= {p.name for p in EXAMPLES.glob("*.py")}
 
 
 @pytest.mark.parametrize("path", _files(), ids=lambda p: p.relative_to(REPO).as_posix())
