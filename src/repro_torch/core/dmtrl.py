@@ -16,6 +16,14 @@ Keys, coordinate draws and the order of every step follow the JAX
 package's ``repro.core.dmtrl`` so both walk the same iterate sequence from
 one seed. The entry point ``fit`` runs on the CUDA card unless the caller
 passes ``device="cpu"``.
+
+With ``obs.enable()`` a fit records spans (cat ``driver``), nested by time
+under the engine's ``engine_run``: per outer iteration ``rho``, ``w_step``,
+``omega_step`` and ``w_from_alpha``; per round ``w_round`` holding
+``coords`` (the keys and the uniform draw), ``local_sdca`` (the solver) and
+``reduce``; per tracked evaluation ``objectives``; and ``host_read`` where
+the host waits for a device value (rho, the objectives). Per-round spans
+carry no labels, so with tracing off each costs one flag check.
 """
 from __future__ import annotations
 
@@ -27,13 +35,14 @@ import numpy as np
 import torch
 
 from .. import prng
+from ..obs.trace import span
 from . import dual as dual_mod
 from . import omega_regularizers as omega_reg
 from . import sigma_view as sigma_view_mod
 from .losses import get_loss
 from .mtl_data import MTLData
 from .sigma_view import SigmaView, as_view
-from .solver_backends import get_backend
+from .solver_backends import draw_uniform, get_backend
 
 Tensor = torch.Tensor
 
@@ -265,20 +274,24 @@ def make_w_step_round(cfg: DMTRLConfig, data: MTLData, rho: float):
     loss = get_loss(cfg.loss)
     backend = get_backend(cfg.solver)
     H = backend.round_local_iters(cfg.local_iters or data.n_max, cfg.block_size)
-    solver = backend.make(loss, rho, cfg.lam, H, block=cfg.block_size)
+    solver = backend.make_from_uniform(loss, rho, cfg.lam, H, block=cfg.block_size)
     tids = torch.arange(data.m, dtype=torch.int64)
 
     def round_fn(alpha, W, sigma, key):
-        # the JAX package's per-(task, pod=0) key derivation, so both
-        # packages draw the same coordinates
-        keys = prng.fold_in(prng.fold_in(key, tids), 0)  # (m, 2)
+        with span("coords", cat="driver"):
+            # the JAX package's per-(task, pod=0) key derivation, so both
+            # packages draw the same coordinates
+            keys = prng.fold_in(prng.fold_in(key, tids), 0)  # (m, 2)
+            u = draw_uniform(keys, H, data.x.device)  # (m, H)
         sv = as_view(sigma)
-        dalpha, r = solver(data.x, data.y, alpha, W, data.n, sv.diag(), keys)
-        alpha = alpha + cfg.eta * dalpha
-        # delta_b rows: (m, d); server reduce: W += (1/lam) Sigma @ dB,
-        # from the factors for a structured Sigma (no dense (m, m))
-        db = cfg.eta * r / data.n[:, None].to(r.dtype)
-        W = W + sv.matvec(db) / cfg.lam
+        with span("local_sdca", cat="driver"):
+            dalpha, r = solver(data.x, data.y, alpha, W, data.n, sv.diag(), u)
+        with span("reduce", cat="driver"):
+            alpha = alpha + cfg.eta * dalpha
+            # delta_b rows: (m, d); server reduce: W += (1/lam) Sigma @ dB,
+            # from the factors for a structured Sigma (no dense (m, m))
+            db = cfg.eta * r / data.n[:, None].to(r.dtype)
+            W = W + sv.matvec(db) / cfg.lam
         return alpha, W
 
     return round_fn
@@ -300,14 +313,18 @@ def w_step(
     hist = {"round": [], "dual": [], "primal": [], "gap": []}
     keys = prng.split(key, cfg.rounds)
     for t in range(cfg.rounds):
-        alpha, W = round_fn(alpha, W, sigma, keys[t])
+        with span("w_round", cat="driver"):
+            alpha, W = round_fn(alpha, W, sigma, keys[t])
         if track and (t % cfg.track_every == 0 or t == cfg.rounds - 1):
-            d = dual_mod.dual_objective(data, alpha, sigma, cfg.lam, loss)
-            p = dual_mod.primal_objective_from_alpha(data, alpha, sigma, cfg.lam, loss)
+            with span("objectives", cat="driver"):
+                d = dual_mod.dual_objective(data, alpha, sigma, cfg.lam, loss)
+                p = dual_mod.primal_objective_from_alpha(data, alpha, sigma, cfg.lam, loss)
+                with span("host_read", cat="driver"):
+                    dual, primal, gap = float(d), float(p), float(p - d)
             hist["round"].append(t + 1)
-            hist["dual"].append(float(d))
-            hist["primal"].append(float(p))
-            hist["gap"].append(float(p - d))
+            hist["dual"].append(dual)
+            hist["primal"].append(primal)
+            hist["gap"].append(gap)
     return alpha, W, {k: np.asarray(v) for k, v in hist.items()}
 
 
@@ -356,10 +373,12 @@ def fit(
     rhos: List[float] = []
     rounds_seen = 0
     for p in range(cfg.outer_iters):
-        rho = _rho_value(cfg, sigma, reg=reg)
+        with span("rho", cat="driver"):
+            rho = _rho_value(cfg, sigma, reg=reg)
         rhos.append(rho)
         key, sub = prng.split(key)
-        alpha, W, hist = w_step(cfg, data, alpha, W, sigma, rho, sub, track=track)
+        with span("w_step", cat="driver", outer=p):
+            alpha, W, hist = w_step(cfg, data, alpha, W, sigma, rho, sub, track=track)
         if track:
             history["round"].append(hist["round"] + rounds_seen)
             history["dual"].append(hist["dual"])
@@ -369,10 +388,12 @@ def fit(
         rounds_seen += cfg.rounds
         if reg.learns:
             # Algorithm 1 row 11 runs after every W-step, including the last.
-            sigma, omega = reg.step(W, cfg.omega_jitter)
+            with span("omega_step", cat="driver", outer=p):
+                sigma, omega = reg.step(W, cfg.omega_jitter)
             # Sigma changed => the dual problem (K) changed; W(alpha) must be
             # recomputed under the new Sigma (B is Sigma-independent).
-            W = dual_mod.weights_from_alpha(data, alpha, sigma, cfg.lam)
+            with span("w_from_alpha", cat="driver"):
+                W = dual_mod.weights_from_alpha(data, alpha, sigma, cfg.lam)
 
     hist_np = {
         k: (np.concatenate(v) if v else np.zeros((0,))) for k, v in history.items()

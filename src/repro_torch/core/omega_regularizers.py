@@ -44,6 +44,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..obs.trace import span
 from . import omega as omega_mod
 from .sigma_view import LowRankDiagSigma, SigmaView, SparseSigma
 
@@ -59,12 +60,13 @@ def default_rho_bound(
     if mode == "fixed":
         return float(fixed)
     if isinstance(sigma, SigmaView):
-        if mode == "spectral":
-            return float(sigma.rho_spectral(eta))
-        return float(sigma.rho_lemma10(eta))
-    if mode == "spectral":
-        return float(omega_mod.rho_spectral(sigma, eta))
-    return float(omega_mod.rho_lemma10(sigma, eta))
+        bound = sigma.rho_spectral(eta) if mode == "spectral" else sigma.rho_lemma10(eta)
+    elif mode == "spectral":
+        bound = omega_mod.rho_spectral(sigma, eta)
+    else:
+        bound = omega_mod.rho_lemma10(sigma, eta)
+    with span("host_read", cat="driver"):  # the host waits for the bound
+        return float(bound)
 
 
 def _check_finite_w(W, name: str) -> None:

@@ -12,7 +12,11 @@ n and sigma_diag (m,), keys (m, 2)), with each task's H coordinate draws
 derived from its key exactly as ``sdca.sample_coords`` does — so every
 backend produces the SAME sampled coordinate order and (up to float-op
 ordering) the same iterate sequence, and the same as the JAX package's
-backend of the same name.
+backend of the same name. ``make`` is the draw (``draw_uniform``: each
+task's H uniforms from its key) followed by ``backend.make_from_uniform``'s
+solve, which takes those uniforms (m, H) in place of the keys; the
+single-process trainer calls the two apart, so its trace times the draw
+on its own.
 
 Registered backends (the names are the JAX package's, so its configs run
 unchanged):
@@ -41,17 +45,24 @@ import torch
 from .. import prng
 from .losses import Loss
 from .sdca import (
+    coords_from_uniform,
     gather_rows,
     kappa_of,
     local_sdca_block,
     local_sdca_naive,
-    sample_coords,
 )
 
 Tensor = torch.Tensor
 
-# solve(x, y, alpha, W, n, sigma_diag, keys) -> (dalpha, r)
+# solve(x, y, alpha, W, n, sigma_diag, keys) -> (dalpha, r); the solvers of
+# make_from_uniform take the (m, H) uniforms u in place of the keys
 Solver = Callable[..., Tuple[Tensor, Tensor]]
+
+
+def draw_uniform(keys: Tensor, H: int, device) -> Tensor:
+    """Each task's H uniforms in [0, 1) from its key (m, 2) -> (m, H): the
+    stream ``sdca.sample_coords`` maps to coordinates."""
+    return prng.uniform(keys, (H,), device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,13 +73,22 @@ class SolverBackend:
     description: str
     # H must be rounded up to a multiple of the block size
     block_aligned: bool
-    # make(loss, rho, lam, H, block=...) -> Solver
-    make: Callable[..., Solver]
+    # make_from_uniform(loss, rho, lam, H, block=...) -> Solver on uniforms
+    make_from_uniform: Callable[..., Solver]
     # kernel launches per local round for given (H, block); the JAX name
     # is kept because configs and benches read it
     pallas_calls: Callable[[int, int], int] = lambda H, block: 0
     # the solve body launches a hand-written kernel
     uses_pallas: bool = False
+
+    def make(self, loss: Loss, rho: float, lam: float, H: int, block: int = 64) -> Solver:
+        """The solver on per-task keys: the draw, then the solve."""
+        solve_u = self.make_from_uniform(loss, rho, lam, H, block=block)
+
+        def solve(x, y, alpha, W, n, sigma_diag, keys):
+            return solve_u(x, y, alpha, W, n, sigma_diag, draw_uniform(keys, H, x.device))
+
+        return solve
 
     def round_local_iters(self, H: int, block: int) -> int:
         """Round H up to this backend's alignment requirement."""
@@ -112,8 +132,8 @@ def _make_naive(
     block: int = 64,
 ) -> Solver:
 
-    def solve(x, y, alpha, W, n, sigma_diag, keys):
-        coords = sample_coords(keys, H, n, x.shape[1])
+    def solve(x, y, alpha, W, n, sigma_diag, u):
+        coords = coords_from_uniform(u, n, x.shape[1])
         return local_sdca_naive(x, y, alpha, W, n, sigma_diag, coords, rho, lam, loss)
 
     return solve
@@ -130,8 +150,8 @@ def _make_block_gram(
     block: int = 64,
 ) -> Solver:
 
-    def solve(x, y, alpha, W, n, sigma_diag, keys):
-        coords = sample_coords(keys, H, n, x.shape[1])
+    def solve(x, y, alpha, W, n, sigma_diag, u):
+        coords = coords_from_uniform(u, n, x.shape[1])
         return local_sdca_block(
             x, y, alpha, W, n, sigma_diag, coords, rho, lam, loss, block=block
         )
@@ -151,8 +171,8 @@ def _make_pallas_block(
 ) -> Solver:
     from ..kernels.sdca import ops as sdca_ops  # lazy: kernel layer
 
-    def solve(x, y, alpha, W, n, sigma_diag, keys):
-        coords = sample_coords(keys, H, n, x.shape[1])
+    def solve(x, y, alpha, W, n, sigma_diag, u):
+        coords = coords_from_uniform(u, n, x.shape[1])
         kappa = kappa_of(rho, lam, n, sigma_diag)
         dalpha = torch.zeros_like(alpha)
         r = torch.zeros_like(W)
@@ -182,10 +202,9 @@ def _make_pallas_round(
 ) -> Solver:
     from ..kernels.sdca import ops as sdca_ops  # lazy: kernel layer
 
-    def solve(x, y, alpha, W, n, sigma_diag, keys):
+    def solve(x, y, alpha, W, n, sigma_diag, u):
         # the kernel maps the key-derived uniform stream to coordinates
         # on the device with sample_coords' exact arithmetic
-        u = prng.uniform(keys, (H,), device=x.device)
         kappa = kappa_of(rho, lam, n, sigma_diag)
         return sdca_ops.sdca_round(
             x, y, alpha, W, u, n, kappa, loss.name, block=block
@@ -200,7 +219,7 @@ register_backend(
         description="literal Algorithm 2: one coordinate per step, d-dim "
         "inner product + axpy each (reference semantics)",
         block_aligned=False,
-        make=_make_naive,
+        make_from_uniform=_make_naive,
     )
 )
 register_backend(
@@ -210,7 +229,7 @@ register_backend(
         "B-block plus a B-step scalar recursion on the Gram block; same "
         "iterates as naive",
         block_aligned=True,
-        make=_make_block_gram,
+        make_from_uniform=_make_block_gram,
     )
 )
 register_backend(
@@ -219,7 +238,7 @@ register_backend(
         description="per-block Hopper kernel: one launch per H-block for all "
         "tasks, w/r read from device memory each block",
         block_aligned=True,
-        make=_make_pallas_block,
+        make_from_uniform=_make_pallas_block,
         pallas_calls=lambda H, block: H // block,
         uses_pallas=True,
     )
@@ -230,7 +249,7 @@ register_backend(
         description="fused Hopper round kernel: all H/B blocks of every task "
         "in one launch, w/r in shared memory, on-device coordinate sampling",
         block_aligned=True,
-        make=_make_pallas_round,
+        make_from_uniform=_make_pallas_round,
         pallas_calls=lambda H, block: 1,
         uses_pallas=True,
     )

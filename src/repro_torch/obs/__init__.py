@@ -34,8 +34,10 @@ from .trace import (  # noqa: F401
     export_chrome,
     get_tracer,
     phase_breakdown,
+    self_time_breakdown,
     set_clock,
     span,
+    wall_clock,
 )
 from .metrics import (  # noqa: F401
     Counter,
@@ -60,9 +62,11 @@ __all__ = [
     "disable",
     "enabled",
     "set_clock",
+    "wall_clock",
     "get_tracer",
     "export_chrome",
     "phase_breakdown",
+    "self_time_breakdown",
     "Counter",
     "Gauge",
     "Histogram",

@@ -20,7 +20,9 @@ measures them on its copy of this module):
     check returning a shared no-op context manager; no allocation, no
     lock, no clock read.  ``obs.disable()`` is the production default.
   * **injectable clock** — ``set_clock`` swaps ``time.perf_counter`` for
-    a virtual clock so deterministic fleet sims trace in virtual time.
+    a virtual clock so deterministic fleet sims trace in virtual time, or
+    for ``wall_clock``, the epoch timeline ``torch.profiler`` stamps its
+    host and device events on, so spans and a device trace line up.
   * **thread-safe** — the only shared mutation is the ring-buffer append
     and the thread-id table, both under one small lock taken at span
     EXIT (never while a caller's own lock ordering matters: the tracer
@@ -46,9 +48,12 @@ __all__ = [
     "disable",
     "enabled",
     "set_clock",
+    "wall_clock",
     "get_tracer",
     "export_chrome",
     "phase_breakdown",
+    "self_time_breakdown",
+    "self_times",
 ]
 
 DEFAULT_CAPACITY = 262_144  # ring-buffer slots (one dict per closed span)
@@ -175,6 +180,35 @@ class Tracer:
         return out
 
 
+def self_times(events: List[dict]) -> Dict[str, dict]:
+    """Totals by span name of Chrome complete events: ``{name: {count,
+    total_s, self_s}}``. A span's self time is its duration minus the part
+    of it that its children cover: the spans on the same (pid, tid) track
+    whose interval lies inside it with no span between (time containment,
+    as the trace viewer nests them). Summed over the names, self time is
+    the wall time the outermost spans cover."""
+    out: Dict[str, dict] = {}
+    tracks: Dict[tuple, List[dict]] = {}
+    for ev in events:
+        tracks.setdefault((ev.get("pid"), ev.get("tid")), []).append(ev)
+    for track in tracks.values():
+        # parents first: by start, the longer of two that start together
+        track.sort(key=lambda e: (e["ts"], -e["dur"]))
+        stack: List[list] = []  # [end_us, row] of the open ancestors
+        for ev in track:
+            t0, t1 = ev["ts"], ev["ts"] + ev["dur"]
+            while stack and stack[-1][0] <= t0:
+                stack.pop()
+            row = out.setdefault(ev["name"], {"count": 0, "total_s": 0.0, "self_s": 0.0})
+            row["count"] += 1
+            row["total_s"] += ev["dur"] / 1e6
+            row["self_s"] += ev["dur"] / 1e6
+            if stack:  # the parent loses the part of it this child covers
+                stack[-1][1]["self_s"] -= (min(t1, stack[-1][0]) - t0) / 1e6
+            stack.append([t1, row])
+    return out
+
+
 class _Span:
     """One live span: clock at enter, record at exit."""
 
@@ -254,6 +288,14 @@ def enabled() -> bool:
     return _ENABLED
 
 
+def wall_clock() -> float:
+    """The host's wall clock in seconds since the epoch (``time.time_ns``):
+    the timeline of ``torch.profiler``'s events, which sit at
+    ``kineto_results.trace_start_ns()`` plus their ``time_range`` in
+    microseconds."""
+    return time.time_ns() * 1e-9
+
+
 def set_clock(clock: Callable[[], float]) -> None:
     _TRACER.set_clock(clock)
 
@@ -268,3 +310,9 @@ def export_chrome(path: str) -> int:
 
 def phase_breakdown(cat: Optional[str] = None) -> Dict[str, dict]:
     return _TRACER.phase_breakdown(cat)
+
+
+def self_time_breakdown(cat: Optional[str] = None) -> Dict[str, dict]:
+    """Exclusive-time totals by span name of the buffered spans,
+    ``{name: {count, total_s, self_s}}`` (see ``self_times``)."""
+    return self_times([e for e in _TRACER.events() if cat is None or e.get("cat") == cat])
