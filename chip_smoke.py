@@ -4,14 +4,17 @@
     python3 chip_smoke.py
 
 Phases, each printing its own lines:
-  1. build  — compile the six kernel sources (SDCA round and block, flash
+  1. build  — compile the seven kernel sources (SDCA round and block, flash
               attention forward and backward, SSD chunk forward and
-              backward) from
+              backward, the round's threefry draw) from
               src/repro_torch/kernels/*/csrc with nvcc for sm_90a (one nvcc
               per source, started together);
   2. kernels against their plain PyTorch versions on the card, at their
-              paths' shapes: the SDCA round at 10 tasks x 12000 rows x 784
-              features, B = 64, for the hinge, squared and smoothed-hinge
+              paths' shapes: the round's threefry draw at both benchmark
+              cells' shapes (10 x 12032, 16 x 2048), bit for bit, its
+              device and host time beside prng's torch ops; the SDCA
+              round at 10 tasks x 12000 rows x 784 features, B = 64, for
+              the hinge, squared and smoothed-hinge
               losses (its two stages also timed apart, and at each cluster
               size that fits); the SDCA block at that width and at
               Synthetic-1's (16 tasks, d = 100), there also with duplicate
@@ -52,8 +55,8 @@ Phases, each printing its own lines:
               sentinels, against their plain versions;
   3. main path — DMTRLEstimator(solver="pallas_round") fits the paper's
               MNIST-width problem (mnist_like, scale 1.0) on the card, then
-              scores and predicts; the fused round kernel must carry every
-              round;
+              scores and predicts; the fused round kernel and the draw
+              kernel must each carry every round once;
   4. second path — solver="pallas_block" on the paper's Synthetic-1 size,
               held against solver="block_gram" (plain torch) on the card;
   5. LM path — Zamba2-2.7B at full width (54 Mamba2 layers, the shared
@@ -2136,6 +2139,62 @@ def mtl_serving_path(torch, dev, card: str, est, train, test) -> None:
           "the fleet lost requests")
 
 
+# the round's draw at the benchmark cells' shapes: (tasks, H) of mnist.fit
+# (one local epoch of 12 000 rows at B = 64) and synthetic1.fit
+DRAW_SHAPES = {"MNIST": (10, 12032), "Synthetic-1": (16, 2048)}
+
+
+def threefry_draw_checks(torch, dev, card: str) -> dict:
+    """Phase 2 for the round's draw kernel: at each shape of DRAW_SHAPES its
+    uniforms bit-equal to the CPU path (prng's torch ops), its device time
+    beside its bound (the output's bytes), and the host time a call takes,
+    the kernel's against the same torch ops on the card (the path it
+    replaced)."""
+    from repro_torch import prng
+    from repro_torch.core.solver_backends import draw_task_uniform, draw_uniform
+    from repro_torch.kernels.prng import threefry_draw
+
+    key = prng.split(prng.PRNGKey(3), 10)[3]
+    out = {}
+    for tag, (m, H) in DRAW_SHAPES.items():
+        tids = torch.arange(m, dtype=torch.int32)
+        tids_dev = tids.to(dev)
+
+        def kernel():
+            return threefry_draw(key, tids_dev, 0, H)
+
+        def torch_ops():
+            return draw_uniform(prng.fold_in(prng.fold_in(key, tids), 0), H, dev)
+
+        got = kernel()
+        torch.cuda.synchronize()
+        want = draw_task_uniform(key, tids, 0, H, "cpu")
+        check(bool(torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))),
+              f"threefry_draw {tag}: not bit-equal to the CPU path")
+        check(bool(torch.equal(torch_ops().cpu().view(torch.int32), want.view(torch.int32))),
+              f"threefry_draw {tag}: prng's torch ops on the card disagree")
+
+        def host_ms(fn, reps=200):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            host = (time.perf_counter() - t0) / reps * 1e3
+            torch.cuda.synchronize()
+            return host
+
+        ms = cuda_ms(torch, kernel, reps=200)
+        plain = cuda_ms(torch, torch_ops, reps=20)
+        bound, by = bound_ms(m * H * 4 + m * 4, 0.0)
+        h_kernel, h_plain = host_ms(kernel), host_ms(torch_ops)
+        print(f"[2 threefry_draw {tag}] {m} x {H}: bit-equal to the CPU path; "
+              f"{ms:.4f} ms/call on the device (torch ops {plain:.4f}), bound {bound:.5f} ms "
+              f"by {by}; host {h_kernel:.4f} ms a call (torch ops {h_plain:.4f}) on {card}")
+        out[tag] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                        host_ms=h_kernel, plain_host_ms=h_plain)
+    return out
+
+
 def round_at_many_tasks(torch, dev, card: str, data, sm_clock: str):
     """Phase 2, the round kernel at the structured path's shape (phase 6c:
     4096 tasks, d = 100, about 100 rows a task): against its plain version
@@ -3330,7 +3389,7 @@ def main() -> int:
     from repro_torch.core import dual as dual_mod
     from repro_torch.core.sdca import coords_from_uniform, gather_rows, kappa_of
     from repro_torch.data.synthetic import mnist_like, synthetic
-    from repro_torch.kernels import flash, nvcc, sdca, ssd
+    from repro_torch.kernels import flash, nvcc, prng as prng_kernels, sdca, ssd
     from repro_torch.kernels.sdca import (
         ref, reset_launch_counts, sdca_block_kernel, sdca_kernel, sdca_round_kernel,
     )
@@ -3350,7 +3409,8 @@ def main() -> int:
 
     # -- phase 1: build ----------------------------------------------------
     t0 = time.perf_counter()
-    seconds = nvcc.build_all(sdca.SOURCES + flash.SOURCES + ssd.SOURCES)
+    seconds = nvcc.build_all(sdca.SOURCES + flash.SOURCES + ssd.SOURCES
+                             + prng_kernels.SOURCES)
     print(f"[1 build] {time.perf_counter() - t0:.2f} s wall; per source: "
           + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items()))
     log = nvcc.BUILD_DIR / "ssd_chunk_bwd.log"  # nvcc -Xptxas -v of this build
@@ -3510,6 +3570,7 @@ def main() -> int:
     del many_train
     del shapes, sx, sy, s_alpha, s_w, s_r
     del alpha, w, u, r_state
+    draw = threefry_draw_checks(torch, dev, card)
     lm = lm_kernel_checks(torch, dev, card)
     lm["flash_bwd"] = flash_bwd_checks(torch, dev, card)
     lm["ssd_bwd"] = ssd_bwd_checks(torch, dev, card)
@@ -3519,12 +3580,14 @@ def main() -> int:
                rounds=5, local_iters=0, block_size=BLOCK)
     est = DMTRLEstimator(engine="reference", device="cuda", **cfg)
     reset_launch_counts()
+    draws_before = prng_kernels.threefry_draw.launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     est.fit(train)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches_round = sdca_round_kernel.launches
+    launches_draw = prng_kernels.threefry_draw.launches - draws_before
     launches_block_main = sdca_block_kernel.launches
     n_rounds = cfg["outer_iters"] * cfg["rounds"]
     gap = est.history["gap"]
@@ -3537,6 +3600,8 @@ def main() -> int:
     check(launches_round == n_rounds,
           f"sdca_round launched {launches_round} times, expected {n_rounds}")
     check(launches_block_main == 0, "the main path launched sdca_block")
+    check(launches_draw == n_rounds,
+          f"threefry_draw launched {launches_draw} times, expected {n_rounds}")
     # phase 3's fit as phase 11 compares with it (partial_fit moves est below)
     ref3 = SimpleNamespace(W_=est.W_.clone(), sigma_=est.sigma_.clone())
     tr = float(torch.trace(est.sigma_))
@@ -3693,6 +3758,12 @@ def main() -> int:
              library_ms=None, launches_by_path={
                  "4 synthetic1": launches_block,
                  **{k: v["sdca_block"] for k, v in mesh_launches.items() if v["sdca_block"]}}),
+        # no TPU kernel: the JAX package draws with jax.random's threefry
+        dict(name="threefry_draw", route="cuda",
+             source="src/repro_torch/kernels/prng/csrc/threefry_draw.cu",
+             replaces=None, launches=launches_draw, max_abs_err=0.0,
+             library_ms=None, launches_by_path={"3 fit": launches_draw},
+             **draw["MNIST"], by_shape=draw),
         dict(name="flash_fwd", route="cuda",
              source="src/repro_torch/kernels/flash/csrc/flash_fwd.cu",
              replaces="src/repro/kernels/flash/flash_kernel.py:84",

@@ -20,10 +20,11 @@ passes ``device="cpu"``.
 With ``obs.enable()`` a fit records spans (cat ``driver``), nested by time
 under the engine's ``engine_run``: per outer iteration ``rho``, ``w_step``,
 ``omega_step`` and ``w_from_alpha``; per round ``w_round`` holding
-``coords`` (the keys and the uniform draw), ``local_sdca`` (the solver) and
-``reduce``; per tracked evaluation ``objectives``; and ``host_read`` where
-the host waits for a device value (rho, the objectives). Per-round spans
-carry no labels, so with tracing off each costs one flag check.
+``coords`` (the per-task keys and the uniform draw, one kernel launch on
+the card), ``local_sdca`` (the solver) and ``reduce``; per tracked
+evaluation ``objectives``; and ``host_read`` where the host waits for a
+device value (rho, the objectives). Per-round spans carry no labels, so
+with tracing off each costs one flag check.
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ from . import sigma_view as sigma_view_mod
 from .losses import get_loss
 from .mtl_data import MTLData
 from .sigma_view import SigmaView, as_view
-from .solver_backends import draw_uniform, get_backend
+from .solver_backends import draw_task_uniform, get_backend
 
 Tensor = torch.Tensor
 
@@ -275,14 +276,13 @@ def make_w_step_round(cfg: DMTRLConfig, data: MTLData, rho: float):
     backend = get_backend(cfg.solver)
     H = backend.round_local_iters(cfg.local_iters or data.n_max, cfg.block_size)
     solver = backend.make_from_uniform(loss, rho, cfg.lam, H, block=cfg.block_size)
-    tids = torch.arange(data.m, dtype=torch.int64)
+    tids = torch.arange(data.m, dtype=torch.int32, device=data.x.device)
 
     def round_fn(alpha, W, sigma, key):
         with span("coords", cat="driver"):
-            # the JAX package's per-(task, pod=0) key derivation, so both
-            # packages draw the same coordinates
-            keys = prng.fold_in(prng.fold_in(key, tids), 0)  # (m, 2)
-            u = draw_uniform(keys, H, data.x.device)  # (m, H)
+            # the JAX package's per-(task, pod=0) keys and their draws, so
+            # both packages draw the same coordinates
+            u = draw_task_uniform(key, tids, 0, H, data.x.device)  # (m, H)
         sv = as_view(sigma)
         with span("local_sdca", cat="driver"):
             dalpha, r = solver(data.x, data.y, alpha, W, data.n, sv.diag(), u)

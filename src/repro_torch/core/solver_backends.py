@@ -15,8 +15,9 @@ ordering) the same iterate sequence, and the same as the JAX package's
 backend of the same name. ``make`` is the draw (``draw_uniform``: each
 task's H uniforms from its key) followed by ``backend.make_from_uniform``'s
 solve, which takes those uniforms (m, H) in place of the keys; the
-single-process trainer calls the two apart, so its trace times the draw
-on its own.
+single-process trainer calls the two apart, deriving the keys and drawing
+in one step (``draw_task_uniform``: one kernel launch on the card), so its
+trace times the draw on its own.
 
 Registered backends (the names are the JAX package's, so its configs run
 unchanged):
@@ -63,6 +64,20 @@ def draw_uniform(keys: Tensor, H: int, device) -> Tensor:
     """Each task's H uniforms in [0, 1) from its key (m, 2) -> (m, H): the
     stream ``sdca.sample_coords`` maps to coordinates."""
     return prng.uniform(keys, (H,), device=device)
+
+
+def draw_task_uniform(key: Tensor, tids: Tensor, pod: int, H: int, device) -> Tensor:
+    """Each task's H uniforms of one round from the round key (2,): task t
+    draws from ``fold_in(fold_in(key, tids[t]), pod)``, the JAX package's
+    per-task keys -> (m, H). On a CUDA device one kernel launch derives the
+    keys and draws (``kernels.prng.threefry_draw``, bit-equal); elsewhere
+    ``prng``'s torch ops do, on ``tids``' device."""
+    if torch.device(device).type == "cuda":
+        from ..kernels.prng import threefry_draw  # lazy: kernel layer
+
+        return threefry_draw(key, tids.to(device=device, dtype=torch.int32), pod, H)
+    keys = prng.fold_in(prng.fold_in(key.to(tids.device), tids), pod)  # (m, 2)
+    return draw_uniform(keys, H, device)
 
 
 @dataclasses.dataclass(frozen=True)

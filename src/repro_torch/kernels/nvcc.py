@@ -32,6 +32,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 VP, INT, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+U32 = ctypes.c_uint32
 _FUNCS: Dict[Tuple[Path, str], ctypes._CFuncPtr] = {}
 # held while a library is built and loaded: worker threads of a transport
 # may launch a kernel for the first time together

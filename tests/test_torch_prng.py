@@ -2,7 +2,9 @@
 draws must be BIT-equal (every coordinate draw of the trainer rests on
 them); normal agrees to float32 rounding (torch's erfinv is not XLA's);
 gumbel and categorical, which the serving engine samples with, give JAX's
-ids bit for bit in float32 and bfloat16."""
+ids bit for bit in float32 and bfloat16. The round's draw
+(``solver_backends.draw_task_uniform``, off the card) equals prng's
+composition of keys and draw and JAX's per-task draws bit for bit."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -10,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch import prng
+from repro_torch.core.solver_backends import draw_task_uniform
 
 SEEDS = [0, 1, 42, 2**31 - 1, 123456789]
 
@@ -45,6 +48,27 @@ def test_fold_in_batched_over_tasks():
     kj = jax.vmap(lambda t: jax.random.fold_in(jax.random.fold_in(key, t), 0))(tids)
     kt = prng.fold_in(prng.fold_in(torch.from_numpy(_np(key)), torch.arange(9)), 0)
     assert np.array_equal(_np(kj), kt.numpy())
+
+
+@pytest.mark.parametrize("pod", [0, 3])
+@pytest.mark.parametrize("first", [0, 5])
+@pytest.mark.parametrize("m, H", [(10, 12032), (16, 2048), (1, 1), (3, 1000)])
+@pytest.mark.parametrize("seed", [0, 42, 2**31 - 1])
+def test_draw_task_uniform(seed, m, H, first, pod):
+    """A round's (m, H) uniforms from its round key: task ids from ``first``,
+    each task's key fold_in(fold_in(key, t), pod), at both benchmark cells'
+    shapes, one element and an H that is no multiple of 4."""
+    key = prng.split(prng.PRNGKey(seed), 10)[3]
+    tids = torch.arange(first, first + m, dtype=torch.int32)
+    got = draw_task_uniform(key, tids, pod, H, "cpu")
+    assert got.dtype == torch.float32 and tuple(got.shape) == (m, H)
+    composed = prng.uniform(prng.fold_in(prng.fold_in(key, tids), pod), (H,))
+    assert torch.equal(got.view(torch.int32), composed.view(torch.int32))
+    kj = jax.random.split(jax.random.PRNGKey(seed), 10)[3]
+    want = jax.vmap(lambda t: jax.random.uniform(
+        jax.random.fold_in(jax.random.fold_in(kj, t), pod), (H,)))(
+        jnp.arange(first, first + m, dtype=jnp.int32))
+    assert np.array_equal(np.asarray(want).view(np.int32), got.numpy().view(np.int32))
 
 
 @pytest.mark.parametrize("shape", [(1,), (7,), (3, 4), (1000,), (2, 3, 5)])
