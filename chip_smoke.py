@@ -16,7 +16,9 @@ Phases, each printing its own lines:
               round at 10 tasks x 12000 rows x 784 features, B = 64, for
               the hinge, squared and smoothed-hinge
               losses (its two stages also timed apart, and at each cluster
-              size that fits); the SDCA block at that width and at
+              size that fits) and at the MDS width (22 tasks x 14 525 rows x
+              10 000 features, its streaming stage 2, timed over cluster
+              sizes and held columns); the SDCA block at that width and at
               Synthetic-1's (16 tasks, d = 100), there also with duplicate
               coordinates, timed at every cluster size beside its chain
               floor; flash attention at Zamba2-2.7B's (1, 32, 512, 80),
@@ -324,6 +326,9 @@ TOL_CONSIST = 5e-4
 # tasks of Synthetic-1 (d = 100, about 100 train and 50 test rows a task)
 SCORE_BATCH, N_REPLICAS = 256, 4
 MANY_M, MANY_D, MANY_N_TRAIN, MANY_N_TEST, MANY_RANK = 4096, 100, 100, 50, 32
+# the paper's MDS width (Table 1's MDS): 22 domains of up to 14 525
+# training reviews over d = 10 000 words; K1's stage 2 streams the rows there
+MDS_M, MDS_N_MAX, MDS_D = 22, 14525, 10000
 # served scores against the estimator's predict path: the same per-row dot
 # products in another kernel (a gather and a row-wise dot against
 # predictions' batched product); the JAX package's serving tests hold them
@@ -2254,6 +2259,132 @@ def round_at_many_tasks(torch, dev, card: str, data, sm_clock: str):
     return err
 
 
+def round_at_mds_width(torch, dev, card: str, sm_clock: str) -> dict:
+    """Phase 2, K1 at the MDS width (22 x 14 525 x 10 000, B = 64, one local
+    epoch of H = 14 528): the streaming stage 2 against the plain version
+    (hinge), its device and host time a call beside the bound, the two
+    stages apart and stage 2 over held columns."""
+    from repro_torch.kernels.sdca import ref, sdca_kernel, sdca_round_kernel
+
+    m, n_max, d = MDS_M, MDS_N_MAX, MDS_D
+    H = n_max + (-n_max) % BLOCK
+    g = torch.Generator(device=dev).manual_seed(34)
+    x = torch.randn((m, n_max, d), device=dev, generator=g)
+    x /= x.norm(dim=2, keepdim=True)
+    y = torch.where(torch.rand((m, n_max), device=dev, generator=g) < 0.5, -1.0, 1.0)
+    alpha = 0.5 * torch.rand((m, n_max), device=dev, generator=g) * y
+    w = 0.01 * torch.randn((m, d), device=dev, generator=g)
+    u = torch.rand((m, H), device=dev, generator=g)
+    n = torch.from_numpy(np.geomspace(219, n_max, m).astype(np.int32)).to(dev)
+    kappa = 1.0 / (m * 1e-4 * n.float())
+    args = (x, y, alpha, w, u, n, kappa)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = sdca_kernel.round_plan(m, d, BLOCK, sms)
+    check(plan.path == "stream", f"K1 at the MDS width plans {plan}")
+    streamed = sdca_round_kernel.stream_launches
+    da_k, r_k = sdca_round_kernel(*args, "hinge", block=BLOCK)
+    torch.cuda.synchronize()
+    check(sdca_round_kernel.stream_launches == streamed + 1, "the MDS round did not stream")
+    da_p, r_p = ref.sdca_round_ref(*args, "hinge")
+    err = max((da_k - da_p).abs().max().item(), (r_k - r_p).abs().max().item())
+    check(bool(torch.isfinite(da_k).all() and torch.isfinite(r_k).all()),
+          "sdca_round at the MDS width: non-finite output")
+    print(f"[2 sdca_round MDS width hinge] max|dalpha, r - plain| = {err:.3e} "
+          f"(tolerance {TOL_ROUND:.0e}; max|r| {r_p.abs().max().item():.3f})")
+    check(err <= TOL_ROUND, "sdca_round at the MDS width disagrees with its plain version")
+    del da_k, r_k, da_p, r_p
+    ms = cuda_ms(torch, lambda: sdca_round_kernel(*args, "hinge", block=BLOCK), reps=10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        sdca_round_kernel(*args, "hinge", block=BLOCK)
+    host = (time.perf_counter() - t0) / 10 * 1e3
+    torch.cuda.synchronize()
+    scratch = torch.empty(m * (H // BLOCK) * (BLOCK * BLOCK + 4 * BLOCK), device=dev)
+    da_s, r_s = torch.zeros_like(alpha), torch.zeros_like(w)
+    stage_ms = [cuda_ms(torch, lambda st=st: sdca_kernel.sdca_round_stage(
+        st, *args, "hinge", scratch, da_s, r_s, block=BLOCK), reps=5) for st in (1, 2)]
+    sweep = {}
+    most = int(plan.hold / sdca_kernel.STREAM_HOLD_SHARE)
+    for hold in sorted({0, plan.hold, most // 4 * 4}):
+        sweep[f"hold={hold}"] = cuda_ms(torch, lambda hold=hold: (
+            sdca_kernel.sdca_round_stage(2, *args, "hinge", scratch, da_s, r_s,
+                                         block=BLOCK, hold=hold)), reps=5)
+    del scratch, da_s, r_s
+    # each drawn row (with its alpha and y) read once as if all were distinct,
+    # w, u, n, kappa read and dalpha, r written once; per block the Gram
+    # triangle and q, xr and r
+    nbytes = m * H * (d * 4 + 8) + (m * d * 4 + m * H * 4 + m * 8) + (m * n_max * 4 + m * d * 4)
+    flops = 2.0 * m * (H // BLOCK) * (GRAM_TRI + 3 * BLOCK) * d
+    b, by = bound_ms(nbytes, flops)
+    floor = [H * cyc / (float(sm_clock) * 1e6) * 1e3 for cyc in (60, 100)]
+    print(f"[2 sdca_round MDS width] x {tuple(x.shape)}, H = {H}, {plan}: {ms:.4f} ms/call on "
+          f"the device, {host:.4f} ms/call on the host; bound {b:.4f} ms by {by} "
+          f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.2f} GB); chain floor {floor[0]:.3f}-"
+          f"{floor[1]:.3f} ms on {card}")
+    print(f"[2 sdca_round MDS width] stage 1 (Gram, q) {stage_ms[0]:.4f} ms, stage 2 "
+          f"(chain_stream_kernel) {stage_ms[1]:.4f} ms; stage 2 by held columns: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in sweep.items()))
+    return dict(ms=ms, host_ms=host, bound_ms=b, bound_by=by, max_abs_err=err,
+                stage_ms=stage_ms, plan=dict(path=plan.path, cluster=plan.cluster,
+                                             hold=plan.hold), stage2_sweep=sweep)
+
+
+def stream_at_cell_widths(torch, dev, card: str) -> dict:
+    """Phase 2, K1's stage 2 at the widths where the chain path runs
+    (``mnist.fit``: 10 x 12 000 x 784; ``synthetic1.fit``: 16 x 1 894 x 100;
+    B = 64, one local epoch): ``chain_kernel`` at its cluster against
+    ``chain_stream_kernel`` holding its whole slab, at that cluster and at
+    ``STREAM_CLUSTER``, and at ``STREAM_CLUSTER`` with the hold the rule
+    gives. Each streamed stage 2 is checked against the chain's output."""
+    from repro_torch.kernels.sdca import sdca_kernel
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for label, (m, n_max, d) in (("mnist.fit", (M, N_MAX, D)),
+                                 ("synthetic1.fit", (16, 1894, 100))):
+        H = n_max + (-n_max) % BLOCK
+        g = torch.Generator(device=dev).manual_seed(d)
+        x = torch.randn((m, n_max, d), device=dev, generator=g)
+        x /= x.norm(dim=2, keepdim=True)
+        y = torch.where(torch.rand((m, n_max), device=dev, generator=g) < 0.5, -1.0, 1.0)
+        alpha = 0.5 * torch.rand((m, n_max), device=dev, generator=g) * y
+        w = 0.01 * torch.randn((m, d), device=dev, generator=g)
+        u = torch.rand((m, H), device=dev, generator=g)
+        n = torch.full((m,), n_max, dtype=torch.int32, device=dev)
+        kappa = 1.0 / (m * 1e-4 * n.float())
+        args = (x, y, alpha, w, u, n, kappa)
+        chain = sdca_kernel.round_plan(m, d, BLOCK, sms)
+        check(chain.path == "chain", f"K1 at {label}'s width plans {chain}")
+        scratch = torch.empty(m * (H // BLOCK) * (BLOCK * BLOCK + 4 * BLOCK), device=dev)
+        sdca_kernel.sdca_round_stage(1, *args, "hinge", scratch, torch.zeros_like(alpha),
+                                     torch.zeros_like(w), block=BLOCK)
+
+        def stage2(**plan):
+            da, r = torch.zeros_like(alpha), torch.zeros_like(w)
+            sdca_kernel.sdca_round_stage(2, *args, "hinge", scratch, da, r, block=BLOCK, **plan)
+            return da, r
+
+        plans = {f"chain C={chain.cluster}": dict(cluster=chain.cluster)}
+        for c in sorted({chain.cluster, sdca_kernel.STREAM_CLUSTER}):
+            plans[f"stream C={c} whole slab"] = dict(cluster=c, hold=sdca_kernel._slab(d, c))
+        rule = sdca_kernel.stream_hold(m, d, BLOCK, sdca_kernel.STREAM_CLUSTER, sms)
+        plans[f"stream C={sdca_kernel.STREAM_CLUSTER} hold={rule}"] = dict(hold=rule)
+        da_c, r_c = stage2(**plans[f"chain C={chain.cluster}"])
+        times = {}
+        for name, plan in plans.items():
+            da_s, r_s = stage2(**plan)
+            torch.cuda.synchronize()
+            e = max((da_s - da_c).abs().max().item(), (r_s - r_c).abs().max().item())
+            check(e <= TOL_ROUND, f"stage 2 {name} at {label}'s width: {e:.3e} off the chain's")
+            times[name] = cuda_ms(torch, lambda plan=plan: stage2(**plan), reps=10)
+        print(f"[2 sdca_round stage 2 at {label}'s width] x {tuple(x.shape)}, H = {H}: "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()) + f" on {card}")
+        out[label] = times
+        del x, scratch
+    return out
+
+
 def structured_path(torch, dev, card: str, data) -> None:
     """Phase 6c: a low_rank_diag fit at 4096 tasks through the round
     kernel, its test rows served with their Sigma rows from the factors,
@@ -3568,6 +3699,8 @@ def main() -> int:
     err_round, err_block = max(err_round, e_round), max(err_block, e_block)
     err_round = max(err_round, round_at_many_tasks(torch, dev, card, many_train, sm_clock))
     del many_train
+    mds_round = round_at_mds_width(torch, dev, card, sm_clock)
+    mds_round["stream_at_cell_widths"] = stream_at_cell_widths(torch, dev, card)
     del shapes, sx, sy, s_alpha, s_w, s_r
     del alpha, w, u, r_state
     draw = threefry_draw_checks(torch, dev, card)
@@ -3747,7 +3880,7 @@ def main() -> int:
              replaces="src/repro/kernels/sdca/sdca_kernel.py:261",
              launches=launches_round, max_abs_err=err_round, ms=ms_round,
              plain_ms=plain_round, bound_ms=b_round, bound_by=by_round,
-             library_ms=None, launches_by_path={
+             library_ms=None, mds_width=mds_round, launches_by_path={
                  "3 fit": launches_round, "8e bridge": by_path["8e bridge"]["sdca_round"],
                  **{k: v["sdca_round"] for k, v in mesh_launches.items() if v["sdca_round"]}}),
         dict(name="sdca_block", route="cuda",

@@ -21,10 +21,11 @@ With ``obs.enable()`` a fit records spans (cat ``driver``), nested by time
 under the engine's ``engine_run``: per outer iteration ``rho``, ``w_step``,
 ``omega_step`` and ``w_from_alpha``; per round ``w_round`` holding
 ``coords`` (the per-task keys and the uniform draw, one kernel launch on
-the card), ``local_sdca`` (the solver) and ``reduce``; per tracked
-evaluation ``objectives``; and ``host_read`` where the host waits for a
-device value (rho, the objectives). Per-round spans carry no labels, so
-with tracing off each costs one flag check.
+the card), ``local_sdca`` (the solver; labelled with what it launches, for
+K1 its stage-2 path and cluster) and ``reduce``; per tracked evaluation
+``objectives``; and ``host_read`` where the host waits for a device value
+(rho, the objectives). The labels are worked out once a W-step, so with
+tracing off each per-round span costs one flag check.
 """
 from __future__ import annotations
 
@@ -277,6 +278,9 @@ def make_w_step_round(cfg: DMTRLConfig, data: MTLData, rho: float):
     H = backend.round_local_iters(cfg.local_iters or data.n_max, cfg.block_size)
     solver = backend.make_from_uniform(loss, rho, cfg.lam, H, block=cfg.block_size)
     tids = torch.arange(data.m, dtype=torch.int32, device=data.x.device)
+    # what the solve launches (K1's stage-2 path and cluster), fixed by the
+    # data's shape: the local_sdca span's labels
+    labels = backend.span_args(data.x, cfg.loss, cfg.block_size)
 
     def round_fn(alpha, W, sigma, key):
         with span("coords", cat="driver"):
@@ -284,7 +288,7 @@ def make_w_step_round(cfg: DMTRLConfig, data: MTLData, rho: float):
             # both packages draw the same coordinates
             u = draw_task_uniform(key, tids, 0, H, data.x.device)  # (m, H)
         sv = as_view(sigma)
-        with span("local_sdca", cat="driver"):
+        with span("local_sdca", cat="driver", **labels):
             dalpha, r = solver(data.x, data.y, alpha, W, data.n, sv.diag(), u)
         with span("reduce", cat="driver"):
             alpha = alpha + cfg.eta * dalpha

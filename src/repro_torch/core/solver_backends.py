@@ -95,6 +95,9 @@ class SolverBackend:
     pallas_calls: Callable[[int, int], int] = lambda H, block: 0
     # the solve body launches a hand-written kernel
     uses_pallas: bool = False
+    # span_args(x, loss_name, block) -> labels of the solve's span: what the
+    # solve launches on these rows (``local_sdca``)
+    span_args: Callable[[Tensor, str, int], dict] = lambda x, loss_name, block: {}
 
     def make(self, loss: Loss, rho: float, lam: float, H: int, block: int = 64) -> Solver:
         """The solver on per-task keys: the draw, then the solve."""
@@ -228,6 +231,12 @@ def _make_pallas_round(
     return solve
 
 
+def _pallas_round_span_args(x: Tensor, loss_name: str, block: int) -> dict:
+    from ..kernels.sdca import ops as sdca_ops  # lazy: kernel layer
+
+    return sdca_ops.round_span_args(x, loss_name, block)
+
+
 register_backend(
     SolverBackend(
         name="naive",
@@ -267,5 +276,6 @@ register_backend(
         make_from_uniform=_make_pallas_round,
         pallas_calls=lambda H, block: 1,
         uses_pallas=True,
+        span_args=_pallas_round_span_args,
     )
 )

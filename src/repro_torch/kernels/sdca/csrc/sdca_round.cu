@@ -56,6 +56,10 @@
 // reads) and the gathered rows; stage 2 is a dependent chain
 // of H steps per task (a closed-form delta, a shuffle, an FMA), plus per
 // block a cluster barrier, the partial xr and the r update.
+//
+// Where no supported cluster fits d in shared memory (d > 3008 at B = 64),
+// stage 2 is chain_stream_kernel instead (sdca_stream.cuh): the same chain,
+// the block's rows read from global memory rather than held whole.
 #include <cooperative_groups.h>
 
 #include "sdca_common.cuh"
@@ -372,25 +376,45 @@ chain_kernel(const float* __restrict__ x,        // (m, n_max, d)
   cluster.sync();  // no CTA leaves while another may read its shared memory
 }
 
+}  // namespace sdca
+
+#include "sdca_stream.cuh"
+
+namespace sdca {
+
 // columns of d per CTA of a cluster of C: a multiple of 4, so 16-byte copies
 // stay aligned
 inline int slab(int d, int C) { return ((d + C - 1) / C + 3) / 4 * 4; }
 
+// hold < 0: stage 2 is chain_kernel; hold >= 0: chain_stream_kernel, keeping
+// the first `hold` columns (a multiple of 4) of each CTA's slab
 template <int B>
 cudaError_t launch(const float* x, const float* y, const float* alpha, const float* w,
                    const float* u, const int* n, const float* kappa, float* dalpha,
                    float* r, float* scratch, int m, int n_max, int d, int H,
-                   int group, int C, int loss, int stages, cudaStream_t stream) {
+                   int group, int C, int loss, int stages, int hold, cudaStream_t stream) {
   const int nb = H / B;
   const int dcp = slab(d, C);
-  const size_t chain_smem = (size_t)ChainSmem<B>(dcp).total * sizeof(float);
+  const bool streamed = hold >= 0;
+  const size_t chain_smem = streamed
+      ? (size_t)StreamSmem<B>(dcp, hold).total * sizeof(float)
+      : (size_t)ChainSmem<B>(dcp).total * sizeof(float);
   const size_t gram_smem = (size_t)((d + kGramTile - 1) / kGramTile * kGramTile) * sizeof(float);
-  if (chain_smem > 232448 || gram_smem > 232448) return cudaErrorInvalidValue;
-  auto chain = loss == kHinge     ? chain_kernel<B, kHinge>
-               : loss == kSquared ? chain_kernel<B, kSquared>
-                                  : chain_kernel<B, kSmoothedHinge>;
+  if (chain_smem > 232448 || gram_smem > 232448 || (streamed && hold % 4 != 0))
+    return cudaErrorInvalidValue;
+  using ChainFn = void (*)(const float*, const float*, const float*, float*, float*, int, int,
+                           int, int, int);
+  using StreamFn = void (*)(const float*, const float*, const float*, float*, float*, int, int,
+                            int, int, int, int);
+  ChainFn chain = loss == kHinge     ? chain_kernel<B, kHinge>
+                  : loss == kSquared ? chain_kernel<B, kSquared>
+                                     : chain_kernel<B, kSmoothedHinge>;
+  StreamFn chain_stream = loss == kHinge     ? chain_stream_kernel<B, kHinge>
+                          : loss == kSquared ? chain_stream_kernel<B, kSquared>
+                                             : chain_stream_kernel<B, kSmoothedHinge>;
+  const void* stage2 = streamed ? (const void*)chain_stream : (const void*)chain;
   cudaError_t err =
-      cudaFuncSetAttribute(chain, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)chain_smem);
+      cudaFuncSetAttribute(stage2, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)chain_smem);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(gram_kernel<B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)gram_smem);
@@ -416,8 +440,10 @@ cudaError_t launch(const float* x, const float* y, const float* alpha, const flo
       attr[0].val.clusterDim.z = 1;
       cfg.attrs = attr;
       cfg.numAttrs = 1;
-      err = cudaLaunchKernelEx(&cfg, chain, x, (const float*)scratch, kappa, dalpha, r, n_max,
-                               d, nbg, dcp, vec);
+      err = streamed ? cudaLaunchKernelEx(&cfg, chain_stream, x, (const float*)scratch, kappa,
+                                          dalpha, r, n_max, d, nbg, dcp, hold, vec)
+                     : cudaLaunchKernelEx(&cfg, chain, x, (const float*)scratch, kappa, dalpha,
+                                          r, n_max, d, nbg, dcp, vec);
       if (err != cudaSuccess) return err;
       if ((err = cudaGetLastError()) != cudaSuccess) return err;
     }
@@ -430,15 +456,17 @@ cudaError_t launch(const float* x, const float* y, const float* alpha, const flo
 // Plain C entry point for ctypes. dalpha and r are zero on entry; scratch
 // holds m * group * (B*B + 4B) floats; the round runs in groups of `group`
 // blocks. stages: 1 = stage 1 only, 2 = stage 2 only, 3 = the round (the
-// single stages exist to time them apart). Returns a cudaError_t (0 =
-// launched).
+// single stages exist to time them apart). cluster: 2, 4 or 8 CTAs a task
+// in stage 2. hold: -1 runs stage 2 as chain_kernel, >= 0 as
+// chain_stream_kernel keeping that many columns of a CTA's slab. Returns a
+// cudaError_t (0 = launched).
 extern "C" int sdca_round_launch(const void* x, const void* y, const void* alpha,
                                  const void* w, const void* u, const void* n,
                                  const void* kappa, void* dalpha, void* r, void* scratch,
                                  int m, int n_max, int d, int H, int block, int loss,
-                                 int group, int cluster, int stages, void* stream) {
+                                 int group, int cluster, int stages, int hold, void* stream) {
   using namespace sdca;
-  if (H % block != 0 || loss < kHinge || loss > kSmoothedHinge || group < 1 ||
+  if (H % block != 0 || loss < kHinge || loss > kSmoothedHinge || group < 1 || hold < -1 ||
       (cluster != 2 && cluster != 4 && cluster != 8))
     return (int)cudaErrorInvalidValue;
 #define SDCA_ROUND_CASE(BB)                                                               \
@@ -447,7 +475,7 @@ extern "C" int sdca_round_launch(const void* x, const void* y, const void* alpha
                            (const float*)w, (const float*)u, (const int*)n,              \
                            (const float*)kappa, (float*)dalpha, (float*)r,               \
                            (float*)scratch, m, n_max, d, H, group, cluster, loss, stages, \
-                           (cudaStream_t)stream);
+                           hold, (cudaStream_t)stream);
   switch (block) {
     SDCA_ROUND_CASE(16)
     SDCA_ROUND_CASE(32)

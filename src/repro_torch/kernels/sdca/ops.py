@@ -23,7 +23,7 @@ import torch
 
 from ...roofline import analysis as _cost
 from .ref import sdca_block_ref, sdca_round_ref
-from .sdca_kernel import SUPPORTED_LOSSES, sdca_block_kernel, sdca_round_kernel
+from .sdca_kernel import SUPPORTED_LOSSES, plan_for, sdca_block_kernel, sdca_round_kernel
 
 Tensor = torch.Tensor
 
@@ -122,6 +122,16 @@ def sdca_round(
         return c.launch("K1", k1_cost(m, n_max, d, u.shape[1], block, x.element_size()),
                         _round, *args)
     return _round(*args)
+
+
+def round_span_args(x: Tensor, loss_name: str, block: int = 64) -> dict:
+    """What a round on ``x`` launches for stage 2, as span labels:
+    ``stage2`` ("chain" or "stream") and ``cluster``; nothing where the
+    round does not launch K1 (the plain version, the meta rule)."""
+    if loss_name not in SUPPORTED_LOSSES or x.device.type != "cuda":
+        return {}
+    plan = plan_for(x, block)
+    return {"stage2": plan.path, "cluster": plan.cluster}
 
 
 def _round(x, y, alpha, w, u, n_i, kappa, loss_name, block):

@@ -458,6 +458,189 @@ def test_round_cluster_rule():
     assert rc(4096, 784, 64, 132) == min(fits) > 2
 
 
+@pytest.mark.parametrize("m,d,path,cluster", [
+    (10, 784, "chain", 4), (16, 100, "chain", 4), (22, 2048, "chain", 8),
+    (22, 3008, "chain", 8), (22, 3009, "stream", 8), (22, 10000, "stream", 8),
+    (1, 10000, "stream", 8), (4096, 100, "chain", 2), (4096, 10000, "stream", 8),
+])
+def test_round_plan_rule(m, d, path, cluster):
+    """Stage 2 keeps today's path where a supported cluster fits d (the
+    smallest of at least CLUSTER while the tasks are fewer than the SMs:
+    4 at d = 784 and 100, 8 at d = 2048) and streams the rows where none
+    does; a streaming CTA's shared memory leaves every task's cluster
+    resident while the tasks are few."""
+    k = sdca_kernel
+    plan = k.round_plan(m, d, 64, 132)
+    assert (plan.path, plan.cluster) == (path, cluster)
+    assert k.round_cluster(m, d, 64, 132) == cluster
+    if path == "chain":
+        assert plan.hold == -1 and k.chain_smem_bytes(64, d, cluster) <= k.MAX_SMEM_BYTES
+        return
+    assert all(k.chain_smem_bytes(64, d, c) > k.MAX_SMEM_BYTES for c in k.SUPPORTED_CLUSTERS)
+    assert plan.hold >= 0 and plan.hold % 4 == 0
+    smem = k.stream_smem_bytes(64, d, cluster, plan.hold)
+    assert smem <= k.MAX_SMEM_BYTES
+    per_sm = -(-m * cluster // 132)
+    if per_sm <= 2:
+        assert per_sm * (smem + 1024) <= k.SM_SMEM_BYTES and plan.hold > 0
+    else:  # many tasks run in waves: no columns held
+        assert plan.hold == 0
+
+
+def test_round_plan_at_the_mds_width():
+    """22 tasks at d = 10 000: 8 CTAs a task, half of the 284 columns that
+    leave two CTAs an SM held (the measured best of chip_smoke.py's sweep)."""
+    assert sdca_kernel.round_plan(22, 10000, 64, 132) == sdca_kernel.RoundPlan("stream", 8, 140)
+    assert sdca_kernel.stream_smem_bytes(64, 10000, 8, 0) == 4 * (2 * 4352 + 1252 + 11 * 64)
+
+
+def test_plan_for_explicit_cluster_and_hold():
+    x = torch.empty((22, 5, 10000))
+    pf = sdca_kernel.plan_for
+    assert pf(x, 64, cluster=2) == sdca_kernel.RoundPlan("chain", 2)
+    assert pf(x, 64, hold=0) == sdca_kernel.RoundPlan("stream", sdca_kernel.STREAM_CLUSTER, 0)
+    assert pf(x, 64, cluster=4, hold=8) == sdca_kernel.RoundPlan("stream", 4, 8)
+
+
+def test_span_args_name_nothing_off_the_card():
+    """The solve's span labels name K1's stage-2 plan only where K1 runs."""
+    from repro_torch.core.solver_backends import get_backend
+
+    x = torch.zeros((3, 10, 3009))
+    assert ops.round_span_args(x, "hinge") == {}
+    assert get_backend("pallas_round").span_args(x, "hinge", 64) == {}
+    assert get_backend("block_gram").span_args(x, "hinge", 64) == {}
+
+
+# ---------------------------------------------------------------------------
+# the streaming stage 2 (d past what a supported cluster holds)
+# ---------------------------------------------------------------------------
+def _stream_counts():
+    return sdca_kernel.sdca_round_kernel.launches, sdca_kernel.sdca_round_kernel.stream_launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("loss", KERNEL_LOSSES)
+@pytest.mark.parametrize("m", [1, 22])
+@pytest.mark.parametrize("d", [3009, 10000, 10001])
+def test_round_kernel_streams_at_large_d(cuda, loss, m, d):
+    """Past d = 3008 the round streams the rows (d = 10001: 4-byte loads)
+    and agrees with its plain version; both counters count it."""
+    x, y, alpha, w, u, n_i, kappa = _t(*_problem(d + m, m, 100, d, 256), device=cuda)
+    assert sdca_kernel.plan_for(x, 64).path == "stream"
+    launches, streamed = _stream_counts()
+    da, r = ops.sdca_round(x, y, alpha, w, u, n_i, kappa, loss, block=64)
+    torch.cuda.synchronize()
+    assert _stream_counts() == (launches + 1, streamed + 1)
+    da_p, r_p = ref.sdca_round_ref(x, y, alpha, w, u, n_i, kappa, loss)
+    torch.testing.assert_close(da, da_p, atol=ATOL, rtol=0)
+    torch.testing.assert_close(r, r_p, atol=ATOL, rtol=0)
+
+
+def _staged_stream_round(x, y, alpha, w, u, n_i, kappa, loss, **plan):
+    """The round as its two stages launched apart (``sdca_round_stage``),
+    stage 2 on the plan given."""
+    m, n_max, d = x.shape
+    scratch = torch.empty((m * (u.shape[1] // 64) * (64 * 64 + 4 * 64),), device=x.device)
+    da, r = torch.zeros((m, n_max), device=x.device), torch.zeros((m, d), device=x.device)
+    for stage in (1, 2):
+        sdca_kernel.sdca_round_stage(stage, x, y, alpha, w, u, n_i, kappa, loss, scratch, da, r,
+                                     block=64, **plan)
+    return da, r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hold", [0, 8, 100])
+@pytest.mark.parametrize("cluster", sdca_kernel.SUPPORTED_CLUSTERS)
+def test_stream_every_cluster_and_hold(cuda, cluster, hold):
+    """The streaming stage 2 at every supported cluster size, with no
+    columns held, a few and many."""
+    x, y, alpha, w, u, n_i, kappa = _t(*_problem(cluster + hold, 5, 100, 10000, 256),
+                                      device=cuda)
+    da, r = _staged_stream_round(x, y, alpha, w, u, n_i, kappa, "hinge", cluster=cluster,
+                                 hold=hold)
+    da_p, r_p = ref.sdca_round_ref(x, y, alpha, w, u, n_i, kappa, "hinge")
+    torch.testing.assert_close(da, da_p, atol=ATOL, rtol=0)
+    torch.testing.assert_close(r, r_p, atol=ATOL, rtol=0)
+
+
+@pytest.mark.gpu
+def test_stream_refuses_what_does_not_fit(cuda):
+    x, y, alpha, w, u, n_i, kappa = _t(*_problem(1, 1, 40, 10000, 64), device=cuda)
+    with pytest.raises(ValueError, match="does not fit"):
+        sdca_kernel.sdca_round_kernel(x, y, alpha, w, u, n_i, kappa, "hinge", cluster=8)
+    with pytest.raises(ValueError, match="does not fit"):
+        _staged_stream_round(x, y, alpha, w, u, n_i, kappa, "hinge", cluster=2, hold=1000)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        _staged_stream_round(x, y, alpha, w, u, n_i, kappa, "hinge", hold=6)
+    with pytest.raises(ValueError, match="supports clusters"):
+        _staged_stream_round(x, y, alpha, w, u, n_i, kappa, "hinge", cluster=16, hold=0)
+
+
+@pytest.mark.gpu
+def test_round_kernel_streams_at_mds_width(cuda):
+    """Two tasks at the MDS width (d = 10 000, 14 525 rows, H = 14 528: 227
+    blocks of 64) against the sequential plain version at TOL_ROUND's 5e-4,
+    as at MNIST width."""
+    x, y, alpha, w, u, n_i, kappa = _t(*_problem(3, 2, 14525, 10000, 14528), device=cuda)
+    n_i = torch.tensor([14525, 219], dtype=torch.int32, device=cuda)
+    launches, streamed = _stream_counts()
+    da, r = ops.sdca_round(x, y, alpha, w, u, n_i, kappa, "hinge", block=64)
+    torch.cuda.synchronize()
+    assert _stream_counts() == (launches + 1, streamed + 1)
+    da_p, r_p = ref.sdca_round_ref(x, y, alpha, w, u, n_i, kappa, "hinge")
+    torch.testing.assert_close(da, da_p, atol=5e-4, rtol=0)
+    torch.testing.assert_close(r, r_p, atol=5e-4, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,path,cluster", [(784, "chain", 4), (3009, "stream", 8)])
+def test_fit_counts_stream_launches_and_labels_its_span(cuda, d, path, cluster):
+    """A fit launches K1 once a round, on the streaming path exactly where
+    d asks for it, and its local_sdca spans name the path and cluster."""
+    from repro_torch import obs
+    from repro_torch.core import DMTRLEstimator
+    from repro_torch.core.mtl_data import from_task_list
+
+    rs = np.random.RandomState(d)
+    xs = [(rs.randn(n, d) / np.sqrt(d)).astype(np.float32) for n in (50, 90, 7)]
+    ys = [np.where(rs.randn(len(x)) >= 0, 1.0, -1.0).astype(np.float32) for x in xs]
+    train = from_task_list(xs, ys, device=cuda)
+    est = DMTRLEstimator(device=cuda, solver="pallas_round", outer_iters=2, rounds=2,
+                         block_size=64, seed=1)
+    sdca_kernel.reset_launch_counts()
+    tracer = obs.enable(clear=True)
+    try:
+        est.fit(train)
+        torch.cuda.synchronize()
+    finally:
+        obs.disable()
+    spans = [e for e in tracer.events() if e["name"] == "local_sdca"]
+    tracer.clear()
+    assert sdca_kernel.sdca_round_kernel.launches == 4
+    assert sdca_kernel.sdca_round_kernel.stream_launches == (4 if path == "stream" else 0)
+    assert len(spans) == 4
+    assert all(e["args"] == {"stage2": path, "cluster": cluster} for e in spans)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("loss", KERNEL_LOSSES)
+def test_round_kernel_stream_empty_tasks(cuda, loss):
+    """The streaming stage 2 with n_i = 0 and a task of 7 rows (fewer than
+    a block), the tasks a view into buffers with NaN sentinels, as
+    test_round_kernel_empty_tasks."""
+    n, d, H = 40, 10000, 128
+    bufs = _t(*_empty_task_buffers(n + H, n, d, H), device=cuda)
+    x, y, alpha, w, u, n_i, kappa = [b[1:-1] for b in bufs]
+    assert sdca_kernel.plan_for(x, 64).path == "stream"
+    da, r = ops.sdca_round(x, y, alpha, w, u, n_i, kappa, loss, block=64)
+    torch.cuda.synchronize()
+    assert torch.isfinite(da).all() and torch.isfinite(r).all()
+    da_p, r_p = ref.sdca_round_ref(x, y, alpha, w, u, n_i, kappa, loss)
+    torch.testing.assert_close(da, da_p, atol=ATOL, rtol=0)
+    torch.testing.assert_close(r, r_p, atol=ATOL, rtol=0)
+
+
 # ---------------------------------------------------------------------------
 # tasks with no samples: n_i = 0 (a padded task, a pod slice past the
 # task's samples) and 0 < n_i < n_max, as the mesh engines feed them
