@@ -15,7 +15,9 @@ Phases, each printing its own lines:
               device and host time beside prng's torch ops; the SDCA
               round at 10 tasks x 12000 rows x 784 features, B = 64, for
               the hinge, squared and smoothed-hinge
-              losses (its two stages also timed apart, and at each cluster
+              losses (its two stages also timed apart, stage 1 beside its
+              own bound at this width, at 4096 tasks, at Synthetic-1's and
+              at the MDS width, and at each cluster
               size that fits) and at the MDS width (22 tasks x 14 525 rows x
               10 000 features, its streaming stage 2, timed over cluster
               sizes and held columns); the SDCA block at that width and at
@@ -490,6 +492,16 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def stage1_bound(m: int, H: int, d: int) -> dict:
+    """K1's stage 1 (``sdca::gram_kernel``) alone: the least time of its own
+    work, each block's Gram triangle and q (2 (B(B+1)/2 + B) d FLOPs) at the
+    fp32 peak against every drawn row read once (4 d bytes a draw) at HBM's."""
+    flops = 2.0 * m * (H // BLOCK) * (GRAM_TRI + BLOCK) * d
+    nbytes = 4.0 * m * H * d
+    b, by = bound_ms(nbytes, flops)
+    return dict(bound_ms=b, bound_by=by, gflop=flops / 1e9, gb=nbytes / 1e9)
 
 
 def lm_kernel_checks(torch, dev, card: str) -> dict:
@@ -2203,7 +2215,8 @@ def threefry_draw_checks(torch, dev, card: str) -> dict:
 def round_at_many_tasks(torch, dev, card: str, data, sm_clock: str):
     """Phase 2, the round kernel at the structured path's shape (phase 6c:
     4096 tasks, d = 100, about 100 rows a task): against its plain version
-    for each loss, timed beside its bound and chain floor."""
+    for each loss, timed beside its bound and chain floor. Returns the
+    largest error and stage 1's time beside its own bound."""
     from repro_torch import prng
     from repro_torch.core.sdca import coords_from_uniform, kappa_of
     from repro_torch.kernels.sdca import ref, sdca_kernel, sdca_round_kernel
@@ -2253,10 +2266,12 @@ def round_at_many_tasks(torch, dev, card: str, data, sm_clock: str):
     print(f"[2 sdca_round {m} tasks] x {tuple(x.shape)}, H = {H}: {ms:.4f} ms/call (plain "
           f"{plain:.1f} ms), bound {b:.4f} ms by {by} ({uniq} distinct rows, "
           f"{flops / 1e9:.2f} GFLOP); chain floor {floor[0]:.4f}-{floor[1]:.4f} ms on {card}")
-    print(f"[2 sdca_round {m} tasks] stage 1 (Gram, q) {stage_ms[0]:.4f} ms, stage 2 (chains, "
+    s1 = dict(ms=stage_ms[0], **stage1_bound(m, H, d))
+    print(f"[2 sdca_round {m} tasks] stage 1 (Gram, q) {stage_ms[0]:.4f} ms, bound "
+          f"{s1['bound_ms']:.4f} ms by {s1['bound_by']}; stage 2 (chains, "
           f"cluster {sdca_kernel.round_cluster(m, d, BLOCK, sms)}) {stage_ms[1]:.4f} ms; round "
           f"by cluster size: " + ", ".join(f"C={c} {t:.4f} ms" for c, t in cluster_ms.items()))
-    return err
+    return err, s1
 
 
 def round_at_mds_width(torch, dev, card: str, sm_clock: str) -> dict:
@@ -2322,12 +2337,14 @@ def round_at_mds_width(torch, dev, card: str, sm_clock: str) -> dict:
           f"the device, {host:.4f} ms/call on the host; bound {b:.4f} ms by {by} "
           f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.2f} GB); chain floor {floor[0]:.3f}-"
           f"{floor[1]:.3f} ms on {card}")
-    print(f"[2 sdca_round MDS width] stage 1 (Gram, q) {stage_ms[0]:.4f} ms, stage 2 "
+    s1 = dict(ms=stage_ms[0], **stage1_bound(m, H, d))
+    print(f"[2 sdca_round MDS width] stage 1 (Gram, q) {stage_ms[0]:.4f} ms, bound "
+          f"{s1['bound_ms']:.4f} ms by {s1['bound_by']}; stage 2 "
           f"(chain_stream_kernel) {stage_ms[1]:.4f} ms; stage 2 by held columns: "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in sweep.items()))
     return dict(ms=ms, host_ms=host, bound_ms=b, bound_by=by, max_abs_err=err,
-                stage_ms=stage_ms, plan=dict(path=plan.path, cluster=plan.cluster,
-                                             hold=plan.hold), stage2_sweep=sweep)
+                stage_ms=stage_ms, stage1=s1, plan=dict(path=plan.path, cluster=plan.cluster,
+                                                        hold=plan.hold), stage2_sweep=sweep)
 
 
 def stream_at_cell_widths(torch, dev, card: str) -> dict:
@@ -2336,7 +2353,8 @@ def stream_at_cell_widths(torch, dev, card: str) -> dict:
     B = 64, one local epoch): ``chain_kernel`` at its cluster against
     ``chain_stream_kernel`` holding its whole slab, at that cluster and at
     ``STREAM_CLUSTER``, and at ``STREAM_CLUSTER`` with the hold the rule
-    gives. Each streamed stage 2 is checked against the chain's output."""
+    gives. Each streamed stage 2 is checked against the chain's output.
+    Stage 1 is timed there too, beside its own bound."""
     from repro_torch.kernels.sdca import sdca_kernel
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -2357,8 +2375,9 @@ def stream_at_cell_widths(torch, dev, card: str) -> dict:
         chain = sdca_kernel.round_plan(m, d, BLOCK, sms)
         check(chain.path == "chain", f"K1 at {label}'s width plans {chain}")
         scratch = torch.empty(m * (H // BLOCK) * (BLOCK * BLOCK + 4 * BLOCK), device=dev)
-        sdca_kernel.sdca_round_stage(1, *args, "hinge", scratch, torch.zeros_like(alpha),
-                                     torch.zeros_like(w), block=BLOCK)
+        da_1, r_1 = torch.zeros_like(alpha), torch.zeros_like(w)  # stage 1 leaves them be
+        s1 = dict(ms=cuda_ms(torch, lambda: sdca_kernel.sdca_round_stage(
+            1, *args, "hinge", scratch, da_1, r_1, block=BLOCK), reps=50), **stage1_bound(m, H, d))
 
         def stage2(**plan):
             da, r = torch.zeros_like(alpha), torch.zeros_like(w)
@@ -2379,8 +2398,9 @@ def stream_at_cell_widths(torch, dev, card: str) -> dict:
             check(e <= TOL_ROUND, f"stage 2 {name} at {label}'s width: {e:.3e} off the chain's")
             times[name] = cuda_ms(torch, lambda plan=plan: stage2(**plan), reps=10)
         print(f"[2 sdca_round stage 2 at {label}'s width] x {tuple(x.shape)}, H = {H}: "
-              + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()) + f" on {card}")
-        out[label] = times
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()) + f"; stage 1 "
+              f"{s1['ms']:.4f} ms, bound {s1['bound_ms']:.5f} ms by {s1['bound_by']} on {card}")
+        out[label] = dict(times, stage1=s1)
         del x, scratch
     return out
 
@@ -3615,7 +3635,9 @@ def main() -> int:
     # latency floor of the chain: H dependent steps (delta_of, a shuffle, an
     # FMA) at 60-100 cycles each at the SM's top clock
     floor_ms = [H * cyc / (float(sm_clock) * 1e6) * 1e3 for cyc in (60, 100)]
-    print(f"[2 sdca_round] stage 1 (Gram, q) {stage_ms[0]:.4f} ms, stage 2 (chains, cluster "
+    stage1 = dict(ms=stage_ms[0], **stage1_bound(M, H, D))
+    print(f"[2 sdca_round] stage 1 (Gram, q) {stage_ms[0]:.4f} ms, bound "
+          f"{stage1['bound_ms']:.4f} ms by {stage1['bound_by']}; stage 2 (chains, cluster "
           f"{sdca_kernel.round_cluster(M, D, BLOCK, sms)}) {stage_ms[1]:.4f} ms; round by cluster size: "
           + ", ".join(f"C={c} {t:.4f} ms" for c, t in cluster_ms.items())
           + f"; chain floor {floor_ms[0]:.3f}-{floor_ms[1]:.3f} ms ({H} steps x 60-100 "
@@ -3697,7 +3719,8 @@ def main() -> int:
     ms_block, plain_block, b_block, by_block = block_times["Synthetic-1"]
     e_round, e_block = empty_task_checks(torch, dev, syn.train)
     err_round, err_block = max(err_round, e_round), max(err_block, e_block)
-    err_round = max(err_round, round_at_many_tasks(torch, dev, card, many_train, sm_clock))
+    e_many, stage1_many = round_at_many_tasks(torch, dev, card, many_train, sm_clock)
+    err_round = max(err_round, e_many)
     del many_train
     mds_round = round_at_mds_width(torch, dev, card, sm_clock)
     mds_round["stream_at_cell_widths"] = stream_at_cell_widths(torch, dev, card)
@@ -3880,7 +3903,10 @@ def main() -> int:
              replaces="src/repro/kernels/sdca/sdca_kernel.py:261",
              launches=launches_round, max_abs_err=err_round, ms=ms_round,
              plain_ms=plain_round, bound_ms=b_round, bound_by=by_round,
-             library_ms=None, mds_width=mds_round, launches_by_path={
+             library_ms=None, mds_width=mds_round,
+             stage1={"mnist": stage1, "4096 tasks": stage1_many, "mds": mds_round["stage1"],
+                     "synthetic1": mds_round["stream_at_cell_widths"]["synthetic1.fit"]["stage1"]},
+             launches_by_path={
                  "3 fit": launches_round, "8e bridge": by_path["8e bridge"]["sdca_round"],
                  **{k: v["sdca_round"] for k, v in mesh_launches.items() if v["sdca_round"]}}),
         dict(name="sdca_block", route="cuda",

@@ -11,13 +11,22 @@
 // every task at once; only xr = X_b r, the B-step recursion and alpha~
 // carried across blocks are sequential. Hence:
 //
-//   Stage 1, gram_kernel, grid (blocks, m), 256 threads: draws the block's
-//   coordinates (fp32 product and truncation of sample_coords, row n_max - 1
-//   for a task with no samples, as coords_from_uniform wraps), gathers its
-//   B rows in d-tiles of 32 columns (stored transposed, the next tile's
-//   loads in flight while this one is used), and writes G (full B x B,
-//   bit-exactly symmetric), q, and the rows' labels, alphas and ids to a
-//   scratch the wrapper allocates. fp32 FMAs: TF32 would break the 2e-5 bar.
+//   Stage 1, gram_kernel, grid (blocks, m), up to 4 warps a CTA: draws the
+//   block's coordinates (fp32 product and truncation of sample_coords, row
+//   n_max - 1 for a task with no samples, as coords_from_uniform wraps),
+//   then forms the lower triangle of the B x B Gram the recursion reads and
+//   q = X_b w. Each warp owns a contiguous range of d's 4-column chunks
+//   (split-K inside the CTA) and streams the block's B rows over it, with
+//   the matching columns of w, through a ring of its own (two stages of 32
+//   columns, 16-byte cp.async, 4-byte where d % 4 != 0), waiting only on
+//   its own copies: the CTA meets at a barrier before and after the column
+//   loop, never inside it. A lane keeps one 8 x 8 tile of the triangle in
+//   registers (B = 64: 28 below the diagonal, 4 diagonal blocks whole; the
+//   other 4 diagonal blocks a lane a stage, below their diagonal). The
+//   epilogue sums the warps' partials in warp order and writes G full B x B
+//   and bit-exactly symmetric, then q and the rows' labels, alphas and ids,
+//   to a scratch the wrapper allocates. fp32 FMAs: TF32 would break the
+//   2e-5 bar.
 //
 //   Stage 2, chain_kernel, one thread-block cluster of C CTAs per task
 //   (cudaLaunchKernelEx with a cluster dimension). CTA `rank` owns a slab
@@ -51,11 +60,17 @@
 // shared memory. A round with more blocks than the scratch holds runs in
 // groups of blocks, stage 1 then stage 2 per group, with the same result.
 //
-// What bounds it on this card: stage 1 is fp32 FMA work (the full Gram
-// blocks, 12.1 GFLOP at MNIST width, twice the triangle the recursion
-// reads) and the gathered rows; stage 2 is a dependent chain
-// of H steps per task (a closed-form delta, a shuffle, an FMA), plus per
-// block a cluster barrier, the partial xr and the r update.
+// What bounds it on this card: stage 1 is fp32 FMA work, the triangle
+// and q (2 (B(B+1)/2 + B) d FLOPs a block: 214 GFLOP a round at the MDS
+// width, 3.2 ms at 67 TFLOP/s) against the drawn rows read once (12.8 GB,
+// 3.8 ms at 3.35 TB/s); the kernel issues 2 256 FMAs a column for the
+// 2 144 it needs. Measured at the MDS width (H100): 7.22-7.26 ms, 13.43 for the
+// full-Gram design it replaced, which staged one 32-column tile at a time
+// behind two block-wide barriers; 3.2 ms with the FMAs taken out and 6.2
+// with the copies taken out, so the FMA loop sets it, and its 8 x 8 tiles
+// read 16 floats from shared memory for 64 FMAs. Stage 2 is a dependent
+// chain of H steps per task (a closed-form delta, a shuffle, an FMA), plus
+// per block a cluster barrier, the partial xr and the r update.
 //
 // Where no supported cluster fits d in shared memory (d > 3008 at B = 64),
 // stage 2 is chain_stream_kernel instead (sdca_stream.cuh): the same chain,
@@ -68,41 +83,185 @@ namespace cg = cooperative_groups;
 
 namespace sdca {
 
-constexpr int kGramTile = 32;  // d-columns of the gathered rows per stage-1 tile
-
 // floats of one block's scratch: G (B x B), q, labels, alphas, coordinate ids
 template <int B>
 __host__ __device__ constexpr int scratch_floats() {
   return B * B + 4 * B;
 }
 
-// Element e of a stage-1 tile (B rows x kGramTile columns): each quarter
-// warp reads 8 consecutive columns of 4 rows, so the global loads fill
-// 32-byte sectors and the transposed shared stores hit 32 distinct banks.
-__device__ __forceinline__ void gram_elem(int e, int& k, int& c) {
-  static_assert(kGramTile == 32, "the mapping takes 4 groups of 8 columns");
-  c = (e & 7) | (((e >> 5) & 3) << 3);
-  k = ((e >> 3) & 3) | ((e >> 7) << 2);
-}
-
-// this thread's elements of the tile at column d0 into registers
-template <int B>
-__device__ __forceinline__ void load_gram_tile(float (&pre)[B * kGramTile / kThreads],
-                                               const float* __restrict__ x,
-                                               const int64_t* rowoff, int d0, int d) {
-#pragma unroll
-  for (int i = 0; i < B * kGramTile / kThreads; ++i) {
-    int k, c;
-    gram_elem(threadIdx.x + i * kThreads, k, c);
-    pre[i] = d0 + c < d ? x[rowoff[k] + d0 + c] : 0.f;
-  }
-}
-
 // ---------------------------------------------------------------------------
 // stage 1: G, q and the block's metadata for every (block, task)
 // ---------------------------------------------------------------------------
+// 4 warps a CTA, 3 CTAs (12 warps) an SM at 168 registers: at the MDS width
+// that beat 2 CTAs of 180-254 registers, a ring of 3 stages and 8 warps a
+// CTA by 7-11 % (H100)
+constexpr int kGramCols = 32;     // columns of d in one ring stage: 8 chunks of 4
+constexpr int kGramWarps = 4;     // most warps (column ranges) in one CTA
+constexpr int kGramDepth = 2;     // ring stages per warp
+constexpr int kGramPart = 68;     // floats of one lane's 8 x 8 tile in the epilogue (padded)
+
+// The lower triangle of the B x B Gram in tiles of 8 x 8: R row blocks, OFF
+// tiles below the diagonal and R on it. Pass 1 gives each lane one tile for
+// every column: the OFF off-diagonal ones, then diagonal blocks, taken
+// whole. At B = 64 that is 28 + 4 of the 36; the last D2 = 4 diagonal
+// blocks go below their diagonal to gram_diag, lane l taking one block over
+// one 4-column chunk of each ring stage, and their diagonal to the q step.
 template <int B>
-__global__ void __launch_bounds__(kThreads)
+struct GramTiles {
+  static constexpr int R = B / 8;
+  static constexpr int OFF = R * (R - 1) / 2;
+  static constexpr int T1 = OFF + R < 32 ? OFF + R : 32;
+  static constexpr int D2 = OFF + R - T1;
+  static_assert(D2 == 0 || (D2 == 4 && B == 64), "gram_diag: 4 blocks x 8 chunks, one a lane");
+};
+
+// pass-1 tile (row block I >= column block J) of lane l; lanes past T1 repeat
+// the last tile and store nothing
+template <int B>
+__device__ __forceinline__ void gram_tile(int l, int& I, int& J) {
+  using GT = GramTiles<B>;
+  l = min(l, GT::T1 - 1);
+  if (l < GT::OFF) {
+    I = 1;
+    while ((I + 1) * I / 2 <= l) ++I;
+    J = l - I * (I - 1) / 2;
+  } else {
+    I = J = l - GT::OFF;
+  }
+}
+
+// The ring stores row p's 16-byte chunk c at chunk c ^ gram_swz(p) of the
+// row's 128 bytes, so the eight rows 8I + r (I = 0..7) a pass-1 load reads
+// fall in eight distinct bank quads.
+__device__ __forceinline__ int gram_swz(int p) {
+  return (p >> 3) ^ (((p >> 2) & 1) << 2);
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// floats of one ring stage: B rows of kGramCols columns, then those columns of w
+template <int B>
+__host__ __device__ constexpr int gram_stage_floats() {
+  return (B + 1) * kGramCols;
+}
+
+// dynamic shared memory of one stage-1 CTA of nw warps: the ring, reused by
+// the epilogue (each warp's tiles and q, then the summed Gram)
+template <int B>
+__host__ __device__ constexpr int gram_smem_floats(int nw) {
+  constexpr int part2 = GramTiles<B>::D2 > 0 ? 32 * 29 : 0;
+  const int ring = nw * kGramDepth * gram_stage_floats<B>();
+  const int epi = nw * (32 * kGramPart + part2 + B) + B * B;
+  return ring > epi ? ring : epi;
+}
+
+// one warp: chunks [cs, cs + nk) of the rows (and of w) into a ring stage,
+// 16-byte copies where d allows, else 4-byte ones zero-filled past d
+template <int B>
+__device__ __forceinline__ void gram_issue(float* st, const float* __restrict__ x,
+                                           const float* __restrict__ wt, const int64_t* rowoff,
+                                           int cs, int nk, int d, bool vec) {
+  const int lane = threadIdx.x & 31;
+  if (vec) {
+    for (int e = lane; e < B * 8; e += 32) {
+      const int p = e >> 3, c = e & 7;
+      if (c < nk) cp_async16(st + p * kGramCols + ((c ^ gram_swz(p)) << 2), x + rowoff[p] + 4 * (cs + c));
+    }
+    if (lane < nk) cp_async16(st + B * kGramCols + 4 * lane, wt + 4 * (cs + lane));
+  } else {
+    const int cols = 4 * nk;
+    for (int e = lane; e < B * kGramCols; e += 32) {
+      const int p = e >> 5, cc = e & 31, col = 4 * cs + cc;
+      const bool in = col < d;
+      if (cc < cols)
+        cp_async4_zfill(st + p * kGramCols + (((cc >> 2) ^ gram_swz(p)) << 2) + (cc & 3),
+                        x + rowoff[p] + (in ? col : 0), in ? 4 : 0);
+    }
+    const int col = 4 * cs + lane;
+    if (lane < cols) cp_async4_zfill(st + B * kGramCols + lane, wt + (col < d ? col : 0), col < d ? 4 : 0);
+  }
+}
+
+// one chunk (4 columns) of a ring stage st into a lane's accumulators: its
+// pass-1 tile (I, J), q of rows lane + 32 s, and (B = 64) the diagonal entry
+// of row lane + 32, whose row the q step has loaded
+template <int B>
+__device__ __forceinline__ void gram_chunk(const float* st, int kc, int I, int J,
+                                           float (&acc)[8][8], float (&accq)[(B + 31) / 32],
+                                           float& accd) {
+  constexpr int KT = kGramCols;
+  const int lane = threadIdx.x & 31;
+  // rows 8I + r sit at chunk kc ^ I (r < 4) or kc ^ I ^ 4 (r >= 4)
+  const float* ra = st + 8 * I * KT;
+  const float* rb = st + 8 * J * KT;
+  const int ca = (kc ^ I) << 2, cb = (kc ^ J) << 2;
+  float4 a[8], b[4];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) a[r] = *reinterpret_cast<const float4*>(ra + r * KT + (r < 4 ? ca : ca ^ 16));
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // the tile's columns in two halves: fewer live registers
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      b[r] = *reinterpret_cast<const float4*>(rb + (4 * h + r) * KT + (h == 0 ? cb : cb ^ 16));
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[i][4 * h + j] = fmaf(lane_of(a[i], k), lane_of(b[j], k), acc[i][4 * h + j]);
+  }
+  const float4 wv = *reinterpret_cast<const float4*>(st + B * KT + 4 * kc);
+#pragma unroll
+  for (int qs = 0; qs < (B + 31) / 32; ++qs) {
+    const int p = min(lane + 32 * qs, B - 1);
+    const float4 xv = *reinterpret_cast<const float4*>(st + p * KT + ((kc ^ gram_swz(p)) << 2));
+#pragma unroll
+    for (int k = 0; k < 4; ++k) accq[qs] = fmaf(lane_of(xv, k), lane_of(wv, k), accq[qs]);
+    if (GramTiles<B>::D2 > 0 && qs == 1)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) accd = fmaf(lane_of(xv, k), lane_of(xv, k), accd);
+  }
+}
+
+// B = 64, once a ring stage: the diagonal blocks pass 1 leaves (4..7) below
+// their diagonal, lane l taking block 4 + (l & 3) over chunk l >> 2 of the
+// stage: one 8-row load a chunk, and the block's rows serve both sides
+template <int B>
+__device__ __forceinline__ void gram_diag(const float* st, int nk, float (&acc2)[28]) {
+  constexpr int KT = kGramCols;
+  const int lane = threadIdx.x & 31;
+  const int P = GramTiles<B>::R - GramTiles<B>::D2 + (lane & 3), kc = lane >> 2;
+  if (kc >= nk) return;
+  const int c = (kc ^ P) << 2;
+  float4 x[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+    x[r] = *reinterpret_cast<const float4*>(st + (8 * P + r) * KT + (r < 4 ? c : c ^ 16));
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int i = 1; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < i; ++j)
+        acc2[i * (i - 1) / 2 + j] = fmaf(lane_of(x[i], k), lane_of(x[j], k), acc2[i * (i - 1) / 2 + j]);
+}
+
+// Grid (blocks, m), 32 nw threads. Warp w owns a contiguous range of the
+// column chunks and streams it through its own ring of kGramDepth stages
+// (cp.async, waited on by the warp alone), accumulating its partial Gram
+// triangle and q in registers; the CTA meets at a barrier only before and
+// after the column loop.
+template <int B>
+__global__ void __launch_bounds__(32 * kGramWarps, 3)
 gram_kernel(const float* __restrict__ x,      // (m, n_max, d)
             const float* __restrict__ y,      // (m, n_max)
             const float* __restrict__ alpha,  // (m, n_max)
@@ -110,91 +269,151 @@ gram_kernel(const float* __restrict__ x,      // (m, n_max, d)
             const float* __restrict__ u,      // (m, H)
             const int* __restrict__ n,        // (m,)
             float* __restrict__ scratch,      // (m, nbg, scratch_floats<B>)
-            int n_max, int d, int H, int b_begin, int nbg) {
-  constexpr int KT = kGramTile;
-  constexpr int LDT = B + 4;               // xsT row stride: float4 aligned
-  constexpr int TG = B / 4;                // Gram threads: TG x TG, 4 x 4 each
-  constexpr int PER = B * KT / kThreads;   // tile elements loaded per thread
-  constexpr int QP = kThreads / B;         // q partial sums per row
-  __shared__ __align__(16) float xsT[KT][LDT];
+            int n_max, int d, int H, int b_begin, int nbg, int vec) {
+  using GT = GramTiles<B>;
+  constexpr int SF = gram_stage_floats<B>();
+  constexpr int QR = (B + 31) / 32;  // q rows a lane: l + 32 s
+  extern __shared__ __align__(16) float dyn[];
   __shared__ int64_t rowoff[B];
-  __shared__ float qpart[QP][B];
-  extern __shared__ float w_s[];           // (ceil(d / KT) * KT,) zero-padded
 
   const int bi = blockIdx.x, t = blockIdx.y, tid = threadIdx.x;
+  const int nw = blockDim.x / 32, warp = tid / 32, lane = tid % 32;
   const int nt = n[t];
   float* blk = scratch + ((int64_t)t * nbg + bi) * scratch_floats<B>();
-  if (tid < B) {
-    int j = min((int)__fmul_rn(u[(int64_t)t * H + (b_begin + bi) * B + tid], (float)nt), nt - 1);
+  for (int k = tid; k < B; k += blockDim.x) {
+    int j = min((int)__fmul_rn(u[(int64_t)t * H + (b_begin + bi) * B + k], (float)nt), nt - 1);
     // a task with no samples (a padded task, or a pod slice past its
     // samples) gets -1: the plain version's wrap to the block's last row,
     // so nothing outside the task's own rows is read or written
     if (j < 0) j += n_max;
-    rowoff[tid] = ((int64_t)t * n_max + j) * d;
-    blk[B * B + B + tid] = y[(int64_t)t * n_max + j];
-    blk[B * B + 2 * B + tid] = alpha[(int64_t)t * n_max + j];
-    reinterpret_cast<int*>(blk)[B * B + 3 * B + tid] = j;
-  }
-  const int n_tiles = (d + KT - 1) / KT;
-  for (int c = tid; c < n_tiles * KT; c += kThreads)
-    w_s[c] = c < d ? w[(int64_t)t * d + c] : 0.f;
-  __syncthreads();
-
-  float pre[PER];
-  load_gram_tile<B>(pre, x, rowoff, 0, d);
-  const int ti = tid / TG, tj = tid % TG;
-  const bool gram_thread = tid < TG * TG;
-  float g[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) g[a][b] = 0.f;
-  const int qk = tid % B, qp = tid / B;
-  float qacc = 0.f;
-
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    __syncthreads();  // the previous tile is consumed
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      int k, c;
-      gram_elem(threadIdx.x + i * kThreads, k, c);
-      xsT[c][k] = pre[i];
-    }
-    __syncthreads();
-    if (tile + 1 < n_tiles)  // in flight during the FMAs
-      load_gram_tile<B>(pre, x, rowoff, (tile + 1) * KT, d);
-    if (gram_thread) {
-#pragma unroll 8
-      for (int c = 0; c < KT; ++c) {
-        const float4 a4 = *reinterpret_cast<const float4*>(&xsT[c][4 * ti]);
-        const float4 b4 = *reinterpret_cast<const float4*>(&xsT[c][4 * tj]);
-        const float av[4] = {a4.x, a4.y, a4.z, a4.w}, bv[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int b = 0; b < 4; ++b) g[a][b] = fmaf(av[a], bv[b], g[a][b]);
-      }
-    }
-#pragma unroll
-    for (int cc = 0; cc < KT / QP; ++cc) {
-      const int c = qp * (KT / QP) + cc;
-      qacc = fmaf(xsT[c][qk], w_s[tile * KT + c], qacc);
-    }
-  }
-  qpart[qp][qk] = qacc;
-  if (gram_thread) {
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-      *reinterpret_cast<float4*>(&blk[(4 * ti + a) * B + 4 * tj]) =
-          make_float4(g[a][0], g[a][1], g[a][2], g[a][3]);
+    rowoff[k] = ((int64_t)t * n_max + j) * d;
+    blk[B * B + B + k] = y[(int64_t)t * n_max + j];
+    blk[B * B + 2 * B + k] = alpha[(int64_t)t * n_max + j];
+    reinterpret_cast<int*>(blk)[B * B + 3 * B + k] = j;
   }
   __syncthreads();
-  if (tid < B) {
-    float s = 0.f;
+
+  // this warp's chunks of 4 columns, [c0, c1), in stages of 8
+  const int n_chunks = (d + 3) / 4;
+  const int c0 = warp * n_chunks / nw, c1 = (warp + 1) * n_chunks / nw;
+  const int ns = (c1 - c0 + 7) / 8;
+  const float* wt = w + (int64_t)t * d;
+  float* ring = dyn + warp * kGramDepth * SF;
+
+  int I, J;
+  gram_tile<B>(lane, I, J);
+  float acc[8][8], acc2[28], accq[QR], accd = 0.f;
 #pragma unroll
-    for (int p = 0; p < QP; ++p) s += qpart[p][tid];
-    blk[B * B + tid] = s;
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 28; ++i) acc2[i] = 0.f;
+#pragma unroll
+  for (int s = 0; s < QR; ++s) accq[s] = 0.f;
+
+  for (int s = 0; s < kGramDepth - 1; ++s) {  // one commit group a stage, issued or not
+    if (s < ns)
+      gram_issue<B>(ring + s * SF, x, wt, rowoff, c0 + 8 * s, min(8, c1 - c0 - 8 * s), d, vec);
+    cp_async_commit();
   }
+  for (int s = 0; s < ns; ++s) {
+    const int nx = s + kGramDepth - 1;
+    if (nx < ns)  // into the stage read at s - 1: __syncwarp below ordered it
+      gram_issue<B>(ring + (nx % kGramDepth) * SF, x, wt, rowoff, c0 + 8 * nx,
+                    min(8, c1 - c0 - 8 * nx), d, vec);
+    cp_async_commit();
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kGramDepth - 1) : "memory");  // stage s is in
+    __syncwarp();
+    const float* st = ring + (s % kGramDepth) * SF;
+    const int nk = min(8, c1 - c0 - 8 * s);
+    for (int kc = 0; kc < nk; ++kc) gram_chunk<B>(st, kc, I, J, acc, accq, accd);
+    if (GT::D2 > 0) gram_diag<B>(st, nk, acc2);
+    __syncwarp();  // every lane is done with this stage before it is refilled
+  }
+  cp_async_wait_all();
+  __syncthreads();  // every warp is past its ring: the epilogue reuses it
+
+  // each warp's tiles and q, lane by lane, then their sums in warp order
+  float* part = dyn;                              // [nw][32][kGramPart] pass-1 tiles
+  float* part2 = part + nw * 32 * kGramPart;      // [nw][32][29] the diagonal blocks' (D2 > 0)
+  float* qpart = part2 + (GT::D2 > 0 ? nw * 32 * 29 : 0);  // [nw][B]
+  float* M = qpart + nw * B;                      // [B][B] the summed Gram
+  if (lane < GT::T1) {
+    float* mine = part + (warp * 32 + lane) * kGramPart;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      *reinterpret_cast<float4*>(mine + 8 * i) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      *reinterpret_cast<float4*>(mine + 8 * i + 4) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+    }
+  }
+  if (GT::D2 > 0) {
+    float* mine = part2 + (warp * 32 + lane) * 29;
+#pragma unroll
+    for (int i = 0; i < 28; ++i) mine[i] = acc2[i];
+    mine[28] = accd;
+  }
+#pragma unroll
+  for (int s = 0; s < QR; ++s)
+    if (lane + 32 * s < B) qpart[warp * B + lane + 32 * s] = accq[s];
+  __syncthreads();
+
+  // pass-1 tiles: row 8I + i, columns 8J + 4h .. + 3, mirrored above the
+  // diagonal blocks; a diagonal block is symmetric as computed (fmaf(a, b,
+  // c) and fmaf(b, a, c) round alike), so the scratch's Gram is bit-exactly
+  // symmetric
+  for (int g = tid; g < GT::T1 * 16; g += blockDim.x) {
+    const int L = g >> 4, i = (g >> 1) & 7, h = g & 1;
+    const float* src = part + L * kGramPart + 8 * i + 4 * h;
+    float4 v = *reinterpret_cast<const float4*>(src);
+    for (int q = 1; q < nw; ++q) {
+      const float4 o = *reinterpret_cast<const float4*>(src + q * 32 * kGramPart);
+      v.x += o.x;
+      v.y += o.y;
+      v.z += o.z;
+      v.w += o.w;
+    }
+    int TI, TJ;
+    gram_tile<B>(L, TI, TJ);
+    const int row = 8 * TI + i, col = 8 * TJ + 4 * h;
+    *reinterpret_cast<float4*>(M + row * B + col) = v;
+    if (TI != TJ) {
+      M[col * B + row] = v.x;
+      M[(col + 1) * B + row] = v.y;
+      M[(col + 2) * B + row] = v.z;
+      M[(col + 3) * B + row] = v.w;
+    }
+  }
+  if (GT::D2 > 0) {
+    // below the diagonal of blocks 4..7: lanes P - 4 + 4c hold block P over
+    // chunks c; summed lane by lane in each warp, warp by warp
+    for (int g = tid; g < 4 * 28; g += blockDim.x) {
+      const int bq = g / 28, e = g % 28;
+      float v = 0.f;
+      for (int q = 0; q < nw; ++q)
+        for (int c = 0; c < 8; ++c) v += part2[(q * 32 + bq + 4 * c) * 29 + e];
+      int i = 1;
+      while ((i + 1) * i / 2 <= e) ++i;
+      const int P = GT::R - GT::D2 + bq, row = 8 * P + i, col = 8 * P + e - i * (i - 1) / 2;
+      M[row * B + col] = v;
+      M[col * B + row] = v;
+    }
+    // their diagonal, row 32 + l from lane l (its q step)
+    for (int l = tid; l < 32; l += blockDim.x) {
+      float v = 0.f;
+      for (int q = 0; q < nw; ++q) v += part2[(q * 32 + l) * 29 + 28];
+      const int row = 8 * (GT::R - GT::D2) + l;
+      M[row * B + row] = v;
+    }
+  }
+  for (int i = tid; i < B; i += blockDim.x) {
+    float s = qpart[i];
+    for (int q = 1; q < nw; ++q) s += qpart[q * B + i];
+    blk[B * B + i] = s;
+  }
+  __syncthreads();
+  for (int e = tid; e < B * B / 4; e += blockDim.x)
+    reinterpret_cast<float4*>(blk)[e] = reinterpret_cast<const float4*>(M)[e];
 }
 
 // ---------------------------------------------------------------------------
@@ -399,9 +618,14 @@ cudaError_t launch(const float* x, const float* y, const float* alpha, const flo
   const size_t chain_smem = streamed
       ? (size_t)StreamSmem<B>(dcp, hold).total * sizeof(float)
       : (size_t)ChainSmem<B>(dcp).total * sizeof(float);
-  const size_t gram_smem = (size_t)((d + kGramTile - 1) / kGramTile * kGramTile) * sizeof(float);
-  if (chain_smem > 232448 || gram_smem > 232448 || (streamed && hold % 4 != 0))
-    return cudaErrorInvalidValue;
+  // stage 1: one warp per column range of at least two ring stages where d
+  // has them (the second's copy runs under the first's FMAs), at most
+  // kGramWarps (at d = 100 two warps took 17.0 us at Synthetic-1's width and
+  // four 23.4, H100)
+  const int ranges = (d + 2 * kGramCols - 1) / (2 * kGramCols);
+  const int gram_warps = ranges < kGramWarps ? ranges : kGramWarps;
+  const size_t gram_smem = (size_t)gram_smem_floats<B>(gram_warps) * sizeof(float);
+  if (chain_smem > 232448 || (streamed && hold % 4 != 0)) return cudaErrorInvalidValue;
   using ChainFn = void (*)(const float*, const float*, const float*, float*, float*, int, int,
                            int, int, int);
   using StreamFn = void (*)(const float*, const float*, const float*, float*, float*, int, int,
@@ -420,11 +644,12 @@ cudaError_t launch(const float* x, const float* y, const float* alpha, const flo
                                (int)gram_smem);
   if (err != cudaSuccess) return err;
   const int vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int vec1 = vec && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   for (int b0 = 0; b0 < nb; b0 += group) {
     const int nbg = nb - b0 < group ? nb - b0 : group;
     if (stages & 1) {
-      gram_kernel<B><<<dim3(nbg, m), kThreads, gram_smem, stream>>>(
-          x, y, alpha, w, u, n, scratch, n_max, d, H, b0, nbg);
+      gram_kernel<B><<<dim3(nbg, m), 32 * gram_warps, gram_smem, stream>>>(
+          x, y, alpha, w, u, n, scratch, n_max, d, H, b0, nbg, vec1);
       if ((err = cudaGetLastError()) != cudaSuccess) return err;
     }
     if (stages & 2) {

@@ -369,6 +369,46 @@ def test_round_stages_apart_equal_the_round(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("block", [16, 32, 64])
+@pytest.mark.parametrize("d", [100, 784, 1000, 3010, 10000])
+def test_stage1_writes_gram_q_and_metadata(cuda, d, block):
+    """Stage 1 alone against float64 on the rows its coordinates draw, per
+    block: the Gram exactly symmetric (the recursion reads it by rows); the
+    Gram and q within fp32's worst case for a sum of d products, (d + 4)
+    2^-24 times the sum of the products' magnitudes (each FMA rounds once,
+    then the partials of at most 4 column ranges are added); labels, alphas
+    and coordinate ids bit-equal to the drawn rows'. d = 1000 is no multiple
+    of 32, d = 3010 no multiple of 4 (4-byte copies); one task has no rows
+    (its draws wrap to row n_max - 1), one has 7."""
+    m, n_max, H = 3, 40, 4 * block
+    nb, sf = H // block, block * block + 4 * block
+    x, y, alpha, w, u, _, kappa = _t(*_problem(d + block, m, n_max, d, H), device=cuda)
+    n_i = torch.tensor([0, 7, n_max], dtype=torch.int32, device=cuda)
+    scratch = torch.full((m * nb * sf,), float("nan"), device=cuda)
+    sdca_kernel.sdca_round_stage(1, x, y, alpha, w, u, n_i, kappa, "hinge", scratch,
+                                 torch.zeros_like(alpha), torch.zeros_like(w), block=block)
+    torch.cuda.synchronize()
+    blk = scratch.view(m, nb, sf)
+    j = coords_from_uniform(u, n_i, n_max)
+    xb = gather_rows(x, j).view(m, nb, block, d).double()
+    wd = w.double()[:, None, :, None]
+    G = blk[..., : block * block].view(m, nb, block, block)
+    assert torch.equal(G, G.transpose(-1, -2))
+    bound = (d + 4) * 2.0 ** -24
+    G64, Gabs = xb @ xb.transpose(-1, -2), xb.abs() @ xb.abs().transpose(-1, -2)
+    assert bool(((G.double() - G64).abs() <= bound * Gabs).all())
+    q = blk[..., block * block: block * block + block]
+    q64, qabs = (xb @ wd).squeeze(-1), (xb.abs() @ wd.abs()).squeeze(-1)
+    assert bool(((q.double() - q64).abs() <= bound * qabs).all())
+    meta = blk[..., block * block + block:].reshape(m, nb, 3, block)
+    assert torch.equal(meta[:, :, 0], torch.gather(y, 1, j).view(m, nb, block))
+    assert torch.equal(meta[:, :, 1], torch.gather(alpha, 1, j).view(m, nb, block))
+    ids = meta[:, :, 2].contiguous().view(torch.int32)
+    assert torch.equal(ids, j.to(torch.int32).view(m, nb, block))
+    assert bool((j[0] == n_max - 1).all()) and bool((j[1] < 7).all())
+
+
+@pytest.mark.gpu
 def test_round_kernel_refuses_what_does_not_fit(cuda):
     x, y, alpha, w, u, n_i, kappa = _t(*_problem(1, 1, 40, 784, 64), device=cuda)
     with pytest.raises(ValueError, match="does not fit"):
