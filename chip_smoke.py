@@ -2168,7 +2168,7 @@ def threefry_draw_checks(torch, dev, card: str) -> dict:
     the kernel's against the same torch ops on the card (the path it
     replaced)."""
     from repro_torch import prng
-    from repro_torch.core.solver_backends import draw_task_uniform, draw_uniform
+    from repro_torch.core.solver_backends import draw_task_uniform
     from repro_torch.kernels.prng import threefry_draw
 
     key = prng.split(prng.PRNGKey(3), 10)[3]
@@ -2181,7 +2181,7 @@ def threefry_draw_checks(torch, dev, card: str) -> dict:
             return threefry_draw(key, tids_dev, 0, H)
 
         def torch_ops():
-            return draw_uniform(prng.fold_in(prng.fold_in(key, tids), 0), H, dev)
+            return prng.uniform(prng.fold_in(prng.fold_in(key, tids), 0), (H,), device=dev)
 
         got = kernel()
         torch.cuda.synchronize()
@@ -2534,13 +2534,14 @@ def empty_task_checks(torch, dev, data) -> tuple:
         da_p, r_p = ref.sdca_round_ref(x, y, alpha, w, u, n_local, kappa, loss)
         finite = bool(torch.isfinite(da).all() and torch.isfinite(r).all())
         e = max((da - da_p).abs().max().item(), (r - r_p).abs().max().item())
-        solve = get_backend("pallas_block").make(get_loss(loss), 1.0, SYN_LAM, H, block=BLOCK)
+        solve = get_backend("pallas_block").make_from_uniform(get_loss(loss), 1.0, SYN_LAM, H,
+                                                              block=BLOCK)
         before = sdca_block_kernel.launches
-        db, rb = solve(x, y, alpha, w, n_local, sig, keys)
+        db, rb = solve(x, y, alpha, w, n_local, sig, u)
         torch.cuda.synchronize()
         launched = sdca_block_kernel.launches - before
-        cpu = [t.cpu() for t in (x, y, alpha, w, n_local, sig)]
-        db_p, rb_p = solve(*cpu, keys)
+        cpu = [t.cpu() for t in (x, y, alpha, w, n_local, sig, u)]
+        db_p, rb_p = solve(*cpu)
         finite_b = bool(torch.isfinite(db).all() and torch.isfinite(rb).all())
         eb = max((db.cpu() - db_p).abs().max().item(), (rb.cpu() - rb_p).abs().max().item())
         print(f"[2 empty tasks {loss}] pod slice of Synthetic-1 (m={m}, n_loc={n_loc}, d={d}), "

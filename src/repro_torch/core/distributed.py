@@ -57,9 +57,9 @@ from . import omega_regularizers as omega_reg
 from .dmtrl import DMTRLConfig, WarmStart, _rho_value, resolve_device
 from .losses import get_loss
 from .mtl_data import MTLData
-from .sdca import gather_rows, sample_coords, sdca_block_solve, sdca_gram_solve
+from .sdca import coords_from_uniform, gather_rows, sdca_block_solve, sdca_gram_solve
 from .sigma_view import LowRankDiagSigma, SigmaView, maybe_dense
-from .solver_backends import get_backend
+from .solver_backends import draw_task_uniform, get_backend
 
 Tensor = torch.Tensor
 
@@ -625,11 +625,11 @@ def make_local_solve(
     n_loc = n_max // _axis_size(mesh, axes.pod)
     backend = get_backend(cfg.solver)
     H = backend.round_local_iters(cfg.local_iters or n_loc, cfg.block_size)
-    use_gram = axes.model is not None
-    solver = None if use_gram else backend.make(loss, rho, cfg.lam, H, block=cfg.block_size)
+    solver = backend.make_from_uniform(loss, rho, cfg.lam, H, block=cfg.block_size)
     di, pi = mesh.coord(axes.data), mesh.coord(axes.pod)
-    # global task ids of this block + per-(task, pod, round) keys
-    tids = di * m_loc + torch.arange(m_loc, dtype=torch.int64)
+    # the block's global task ids: they key its draws (with the pod index),
+    # and its Sigma rows hold sigma_ii on their diagonal at offset di * m_loc
+    tids = (di * m_loc + torch.arange(m_loc, dtype=torch.int32)).to(mesh.device)
     gemm = torch.bfloat16 if cfg.gram_bf16 else None
 
     def rounded(t):
@@ -640,16 +640,12 @@ def make_local_solve(
         return psum(t, mesh, axes.model)
 
     def local_solve(x, y, n, alpha, W_read, sigma_rows, key):
-        keys = prng.fold_in(prng.fold_in(key, tids), pi)  # (m_loc, 2)
-        if sigma_input == "diag":
-            sigma_ii = sigma_rows
-        else:
-            sigma_ii = sigma_rows[torch.arange(m_loc, device=sigma_rows.device),
-                                  tids.to(sigma_rows.device)]
+        u = draw_task_uniform(key, tids, pi, H, x.device)  # (m_loc, H)
+        sigma_ii = sigma_rows if sigma_input == "diag" else sigma_rows.diagonal(di * m_loc)
         # valid samples in this pod's contiguous slice
         n_local = torch.clamp(n - pi * n_loc, 0, n_loc).to(torch.int32)
-        if use_gram:
-            coords = sample_coords(keys, H, n_local, x.shape[1])  # (m_loc, H)
+        if axes.model is not None:
+            coords = coords_from_uniform(u, n_local, x.shape[1])  # (m_loc, H)
             if cfg.dist_block_hoisted:
                 # the block Gram per H-block: 3 H B numbers a task summed
                 # over the axis per round (H^2 for the full Gram)
@@ -677,7 +673,7 @@ def make_local_solve(
                 )
                 r = torch.bmm(Xs.transpose(1, 2), deltas[:, :, None])[..., 0]
         else:
-            dalpha, r = solver(x, y, alpha, W_read, n_local, sigma_ii, keys)
+            dalpha, r = solver(x, y, alpha, W_read, n_local, sigma_ii, u)
         r = psum(r, mesh, axes.pod)
         # delta_b_i = (eta / n_i_global) * sum over ALL of task i's samples
         db = cfg.eta * r / torch.clamp(n, min=1)[:, None].to(r.dtype)

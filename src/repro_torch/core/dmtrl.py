@@ -278,6 +278,7 @@ def make_w_step_round(cfg: DMTRLConfig, data: MTLData, rho: float):
     H = backend.round_local_iters(cfg.local_iters or data.n_max, cfg.block_size)
     solver = backend.make_from_uniform(loss, rho, cfg.lam, H, block=cfg.block_size)
     tids = torch.arange(data.m, dtype=torch.int32, device=data.x.device)
+    n_div = dual_mod.row_divisor(data, data.x.dtype)  # delta_b's n_i
     # what the solve launches (K1's stage-2 path and cluster), fixed by the
     # data's shape: the local_sdca span's labels
     labels = backend.span_args(data.x, cfg.loss, cfg.block_size)
@@ -294,7 +295,7 @@ def make_w_step_round(cfg: DMTRLConfig, data: MTLData, rho: float):
             alpha = alpha + cfg.eta * dalpha
             # delta_b rows: (m, d); server reduce: W += (1/lam) Sigma @ dB,
             # from the factors for a structured Sigma (no dense (m, m))
-            db = cfg.eta * r / data.n[:, None].to(r.dtype)
+            db = cfg.eta * r / n_div
             W = W + sv.matvec(db) / cfg.lam
         return alpha, W
 

@@ -23,10 +23,15 @@ from .sigma_view import SigmaView
 Tensor = torch.Tensor
 
 
+def row_divisor(data: MTLData, dtype: torch.dtype) -> Tensor:
+    """Each task's n_i, at least 1 (an empty task adds 0), as (m, 1) ``dtype``."""
+    return torch.clamp(data.n, min=1)[:, None].to(dtype)
+
+
 def compute_B(data: MTLData, alpha: Tensor) -> Tensor:
     """B matrix, columns b_i = (1/n_i) X_i^T alpha_[i].  alpha: (m, n_max)."""
     masked = alpha * data.mask  # safety: padding contributes nothing
-    b = torch.einsum("mnd,mn->md", data.x, masked) / data.n[:, None].to(data.x.dtype)
+    b = torch.einsum("mnd,mn->md", data.x, masked) / row_divisor(data, data.x.dtype)
     return b.T  # (d, m)
 
 
@@ -54,13 +59,13 @@ def dual_objective(
     """D(alpha) of Eq. (2)."""
     quad = quad_term(data, alpha, sigma)
     conj = loss.conjugate(-alpha, data.y) * data.mask
-    conj_term = torch.sum(conj / data.n[:, None].to(conj.dtype))
+    conj_term = torch.sum(conj / row_divisor(data, conj.dtype))
     return -quad / (2.0 * lam) - conj_term
 
 
 def _empirical_risk(data: MTLData, W: Tensor, loss: Loss) -> Tensor:
     z = predictions(data, W)
-    return torch.sum(loss.value(z, data.y) * data.mask / data.n[:, None].to(z.dtype))
+    return torch.sum(loss.value(z, data.y) * data.mask / row_divisor(data, z.dtype))
 
 
 def primal_objective(

@@ -1,23 +1,18 @@
 """Pluggable local-SDCA solver backends.
 
-The trainer (core/dmtrl.py) reaches the local subproblem (paper
-Algorithm 2) through this registry: a config names a backend
-(``DMTRLConfig.solver``), the trainer resolves it with ``get_backend`` and
-builds a solver with ``backend.make``. All backends share the contract
+Every engine reaches the local subproblem (paper Algorithm 2) through this
+registry: a config names a backend (``DMTRLConfig.solver``), the engine
+resolves it with ``get_backend`` and builds a solver with
+``backend.make_from_uniform``. All backends share the contract
 
-    solve(x, y, alpha, W, n, sigma_diag, keys) -> (dalpha, r)
+    solve(x, y, alpha, W, n, sigma_diag, u) -> (dalpha, r)
 
 acting on ALL tasks at once (x (m, n_max, d), alpha (m, n_max), W (m, d),
-n and sigma_diag (m,), keys (m, 2)), with each task's H coordinate draws
-derived from its key exactly as ``sdca.sample_coords`` does — so every
-backend produces the SAME sampled coordinate order and (up to float-op
-ordering) the same iterate sequence, and the same as the JAX package's
-backend of the same name. ``make`` is the draw (``draw_uniform``: each
-task's H uniforms from its key) followed by ``backend.make_from_uniform``'s
-solve, which takes those uniforms (m, H) in place of the keys; the
-single-process trainer calls the two apart, deriving the keys and drawing
-in one step (``draw_task_uniform``: one kernel launch on the card), so its
-trace times the draw on its own.
+n and sigma_diag (m,), u (m, H)). Every engine draws u, each task's H
+uniforms of the round, with ``draw_task_uniform``, and every backend maps
+them to coordinates as ``sdca.coords_from_uniform`` does: the same
+coordinates in every engine and backend, and (up to float-op ordering)
+the same iterates as the JAX package's backend of the same name.
 
 Registered backends (the names are the JAX package's, so its configs run
 unchanged):
@@ -27,9 +22,10 @@ unchanged):
   pallas_block the per-block Hopper kernel (csrc/sdca_block.cu): one launch
                per H-block for all tasks; rows gathered, deltas scattered
                and ``r`` updated in torch around it.
-  pallas_round the fused Hopper round kernel (csrc/sdca_round.cu): ALL H/B
-               blocks of every task in one launch, ``w``/``r`` resident in
-               shared memory, coordinate sampling on the device.
+  pallas_round the Hopper round kernel (csrc/sdca_round.cu): ALL H/B blocks
+               of every task in one launch: the Gram triangles over the
+               card, then each task's chain on its rows held in shared
+               memory (streamed past d = 3008).
 
 The kernel backends run the kernels' plain versions on CPU tensors and for
 losses without a closed-form kernel delta (see ``kernels.sdca.ops``), so
@@ -44,6 +40,7 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from .. import prng
+from ..roofline import analysis as _cost
 from .losses import Loss
 from .sdca import (
     coords_from_uniform,
@@ -55,29 +52,34 @@ from .sdca import (
 
 Tensor = torch.Tensor
 
-# solve(x, y, alpha, W, n, sigma_diag, keys) -> (dalpha, r); the solvers of
-# make_from_uniform take the (m, H) uniforms u in place of the keys
+# solve(x, y, alpha, W, n, sigma_diag, u) -> (dalpha, r)
 Solver = Callable[..., Tuple[Tensor, Tensor]]
-
-
-def draw_uniform(keys: Tensor, H: int, device) -> Tensor:
-    """Each task's H uniforms in [0, 1) from its key (m, 2) -> (m, H): the
-    stream ``sdca.sample_coords`` maps to coordinates."""
-    return prng.uniform(keys, (H,), device=device)
 
 
 def draw_task_uniform(key: Tensor, tids: Tensor, pod: int, H: int, device) -> Tensor:
     """Each task's H uniforms of one round from the round key (2,): task t
     draws from ``fold_in(fold_in(key, tids[t]), pod)``, the JAX package's
-    per-task keys -> (m, H). On a CUDA device one kernel launch derives the
-    keys and draws (``kernels.prng.threefry_draw``, bit-equal); elsewhere
-    ``prng``'s torch ops do, on ``tids``' device."""
-    if torch.device(device).type == "cuda":
-        from ..kernels.prng import threefry_draw  # lazy: kernel layer
+    per-task keys -> (m, H). On a CUDA device K5 (``kernels.prng``) derives
+    the keys and draws in one launch, bit-equal to ``prng``'s torch ops,
+    which draw elsewhere; ``meta`` gets K5's output shape. A cost counter
+    (``roofline.analysis``) counts one K5 by its formula on every device."""
+    dev = torch.device(device)
 
-        return threefry_draw(key, tids.to(device=device, dtype=torch.int32), pod, H)
-    keys = prng.fold_in(prng.fold_in(key.to(tids.device), tids), pod)  # (m, 2)
-    return draw_uniform(keys, H, device)
+    def draw():
+        if dev.type == "cuda":
+            from ..kernels.prng import threefry_draw  # lazy: kernel layer
+
+            return threefry_draw(key, tids.to(device=dev, dtype=torch.int32), pod, H)
+        if dev.type == "meta":
+            return torch.empty((tids.shape[0], H), dtype=torch.float32, device=dev)
+        keys = prng.fold_in(prng.fold_in(key.to(tids.device), tids), pod)
+        return prng.uniform(keys, (H,), device=dev)
+
+    if _cost.ACTIVE is None:
+        return draw()
+    from ..kernels.prng import threefry_cost  # lazy: kernel layer
+
+    return _cost.ACTIVE.launch("K5", threefry_cost(tids.shape[0], H), draw)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,32 +92,17 @@ class SolverBackend:
     block_aligned: bool
     # make_from_uniform(loss, rho, lam, H, block=...) -> Solver on uniforms
     make_from_uniform: Callable[..., Solver]
-    # kernel launches per local round for given (H, block); the JAX name
-    # is kept because configs and benches read it
-    pallas_calls: Callable[[int, int], int] = lambda H, block: 0
     # the solve body launches a hand-written kernel
     uses_pallas: bool = False
     # span_args(x, loss_name, block) -> labels of the solve's span: what the
     # solve launches on these rows (``local_sdca``)
     span_args: Callable[[Tensor, str, int], dict] = lambda x, loss_name, block: {}
 
-    def make(self, loss: Loss, rho: float, lam: float, H: int, block: int = 64) -> Solver:
-        """The solver on per-task keys: the draw, then the solve."""
-        solve_u = self.make_from_uniform(loss, rho, lam, H, block=block)
-
-        def solve(x, y, alpha, W, n, sigma_diag, keys):
-            return solve_u(x, y, alpha, W, n, sigma_diag, draw_uniform(keys, H, x.device))
-
-        return solve
-
     def round_local_iters(self, H: int, block: int) -> int:
         """Round H up to this backend's alignment requirement."""
         if self.block_aligned:
             return int(math.ceil(H / block)) * block
         return H
-
-    def pallas_calls_per_round(self, H: int, block: int) -> int:
-        return self.pallas_calls(self.round_local_iters(H, block), block)
 
 
 _REGISTRY: Dict[str, SolverBackend] = {}
@@ -221,8 +208,8 @@ def _make_pallas_round(
     from ..kernels.sdca import ops as sdca_ops  # lazy: kernel layer
 
     def solve(x, y, alpha, W, n, sigma_diag, u):
-        # the kernel maps the key-derived uniform stream to coordinates
-        # on the device with sample_coords' exact arithmetic
+        # the kernel maps the uniforms to coordinates on the device with
+        # coords_from_uniform's exact arithmetic
         kappa = kappa_of(rho, lam, n, sigma_diag)
         return sdca_ops.sdca_round(
             x, y, alpha, W, u, n, kappa, loss.name, block=block
@@ -263,18 +250,17 @@ register_backend(
         "tasks, w/r read from device memory each block",
         block_aligned=True,
         make_from_uniform=_make_pallas_block,
-        pallas_calls=lambda H, block: H // block,
         uses_pallas=True,
     )
 )
 register_backend(
     SolverBackend(
         name="pallas_round",
-        description="fused Hopper round kernel: all H/B blocks of every task "
-        "in one launch, w/r in shared memory, on-device coordinate sampling",
+        description="Hopper round kernel: all H/B blocks of every task in one "
+        "launch, the Gram triangles over the card, then each task's chain on "
+        "its rows held in shared memory (streamed past d = 3008)",
         block_aligned=True,
         make_from_uniform=_make_pallas_round,
-        pallas_calls=lambda H, block: 1,
         uses_pallas=True,
         span_args=_pallas_round_span_args,
     )

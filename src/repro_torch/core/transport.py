@@ -110,7 +110,7 @@ from .distributed import (
 from .dmtrl import DMTRLConfig, _rho_value, resolve_device
 from .losses import get_loss
 from .sigma_view import SigmaView, maybe_dense
-from .solver_backends import get_backend
+from .solver_backends import draw_task_uniform, get_backend
 from .wire import (
     WIRE_VERSION,
     Codec,
@@ -361,10 +361,10 @@ def _worker_delays(cfg: DMTRLConfig, n_workers: int) -> tuple:
 def make_block_solver(cfg: DMTRLConfig, n_max: int, rho: float) -> Callable:
     """The worker half of one round for a host transport: the configured
     solver backend over the worker's task block (the backends are batched
-    over tasks), with the same per-(task, pod=0) key derivation as the
+    over tasks), drawing through ``draw_task_uniform`` with pod 0 like the
     single-process driver (=> the same coordinate draws for the same round
-    key). Under ``solver="pallas_round"`` that is one launch of the round
-    kernel per call.
+    key). Under ``solver="pallas_round"`` that is one launch of the draw
+    kernel and one of the round kernel per call.
 
     solve(x, y, alpha_rows, W_rows, n, sigma_rows, tids, key)
         -> (dalpha_rows, db_rows)
@@ -378,16 +378,16 @@ def make_block_solver(cfg: DMTRLConfig, n_max: int, rho: float) -> Callable:
     loss = get_loss(cfg.loss)
     backend = get_backend(cfg.solver)
     H = backend.round_local_iters(cfg.local_iters or n_max, cfg.block_size)
-    solver = backend.make(loss, rho, cfg.lam, H, block=cfg.block_size)
+    solver = backend.make_from_uniform(loss, rho, cfg.lam, H, block=cfg.block_size)
 
     def solve(x, y, alpha_rows, W_rows, n, sigma_rows, tids, key):
-        keys = prng.fold_in(prng.fold_in(key, tids), 0)
+        u = draw_task_uniform(key, tids, 0, H, x.device)
         if sigma_rows.ndim == 1:
             sigma_ii = sigma_rows
         else:
             local = torch.arange(sigma_rows.shape[0], device=sigma_rows.device)
             sigma_ii = sigma_rows[local, tids.to(sigma_rows.device)]
-        dalpha, r = solver(x, y, alpha_rows, W_rows, n, sigma_ii, keys)
+        dalpha, r = solver(x, y, alpha_rows, W_rows, n, sigma_ii, u)
         # delta_b_i = (eta / n_i) * X_i^T dalpha_i (padded tasks have n=1,
         # x=0 => inert)
         db = cfg.eta * r / torch.clamp(n, min=1)[:, None].to(r.dtype)
@@ -1407,14 +1407,17 @@ class MultiprocessTransport(_HostServerTransport):
         self._ready = [False] * self.G
 
     def _build_kernels(self) -> Optional[str]:
-        """Build the solver's kernels before the workers start (they would
-        otherwise race to build them); returns the build directory."""
+        """Build the draw's and the solver's kernels before the workers start
+        (they would otherwise race to build them); returns the build dir."""
         from ..kernels import nvcc
 
-        if self.device.type == "cuda" and get_backend(self.cfg.solver).uses_pallas:
-            from ..kernels.sdca import SOURCES
+        if self.device.type == "cuda":
+            from ..kernels import prng as prng_kernels, sdca
 
-            nvcc.build_all(SOURCES)
+            sources = list(prng_kernels.SOURCES)
+            if get_backend(self.cfg.solver).uses_pallas:
+                sources += sdca.SOURCES
+            nvcc.build_all(sources)
         return str(nvcc.BUILD_DIR)
 
     def _ensure_workers(self):

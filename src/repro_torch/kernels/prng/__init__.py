@@ -1,3 +1,3 @@
-from .threefry_kernel import SOURCES, threefry_draw
+from .threefry_kernel import SOURCES, threefry_cost, threefry_draw
 
-__all__ = ["SOURCES", "threefry_draw"]
+__all__ = ["SOURCES", "threefry_cost", "threefry_draw"]

@@ -30,6 +30,12 @@ _MASK = 0xFFFFFFFF
 _COUNT_LOCK = threading.Lock()
 
 
+def threefry_cost(m: int, H: int) -> tuple:
+    """(FLOPs, bytes) of one launch: integer hashing only, so no FLOPs; the
+    task ids read and the (m, H) float32 uniforms written once."""
+    return 0, m * H * 4 + m * 4
+
+
 def threefry_draw(key: torch.Tensor, tids: torch.Tensor, pod: int, H: int) -> torch.Tensor:
     """(m, H) float32 uniforms on ``tids``' CUDA device: row t from the key
     ``fold_in(fold_in(key, tids[t]), pod)``. ``key`` (2,) int64 lies on the

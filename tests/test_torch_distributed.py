@@ -348,8 +348,8 @@ def test_empty_task_solve_matches_jax(solver):
     W = torch.from_numpy((0.1 * rs.randn(sp.m, sp.d)).astype(np.float32))
     sig = torch.full((sp.m,), 0.25)
     keys = prng.fold_in(prng.fold_in(prng.PRNGKey(3), torch.arange(sp.m)), 0)
-    solve = get_backend(solver).make(get_loss("hinge"), 1.0, 1e-3, 64, block=32)
-    da, r = solve(sp.x, sp.y, alpha, W, n, sig, keys)
+    solve = get_backend(solver).make_from_uniform(get_loss("hinge"), 1.0, 1e-3, 64, block=32)
+    da, r = solve(sp.x, sp.y, alpha, W, n, sig, prng.uniform(keys, (64,)))
     jsolve = jget_backend("block_gram").make(jget_loss("hinge"), 1.0, 1e-3, 64, block=32)
     jda, jr = jax.vmap(jsolve)(jnp.asarray(sp.x.numpy()), jnp.asarray(sp.y.numpy()),
                                jnp.asarray(alpha.numpy()), jnp.asarray(W.numpy()),

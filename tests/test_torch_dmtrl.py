@@ -167,3 +167,25 @@ def test_fit_feeds_kernels_their_contract(monkeypatch, small_cfg, port_problem, 
     else:
         assert calls == {"round": 0, "block": rounds * cfg.local_iters // cfg.block_size}
     assert np.all(np.isfinite(res.history["gap"]))
+
+
+@pytest.mark.parametrize("engine", ["reference", "distributed", "async"])
+def test_fit_with_an_empty_task_stays_finite(engine):
+    """A task with no rows: every engine divides its delta_b, B column and
+    objective terms by max(n_i, 1), so the fit ends with a finite W and a
+    finite gap, and that task's alpha stays zero. (The JAX
+    package divides 0 by 0 there, and its Omega-step refuses the W.)"""
+    from repro_torch.core import AsyncOptions, DMTRLEstimator
+    from repro_torch.core.mtl_data import from_task_list
+
+    rs = np.random.RandomState(0)
+    xs = [rs.randn(20, 8).astype(np.float32), np.zeros((0, 8), np.float32),
+          rs.randn(13, 8).astype(np.float32)]
+    ys = [np.sign(rs.randn(20)), np.zeros(0), np.sign(rs.randn(13))]
+    opts = dict(async_options=AsyncOptions(transport="threaded")) if engine == "async" else {}
+    est = DMTRLEstimator(engine=engine, device="cpu", outer_iters=2, rounds=2,
+                         solver="block_gram", block_size=16, **opts)
+    est.fit(from_task_list(xs, ys))
+    assert bool(torch.isfinite(est.W_).all())
+    assert not est.alpha_[1].any() and est.alpha_[0].any() and est.alpha_[2].any()
+    assert np.all(np.isfinite(est.history_["gap"]))

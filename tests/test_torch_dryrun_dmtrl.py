@@ -2,7 +2,8 @@
 
   * The meta trace of one make_distributed_round at one position equals the
     cost counter over the same round on CPU tensors, exactly, for every
-    solver backend and for a loss the kernels take and one they do not.
+    solver backend and for a loss the kernels take and one they do not;
+    every round counts one K5 (the coordinate draw) by its formula.
   * The trace at rank 0 of a fake 4-rank world equals rank 0 of a real
     4-rank gloo world running the round (tests/torch_dryrun_ranks.py, one
     world for the module): FLOPs, bytes, kernels, collective calls and
@@ -34,7 +35,8 @@ def test_meta_trace_equals_cpu_round(solver, loss):
     meta, cpu = (_one_position(cfg, MeshAxes(data="data"), dev) for dev in ("meta", "cpu"))
     assert meta == cpu
     kernel = {"pallas_block": "K2", "pallas_round": "K1"}.get(solver) if loss == "hinge" else None
-    assert meta["kernels"] == ({kernel: H // BLOCK if kernel == "K2" else 1} if kernel else {})
+    want = {kernel: H // BLOCK if kernel == "K2" else 1} if kernel else {}
+    assert meta["kernels"] == {**want, "K5": 1}
 
 
 def _one_position(cfg, axes, device):
@@ -53,12 +55,14 @@ def test_meta_trace_equals_cpu_round_gram_form(hoisted):
 
 
 def test_kernel_counts_follow_their_formulas():
+    from repro_torch.kernels.prng import threefry_cost
     from repro_torch.kernels.sdca.ops import k1_cost, k2_cost
 
     axes = MeshAxes(data="data")
     mesh = make_host_mesh(1, 1, device="meta")
     for solver, name, cost in (("pallas_round", "K1", k1_cost(M, N_MAX, D, H, BLOCK, 4)),
-                               ("pallas_block", "K2", k2_cost(M, BLOCK, D, 4))):
+                               ("pallas_block", "K2", k2_cost(M, BLOCK, D, 4)),
+                               ("block_gram", "K5", threefry_cost(M, H))):
         cfg = DMTRLConfig(local_iters=H, solver=solver, block_size=BLOCK)
         c = dryrun_dmtrl.trace_round(cfg, mesh, axes, M, N_MAX, D, 2.0)
         n = c.kernels[name]

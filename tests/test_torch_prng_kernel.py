@@ -6,7 +6,8 @@ On the CPU: the wrapper refuses tensors off the card. On a CUDA card
 CPU path (prng's torch ops, which tests/test_torch_prng.py holds against
 jax.random) at both benchmark cells' shapes, an odd H, pod != 0, one task,
 and more tasks than one grid column; and a fit at the benchmark's
-``paper_omega`` settings launching it once a round. This module imports no
+``paper_omega`` settings launching it once a worker round on the reference
+engine, the mesh engine and the threaded transport. This module imports no
 JAX, so the card's run, which has none, can collect it:
 
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_prng_kernel.py
@@ -60,21 +61,28 @@ def test_draw_bit_equal_to_cpu_path(cuda, seed, m, H, first, pod):
 
 
 @pytest.mark.gpu
-def test_fit_draws_once_a_round(cuda):
+@pytest.mark.parametrize("engine", ["reference", "distributed", "async"])
+def test_fit_draws_once_a_round(cuda, engine):
     """P = 4 outer steps x T = 10 rounds through K1 (``pallas_round``), the
-    paper's Omega-step: 40 draw launches and 40 K1 launches a fit."""
-    from repro_torch.core import DMTRLEstimator
+    paper's Omega-step: one draw launch and one K1 launch a worker round,
+    so 40 of each a fit on the reference engine and the one-device mesh
+    engine, and 80 on the threaded transport's two workers."""
+    from repro_torch.core import AsyncOptions, DMTRLEstimator
     from repro_torch.data.synthetic import synthetic
 
     train = synthetic(1, seed=0).train.to(cuda)
+    workers = 2 if engine == "async" else 1
+    opts = {}
+    if engine == "async":
+        opts = dict(async_options=AsyncOptions(transport="threaded", n_workers=workers))
     est = DMTRLEstimator(
-        engine="reference", device=cuda, regularizer="trace_constraint", loss="hinge",
+        engine=engine, device=cuda, regularizer="trace_constraint", loss="hinge",
         lam=1e-3, solver="pallas_round", outer_iters=4, rounds=10, local_iters=0,
-        block_size=64, track_every=10, seed=2**31 + 7,
+        block_size=64, track_every=10, seed=2**31 + 7, **opts,
     )
     draws, rounds = threefry_draw.launches, sdca_round_kernel.launches
     est.fit(train)
     torch.cuda.synchronize()
-    assert threefry_draw.launches - draws == 40
-    assert sdca_round_kernel.launches - rounds == 40
+    assert threefry_draw.launches - draws == 40 * workers
+    assert sdca_round_kernel.launches - rounds == 40 * workers
     assert bool(torch.isfinite(est.W_).all())

@@ -746,14 +746,15 @@ def test_block_kernel_empty_tasks(cuda, loss, n, d, H, block):
     from repro_torch.core.solver_backends import get_backend
 
     arrays = _empty_task_buffers(n * d + H, n, d, H)
-    solve = get_backend("pallas_block").make(get_loss(loss), 1.0, 1e-3, H, block=block)
+    solve = get_backend("pallas_block").make_from_uniform(get_loss(loss), 1.0, 1e-3, H,
+                                                          block=block)
     keys = prng.fold_in(prng.fold_in(prng.PRNGKey(4), torch.arange(4)), 0)
     sig = torch.full((4,), 0.25)
     out = []
     for dev in (cuda, torch.device("cpu")):
         x, y, alpha, w, _, n_i, _ = [b[1:-1] for b in _t(*arrays, device=dev)]
         before = sdca_kernel.sdca_block_kernel.launches
-        da, r = solve(x, y, alpha, w, n_i, sig.to(dev), keys)
+        da, r = solve(x, y, alpha, w, n_i, sig.to(dev), prng.uniform(keys, (H,), device=dev))
         if dev.type == "cuda":
             torch.cuda.synchronize()
             assert sdca_kernel.sdca_block_kernel.launches == before + H // block

@@ -505,3 +505,45 @@ def test_threaded_warm_start_partial_fit(port_problem):
     assert est.history["round"][n0] > est.history["round"][n0 - 1]
     assert est.history["gap"][-1] <= gap0 + 1e-6
     assert est.alpha_.shape == tuple(port_problem.train.y.shape)
+
+
+@pytest.mark.parametrize("engine", ["threaded", "mesh", "mesh_gram", "mesh_gram_hoisted"])
+def test_engines_draw_the_reference_rounds_coordinates(port_problem, engine):
+    """For one round key, the worker half of every other engine returns the
+    dalpha of ``make_w_step_round``'s solver bit for bit: the threaded
+    transport's ``make_block_solver`` over two task blocks, and the
+    one-device mesh engine's ``make_local_solve`` without a ``model`` axis
+    and with one (the Gram path: the full H x H Gram over one block, and
+    the block Gram per H-block). All draw through ``draw_task_uniform``."""
+    from repro_torch.core.distributed import MeshAxes, make_local_solve, make_mesh
+    from repro_torch.core.dmtrl import make_w_step_round
+
+    data = port_problem.train
+    m, n_max, d = data.x.shape
+    # the full Gram equals the block Gram bit for bit over a single block
+    block = 64 if engine == "mesh_gram" else 32
+    cfg = DMTRLConfig(loss="hinge", lam=1e-3, eta=0.75, local_iters=64,
+                      solver="block_gram", block_size=block,
+                      dist_block_hoisted=engine == "mesh_gram_hoisted")
+    rs = np.random.RandomState(7)
+    alpha = torch.from_numpy((0.1 * rs.rand(m, n_max)).astype(np.float32)) * data.mask
+    W = torch.from_numpy((0.05 * rs.randn(m, d)).astype(np.float32))
+    a = rs.randn(m, m).astype(np.float32)
+    sigma = torch.from_numpy((a @ a.T / m + np.eye(m)).astype(np.float32) / m)
+    key, rho = prng.split(prng.PRNGKey(5), 4)[2], 1.3
+    want, _ = make_w_step_round(cfg, data, rho)(alpha, W, sigma, key)
+    if engine == "threaded":
+        solve = make_block_solver(cfg, n_max, rho)
+        dalpha = torch.cat([
+            solve(data.x[b], data.y[b], alpha[b], W[b], data.n[b], sigma[b],
+                  torch.arange(b.start, b.stop), key)[0]
+            for b in (slice(0, 2), slice(2, m))
+        ])
+    else:
+        axes = MeshAxes(model=None if engine == "mesh" else "model")
+        names = ("data",) if axes.model is None else ("data", "model")
+        mesh = make_mesh((1,) * len(names), names, device="cpu")
+        local_solve = make_local_solve(cfg, mesh, axes, m, n_max, d, rho)
+        dalpha, _ = local_solve(data.x, data.y, data.n, alpha, W, sigma, key)
+    assert dalpha.any()
+    assert torch.equal(alpha + cfg.eta * dalpha, want)
