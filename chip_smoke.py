@@ -16,11 +16,11 @@ Phases, each printing its own lines:
               round at 10 tasks x 12000 rows x 784 features, B = 64, for
               the hinge, squared and smoothed-hinge
               losses (its two stages also timed apart, stage 1 beside its
-              own bound at this width, at 4096 tasks, at Synthetic-1's and
-              at the MDS width, and at each cluster
+              own bound at this width, at 4096 tasks and at Synthetic-1's,
+              and at each cluster
               size that fits) and at the MDS width (22 tasks x 14 525 rows x
-              10 000 features, its streaming stage 2, timed over cluster
-              sizes and held columns); the SDCA block at that width and at
+              10 000 features, the streamed round in one kernel, timed over
+              cluster sizes and warps a CTA); the SDCA block at that width and at
               Synthetic-1's (16 tasks, d = 100), there also with duplicate
               coordinates, timed at every cluster size beside its chain
               floor; flash attention at Zamba2-2.7B's (1, 32, 512, 80),
@@ -329,8 +329,15 @@ TOL_CONSIST = 5e-4
 SCORE_BATCH, N_REPLICAS = 256, 4
 MANY_M, MANY_D, MANY_N_TRAIN, MANY_N_TEST, MANY_RANK = 4096, 100, 100, 50, 32
 # the paper's MDS width (Table 1's MDS): 22 domains of up to 14 525
-# training reviews over d = 10 000 words; K1's stage 2 streams the rows there
+# training reviews over d = 10 000 words; K1 streams the rows there in one kernel
 MDS_M, MDS_N_MAX, MDS_D = 22, 14525, 10000
+# the streamed round's plans timed there, (CTAs a task, warps a CTA): 12 x 22
+# = 264 CTAs of 4 warps fill every SM twice
+MDS_STREAM_PLANS = ((12, 4), (11, 4), (8, 4), (16, 2), (6, 4))
+# the two-kernel round it replaced there (gram_kernel, then a streaming
+# chain that read the rows twice), ms a round on an H100 at 700 W: its
+# stages timed apart by this phase, and in mds.fit's profiled fits
+MDS_PARENT_STAGES_MS = {"timed apart": (7.22, 8.85), "mds.fit profile": (7.27, 9.12)}
 # served scores against the estimator's predict path: the same per-row dot
 # products in another kernel (a gather and a row-wise dot against
 # predictions' batched product); the JAX package's serving tests hold them
@@ -2276,9 +2283,11 @@ def round_at_many_tasks(torch, dev, card: str, data, sm_clock: str):
 
 def round_at_mds_width(torch, dev, card: str, sm_clock: str) -> dict:
     """Phase 2, K1 at the MDS width (22 x 14 525 x 10 000, B = 64, one local
-    epoch of H = 14 528): the streaming stage 2 against the plain version
-    (hinge), its device and host time a call beside the bound, the two
-    stages apart and stage 2 over held columns."""
+    epoch of H = 14 528): the streamed round (``chain_stream_kernel`` alone)
+    against the plain version (hinge), its device and host time a call, and
+    each plan of ``MDS_STREAM_PLANS`` against the default's output and
+    timed, beside the parent's two stages, the bound and the time of one
+    and of two reads of the drawn rows. No stage 1 may launch."""
     from repro_torch.kernels.sdca import ref, sdca_kernel, sdca_round_kernel
 
     m, n_max, d = MDS_M, MDS_N_MAX, MDS_D
@@ -2296,10 +2305,16 @@ def round_at_mds_width(torch, dev, card: str, sm_clock: str) -> dict:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     plan = sdca_kernel.round_plan(m, d, BLOCK, sms)
     check(plan.path == "stream", f"K1 at the MDS width plans {plan}")
-    streamed = sdca_round_kernel.stream_launches
+
+    def counts():
+        k = sdca_round_kernel
+        return k.launches, k.stream_launches, k.gram_launches
+
+    before = counts()
     da_k, r_k = sdca_round_kernel(*args, "hinge", block=BLOCK)
     torch.cuda.synchronize()
-    check(sdca_round_kernel.stream_launches == streamed + 1, "the MDS round did not stream")
+    check(counts() == (before[0] + 1, before[1] + 1, before[2]),
+          f"the MDS round did not stream in one kernel: K1 counters {before} -> {counts()}")
     da_p, r_p = ref.sdca_round_ref(*args, "hinge")
     err = max((da_k - da_p).abs().max().item(), (r_k - r_p).abs().max().item())
     check(bool(torch.isfinite(da_k).all() and torch.isfinite(r_k).all()),
@@ -2307,7 +2322,8 @@ def round_at_mds_width(torch, dev, card: str, sm_clock: str) -> dict:
     print(f"[2 sdca_round MDS width hinge] max|dalpha, r - plain| = {err:.3e} "
           f"(tolerance {TOL_ROUND:.0e}; max|r| {r_p.abs().max().item():.3f})")
     check(err <= TOL_ROUND, "sdca_round at the MDS width disagrees with its plain version")
-    del da_k, r_k, da_p, r_p
+    del da_p, r_p
+    before = counts()
     ms = cuda_ms(torch, lambda: sdca_round_kernel(*args, "hinge", block=BLOCK), reps=10)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2315,46 +2331,51 @@ def round_at_mds_width(torch, dev, card: str, sm_clock: str) -> dict:
         sdca_round_kernel(*args, "hinge", block=BLOCK)
     host = (time.perf_counter() - t0) / 10 * 1e3
     torch.cuda.synchronize()
-    scratch = torch.empty(m * (H // BLOCK) * (BLOCK * BLOCK + 4 * BLOCK), device=dev)
-    da_s, r_s = torch.zeros_like(alpha), torch.zeros_like(w)
-    stage_ms = [cuda_ms(torch, lambda st=st: sdca_kernel.sdca_round_stage(
-        st, *args, "hinge", scratch, da_s, r_s, block=BLOCK), reps=5) for st in (1, 2)]
+    check(counts()[2] == before[2], "stage 1 launched at the MDS width")
     sweep = {}
-    most = int(plan.hold / sdca_kernel.STREAM_HOLD_SHARE)
-    for hold in sorted({0, plan.hold, most // 4 * 4}):
-        sweep[f"hold={hold}"] = cuda_ms(torch, lambda hold=hold: (
-            sdca_kernel.sdca_round_stage(2, *args, "hinge", scratch, da_s, r_s,
-                                         block=BLOCK, hold=hold)), reps=5)
-    del scratch, da_s, r_s
+    for c, wp in MDS_STREAM_PLANS:
+        da_s, r_s = torch.zeros_like(alpha), torch.zeros_like(w)
+
+        def fused(c=c, wp=wp, da_s=da_s, r_s=r_s):
+            sdca_kernel.sdca_round_stage(2, *args, "hinge", None, da_s, r_s, block=BLOCK,
+                                         cluster=c, warps=wp)
+        fused()
+        torch.cuda.synchronize()
+        e = max((da_s - da_k).abs().max().item(), (r_s - r_k).abs().max().item())
+        check(e <= TOL_ROUND, f"the streamed round at C={c}, {wp} warps: {e:.3e} off the default")
+        sweep[f"C={c} warps={wp}"] = cuda_ms(torch, fused, reps=5)
+    del da_k, r_k, da_s, r_s
     # each drawn row (with its alpha and y) read once as if all were distinct,
     # w, u, n, kappa read and dalpha, r written once; per block the Gram
     # triangle and q, xr and r
     nbytes = m * H * (d * 4 + 8) + (m * d * 4 + m * H * 4 + m * 8) + (m * n_max * 4 + m * d * 4)
     flops = 2.0 * m * (H // BLOCK) * (GRAM_TRI + 3 * BLOCK) * d
     b, by = bound_ms(nbytes, flops)
+    reads = [k * m * H * d * 4 / PEAK_BYTES_PER_S * 1e3 for k in (1, 2)]
     floor = [H * cyc / (float(sm_clock) * 1e6) * 1e3 for cyc in (60, 100)]
     print(f"[2 sdca_round MDS width] x {tuple(x.shape)}, H = {H}, {plan}: {ms:.4f} ms/call on "
           f"the device, {host:.4f} ms/call on the host; bound {b:.4f} ms by {by} "
           f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.2f} GB); chain floor {floor[0]:.3f}-"
           f"{floor[1]:.3f} ms on {card}")
-    s1 = dict(ms=stage_ms[0], **stage1_bound(m, H, d))
-    print(f"[2 sdca_round MDS width] stage 1 (Gram, q) {stage_ms[0]:.4f} ms, bound "
-          f"{s1['bound_ms']:.4f} ms by {s1['bound_by']}; stage 2 "
-          f"(chain_stream_kernel) {stage_ms[1]:.4f} ms; stage 2 by held columns: "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in sweep.items()))
+    print(f"[2 sdca_round MDS width] by plan: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in sweep.items()) + f"; the drawn rows read once "
+          f"{reads[0]:.3f} ms, twice {reads[1]:.3f} ms; the two-kernel round's stage 1 + stage 2: "
+          + ", ".join(f"{a:.2f} + {s2:.2f} = {a + s2:.2f} ms ({k})"
+                      for k, (a, s2) in MDS_PARENT_STAGES_MS.items())
+          + f"; stage 1 launches {counts()[2] - before[2]}")
     return dict(ms=ms, host_ms=host, bound_ms=b, bound_by=by, max_abs_err=err,
-                stage_ms=stage_ms, stage1=s1, plan=dict(path=plan.path, cluster=plan.cluster,
-                                                        hold=plan.hold), stage2_sweep=sweep)
+                reads_ms=reads, plan=dict(path=plan.path, cluster=plan.cluster,
+                                          warps=plan.warps), by_plan=sweep)
 
 
 def stream_at_cell_widths(torch, dev, card: str) -> dict:
     """Phase 2, K1's stage 2 at the widths where the chain path runs
     (``mnist.fit``: 10 x 12 000 x 784; ``synthetic1.fit``: 16 x 1 894 x 100;
     B = 64, one local epoch): ``chain_kernel`` at its cluster against
-    ``chain_stream_kernel`` holding its whole slab, at that cluster and at
-    ``STREAM_CLUSTER``, and at ``STREAM_CLUSTER`` with the hold the rule
-    gives. Each streamed stage 2 is checked against the chain's output.
-    Stage 1 is timed there too, beside its own bound."""
+    the streamed round (``chain_stream_kernel``, the whole round with its
+    own Gram) at that many CTAs a task and at the rule's. Each streamed round
+    is checked against the chain's output. Stage 1 is timed there too,
+    beside its own bound."""
     from repro_torch.kernels.sdca import sdca_kernel
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -2385,10 +2406,8 @@ def stream_at_cell_widths(torch, dev, card: str) -> dict:
             return da, r
 
         plans = {f"chain C={chain.cluster}": dict(cluster=chain.cluster)}
-        for c in sorted({chain.cluster, sdca_kernel.STREAM_CLUSTER}):
-            plans[f"stream C={c} whole slab"] = dict(cluster=c, hold=sdca_kernel._slab(d, c))
-        rule = sdca_kernel.stream_hold(m, d, BLOCK, sdca_kernel.STREAM_CLUSTER, sms)
-        plans[f"stream C={sdca_kernel.STREAM_CLUSTER} hold={rule}"] = dict(hold=rule)
+        for c in sorted({chain.cluster, sdca_kernel.stream_ctas(m, d, BLOCK, sms)}):
+            plans[f"stream C={c}"] = dict(cluster=c, warps=sdca_kernel.STREAM_WARPS)
         da_c, r_c = stage2(**plans[f"chain C={chain.cluster}"])
         times = {}
         for name, plan in plans.items():
@@ -3905,7 +3924,7 @@ def main() -> int:
              launches=launches_round, max_abs_err=err_round, ms=ms_round,
              plain_ms=plain_round, bound_ms=b_round, bound_by=by_round,
              library_ms=None, mds_width=mds_round,
-             stage1={"mnist": stage1, "4096 tasks": stage1_many, "mds": mds_round["stage1"],
+             stage1={"mnist": stage1, "4096 tasks": stage1_many,
                      "synthetic1": mds_round["stream_at_cell_widths"]["synthetic1.fit"]["stage1"]},
              launches_by_path={
                  "3 fit": launches_round, "8e bridge": by_path["8e bridge"]["sdca_round"],

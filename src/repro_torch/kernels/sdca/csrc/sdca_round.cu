@@ -1,5 +1,6 @@
 // One fused local SDCA round for every task in ONE call (the
-// `pallas_round` solver backend), as two kernels over the whole card.
+// `pallas_round` solver backend): two kernels over the whole card while a
+// block's rows fit a cluster's shared memory, one past that width.
 //
 // Replaces the TPU kernel `sdca_round_kernel` / `_round_kernel` of
 // repro/kernels/sdca/sdca_kernel.py. The TPU version stages the task's
@@ -61,20 +62,20 @@
 // groups of blocks, stage 1 then stage 2 per group, with the same result.
 //
 // What bounds it on this card: stage 1 is fp32 FMA work, the triangle
-// and q (2 (B(B+1)/2 + B) d FLOPs a block: 214 GFLOP a round at the MDS
-// width, 3.2 ms at 67 TFLOP/s) against the drawn rows read once (12.8 GB,
-// 3.8 ms at 3.35 TB/s); the kernel issues 2 256 FMAs a column for the
-// 2 144 it needs. Measured at the MDS width (H100): 7.22-7.26 ms, 13.43 for the
-// full-Gram design it replaced, which staged one 32-column tile at a time
-// behind two block-wide barriers; 3.2 ms with the FMAs taken out and 6.2
-// with the copies taken out, so the FMA loop sets it, and its 8 x 8 tiles
-// read 16 floats from shared memory for 64 FMAs. Stage 2 is a dependent
-// chain of H steps per task (a closed-form delta, a shuffle, an FMA), plus
-// per block a cluster barrier, the partial xr and the r update.
+// and q (2 (B(B+1)/2 + B) d FLOPs a block) against the drawn rows read once;
+// the kernel issues 2 256 FMAs a column for the 2 144 it needs. Its 8 x 8
+// tiles read 16 floats from shared memory for 64 FMAs; at d = 10 000 it took
+// 7.22-7.26 ms a round against 3.8 ms of bytes, 3.2 ms with the FMAs taken
+// out and 6.2 with the copies taken out, so the FMA loop sets it. Stage 2 is
+// a dependent chain of H steps per task (a closed-form delta, a shuffle, an
+// FMA), plus per block a cluster barrier, the partial xr and the r update.
 //
 // Where no supported cluster fits d in shared memory (d > 3008 at B = 64),
-// stage 2 is chain_stream_kernel instead (sdca_stream.cuh): the same chain,
-// the block's rows read from global memory rather than held whole.
+// the two stages would read the drawn rows three times, so the round is one
+// kernel instead, chain_stream_kernel (sdca_stream.cuh): it draws each
+// block's coordinates itself, forms the Gram triangle, q and xr in one read
+// of the rows, and reads them again for the r update; its scratch holds only
+// what a task's CTAs exchange, and it runs in no groups.
 #include <cooperative_groups.h>
 
 #include "sdca_common.cuh"
@@ -605,18 +606,20 @@ namespace sdca {
 // stay aligned
 inline int slab(int d, int C) { return ((d + C - 1) / C + 3) / 4 * 4; }
 
-// hold < 0: stage 2 is chain_kernel; hold >= 0: chain_stream_kernel, keeping
-// the first `hold` columns (a multiple of 4) of each CTA's slab
+// warps < 0: the round is gram_kernel then chain_kernel; warps > 0: the
+// round is chain_stream_kernel alone, that many warps a CTA and C CTAs a
+// task, all resident together (a cooperative launch), exchanging through
+// the scratch: stream_scratch_floats<B>(m, C)
 template <int B>
 cudaError_t launch(const float* x, const float* y, const float* alpha, const float* w,
                    const float* u, const int* n, const float* kappa, float* dalpha,
                    float* r, float* scratch, int m, int n_max, int d, int H,
-                   int group, int C, int loss, int stages, int hold, cudaStream_t stream) {
+                   int group, int C, int loss, int stages, int warps, cudaStream_t stream) {
   const int nb = H / B;
   const int dcp = slab(d, C);
-  const bool streamed = hold >= 0;
+  const bool streamed = warps > 0;
   const size_t chain_smem = streamed
-      ? (size_t)StreamSmem<B>(dcp, hold).total * sizeof(float)
+      ? (size_t)StreamSmem<B>(dcp, warps).total * sizeof(float)
       : (size_t)ChainSmem<B>(dcp).total * sizeof(float);
   // stage 1: one warp per column range of at least two ring stages where d
   // has them (the second's copy runs under the first's FMAs), at most
@@ -625,26 +628,54 @@ cudaError_t launch(const float* x, const float* y, const float* alpha, const flo
   const int ranges = (d + 2 * kGramCols - 1) / (2 * kGramCols);
   const int gram_warps = ranges < kGramWarps ? ranges : kGramWarps;
   const size_t gram_smem = (size_t)gram_smem_floats<B>(gram_warps) * sizeof(float);
-  if (chain_smem > 232448 || (streamed && hold % 4 != 0)) return cudaErrorInvalidValue;
+  if (chain_smem > 232448 || (streamed && stages != 2)) return cudaErrorInvalidValue;
+  const int vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int vec1 = vec && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, m);
+  cfg.blockDim = dim3(streamed ? 32 * warps : kThreads);
+  cfg.dynamicSmemBytes = chain_smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err;
+  if (streamed) {
+    using StreamFn = void (*)(const float*, const float*, const float*, const float*,
+                              const float*, const int*, const float*, float*, float*, float*,
+                              float*, float*, int*, int, int, int, int, int);
+    StreamFn fused = loss == kHinge     ? chain_stream_kernel<B, kHinge>
+                     : loss == kSquared ? chain_stream_kernel<B, kSquared>
+                                        : chain_stream_kernel<B, kSmoothedHinge>;
+    float* part = scratch;
+    float* sum = part + (size_t)m * C * exchange_floats<B>();
+    float* at0g = sum + (size_t)m * exchange_floats<B>();
+    int* cnt = reinterpret_cast<int*>(at0g + (size_t)m * 2 * B);
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+    cfg.numAttrs = C > 1 ? 1 : 0;
+    err = cudaFuncSetAttribute(fused, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)chain_smem);
+    if (err == cudaSuccess) err = cudaMemsetAsync(cnt, 0, (size_t)m * sizeof(int), stream);
+    if (err == cudaSuccess)
+      err = cudaLaunchKernelEx(&cfg, fused, x, y, alpha, w, u, n, kappa, dalpha, r, part, sum,
+                               at0g, cnt, n_max, d, H, dcp, vec1);
+    if (err == cudaSuccess) err = cudaGetLastError();
+    return err;
+  }
   using ChainFn = void (*)(const float*, const float*, const float*, float*, float*, int, int,
                            int, int, int);
-  using StreamFn = void (*)(const float*, const float*, const float*, float*, float*, int, int,
-                            int, int, int, int);
   ChainFn chain = loss == kHinge     ? chain_kernel<B, kHinge>
                   : loss == kSquared ? chain_kernel<B, kSquared>
                                      : chain_kernel<B, kSmoothedHinge>;
-  StreamFn chain_stream = loss == kHinge     ? chain_stream_kernel<B, kHinge>
-                          : loss == kSquared ? chain_stream_kernel<B, kSquared>
-                                             : chain_stream_kernel<B, kSmoothedHinge>;
-  const void* stage2 = streamed ? (const void*)chain_stream : (const void*)chain;
-  cudaError_t err =
-      cudaFuncSetAttribute(stage2, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)chain_smem);
+  err = cudaFuncSetAttribute(chain, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)chain_smem);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(gram_kernel<B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)gram_smem);
   if (err != cudaSuccess) return err;
-  const int vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const int vec1 = vec && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   for (int b0 = 0; b0 < nb; b0 += group) {
     const int nbg = nb - b0 < group ? nb - b0 : group;
     if (stages & 1) {
@@ -653,22 +684,8 @@ cudaError_t launch(const float* x, const float* y, const float* alpha, const flo
       if ((err = cudaGetLastError()) != cudaSuccess) return err;
     }
     if (stages & 2) {
-      cudaLaunchConfig_t cfg = {};
-      cfg.gridDim = dim3(C, m);
-      cfg.blockDim = dim3(kThreads);
-      cfg.dynamicSmemBytes = chain_smem;
-      cfg.stream = stream;
-      cudaLaunchAttribute attr[1];
-      attr[0].id = cudaLaunchAttributeClusterDimension;
-      attr[0].val.clusterDim.x = C;
-      attr[0].val.clusterDim.y = 1;
-      attr[0].val.clusterDim.z = 1;
-      cfg.attrs = attr;
-      cfg.numAttrs = 1;
-      err = streamed ? cudaLaunchKernelEx(&cfg, chain_stream, x, (const float*)scratch, kappa,
-                                          dalpha, r, n_max, d, nbg, dcp, hold, vec)
-                     : cudaLaunchKernelEx(&cfg, chain, x, (const float*)scratch, kappa, dalpha,
-                                          r, n_max, d, nbg, dcp, vec);
+      err = cudaLaunchKernelEx(&cfg, chain, x, (const float*)scratch, kappa, dalpha, r, n_max, d,
+                               nbg, dcp, vec);
       if (err != cudaSuccess) return err;
       if ((err = cudaGetLastError()) != cudaSuccess) return err;
     }
@@ -678,21 +695,26 @@ cudaError_t launch(const float* x, const float* y, const float* alpha, const flo
 
 }  // namespace sdca
 
-// Plain C entry point for ctypes. dalpha and r are zero on entry; scratch
-// holds m * group * (B*B + 4B) floats; the round runs in groups of `group`
-// blocks. stages: 1 = stage 1 only, 2 = stage 2 only, 3 = the round (the
-// single stages exist to time them apart). cluster: 2, 4 or 8 CTAs a task
-// in stage 2. hold: -1 runs stage 2 as chain_kernel, >= 0 as
-// chain_stream_kernel keeping that many columns of a CTA's slab. Returns a
-// cudaError_t (0 = launched).
+// Plain C entry point for ctypes. dalpha and r are zero on entry. warps: -1
+// runs the round as gram_kernel then chain_kernel in groups of `group` blocks
+// (scratch holds m * group * (B*B + 4B) floats), cluster 2, 4 or 8 CTAs a
+// task in stage 2; 2 or 4 runs it as chain_stream_kernel alone, that many
+// warps a CTA and `cluster` (1 to 16) CTAs a task, scratch holding
+// stream_scratch_floats<B>(m, cluster) floats. stages: 1 = stage 1
+// only, 2 = stage 2 only (the streamed round whole), 3 = the round (the
+// single stages exist to time them apart). Returns a cudaError_t (0 =
+// launched).
 extern "C" int sdca_round_launch(const void* x, const void* y, const void* alpha,
                                  const void* w, const void* u, const void* n,
                                  const void* kappa, void* dalpha, void* r, void* scratch,
                                  int m, int n_max, int d, int H, int block, int loss,
-                                 int group, int cluster, int stages, int hold, void* stream) {
+                                 int group, int cluster, int stages, int warps, void* stream) {
   using namespace sdca;
-  if (H % block != 0 || loss < kHinge || loss > kSmoothedHinge || group < 1 || hold < -1 ||
-      (cluster != 2 && cluster != 4 && cluster != 8))
+  const bool streamed = warps > 0;
+  if (H % block != 0 || loss < kHinge || loss > kSmoothedHinge || group < 1 ||
+      (warps != -1 && warps != 2 && warps != kStreamMaxWarps) ||
+      (streamed ? cluster < 1 || cluster > kStreamMaxCtas
+                : cluster != 2 && cluster != 4 && cluster != 8))
     return (int)cudaErrorInvalidValue;
 #define SDCA_ROUND_CASE(BB)                                                               \
   case BB:                                                                                \
@@ -700,7 +722,7 @@ extern "C" int sdca_round_launch(const void* x, const void* y, const void* alpha
                            (const float*)w, (const float*)u, (const int*)n,              \
                            (const float*)kappa, (float*)dalpha, (float*)r,               \
                            (float*)scratch, m, n_max, d, H, group, cluster, loss, stages, \
-                           hold, (cudaStream_t)stream);
+                           warps, (cudaStream_t)stream);
   switch (block) {
     SDCA_ROUND_CASE(16)
     SDCA_ROUND_CASE(32)

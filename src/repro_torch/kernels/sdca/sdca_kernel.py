@@ -4,12 +4,13 @@ Two kernels, each the port of one TPU kernel of
 ``repro/kernels/sdca/sdca_kernel.py`` (the sources say how they differ):
 
 ``sdca_round_kernel`` — csrc/sdca_round.cu: one fused local round for all
-    m tasks in ONE call: stage 1 forms every block's Gram and q over the
-    whole card, stage 2 runs each task's chain of blocks on a cluster of
-    CTAs; replaces ``sdca_round_kernel``. Stage 2 holds each block's rows
-    in shared memory (``chain_kernel``) where a supported cluster fits d,
-    and streams them from global memory (``chain_stream_kernel``,
-    csrc/sdca_stream.cuh) where none does (``round_plan``).
+    m tasks in ONE call; replaces ``sdca_round_kernel``. Where a supported
+    cluster fits d in shared memory it is two kernels: stage 1 forms every
+    block's Gram and q over the whole card, stage 2 (``chain_kernel``) runs
+    each task's chain of blocks on a cluster of CTAs holding the block's
+    rows. Where none does it is one kernel (``chain_stream_kernel``,
+    csrc/sdca_stream.cuh) that streams the rows twice a round and forms
+    the Gram and q in its first read (``round_plan``).
 ``sdca_block_kernel`` — csrc/sdca_block.cu: the deltas of one H-block for
     all m tasks in one launch, a cluster of CTAs per task splitting d;
     replaces ``sdca_block_kernel``.
@@ -20,7 +21,8 @@ Each ``.cu`` file has a plain C interface and is compiled on first use by
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs, launches on PyTorch's current stream, raises if the launch returned
 a CUDA error, and only then adds one to its ``launches`` count (and a
-streamed round to ``sdca_round_kernel.stream_launches``).
+streamed round to ``sdca_round_kernel.stream_launches``, a round that
+launched stage 1 to ``sdca_round_kernel.gram_launches``).
 """
 from __future__ import annotations
 
@@ -37,14 +39,15 @@ SUPPORTED_LOSSES = ("hinge", "squared", "smoothed_hinge")
 SUPPORTED_BLOCKS = (16, 32, 64)
 SUPPORTED_CLUSTERS = (2, 4, 8)
 CLUSTER = 4  # CTAs per task in stage 2 while the tasks are few (``round_cluster``)
-# the streaming stage 2's cluster and the share of the shared memory left
-# over that its CTAs fill with held columns: at the MDS width (22 tasks,
-# d = 10 000) stage 2 took 8.74 ms at 8 CTAs holding 140 columns, 9.06
-# holding none and 9.40 holding 280 (of the 284 that fit); 4 CTAs took
-# 9.69-10.43 ms and 16 (past the portable cluster) 10.40-12.02 (H100,
-# chip_smoke.py phase 2)
-STREAM_CLUSTER = 8
-STREAM_HOLD_SHARE = 0.5
+# the streamed round: at most STREAM_MAX_CTAS CTAs a task, each of 2 or 4
+# warps, all resident at once (at most 64K registers of 255 a thread an SM).
+# At the MDS width (22 tasks, d = 10 000) a round took 13.43 ms at 12 CTAs
+# of 4 warps (two an SM), 14.48 at 11, 16.08 at 6, 17.70 at 8 and 16.91 at
+# 16 CTAs of 2 warps (H100, chip_smoke.py phase 2)
+STREAM_MAX_CTAS = 16
+STREAM_WARP_COUNTS = (2, 4)
+STREAM_WARPS = 4
+SM_REGISTERS = 65536
 # the block kernel's cluster sizes, and the narrowest column slab its
 # default cluster gives one CTA (chosen by measurement, chip_smoke.py phase
 # 2: at d = 100 four CTAs of 25 columns beat one, two and eight; at d = 784
@@ -99,35 +102,58 @@ def chain_smem_bytes(block: int, d: int, cluster: int) -> int:
     return 4 * (2 * block * slab + 2 * _scratch_floats(block) + slab + 8 * block)
 
 
-def stream_smem_bytes(block: int, d: int, cluster: int, hold: int) -> int:
-    """Shared memory of one streaming stage-2 CTA (``StreamSmem`` in
-    csrc/sdca_stream.cuh): two buffers of the block's scratch, the slab of
-    r, per-block vectors and row offsets, and ``hold`` columns of every
-    row."""
-    return 4 * (2 * _scratch_floats(block) + _slab(d, cluster) + 11 * block + block * hold)
+def _exchange_floats(block: int) -> int:
+    """Floats of one CTA's partial Gram, q and xr as the streamed round's
+    CTAs exchange them (``exchange_floats`` in csrc/sdca_stream.cuh): a
+    68-float tile for each of the first 32 of the triangle's 8 x 8 tiles,
+    then the diagonal blocks past them (below their diagonal, then the
+    diagonal), q and xr."""
+    r = block // 8
+    tiles = r * (r + 1) // 2
+    rest = tiles - min(tiles, 32)
+    return 68 * min(tiles, 32) + 36 * rest + 2 * block
 
 
-def stream_hold(m: int, d: int, block: int, cluster: int, sms: int) -> int:
-    """Columns of its slab a streaming CTA keeps in shared memory:
-    ``STREAM_HOLD_SHARE`` of those that leave every task's cluster resident
-    at once (the m * cluster CTAs spread over ``sms`` SMs), a multiple of 4,
-    at most the slab."""
-    per_sm = max(1, -(-m * cluster // max(sms, 1)))
-    budget = min(MAX_SMEM_BYTES, SM_SMEM_BYTES // per_sm - 1024)
-    room = (budget - stream_smem_bytes(block, d, cluster, 0)) // (4 * block)
-    return max(0, min(_slab(d, cluster), int(STREAM_HOLD_SHARE * room) // 4 * 4))
+def stream_scratch_floats(block: int, m: int, ctas: int) -> int:
+    """Floats of the streamed round's global scratch (``stream_scratch_floats``
+    in csrc/sdca_stream.cuh): every CTA's partials, each task's sum, rank
+    0's alpha~ twice and a counter."""
+    return m * ((ctas + 1) * _exchange_floats(block) + 2 * block + 1)
+
+
+def stream_ctas(m: int, d: int, block: int, sms: int, warps: int = STREAM_WARPS) -> int:
+    """CTAs a task for the streamed round: the most, up to ``STREAM_MAX_CTAS``,
+    whose m * C CTAs are resident at once on ``sms`` SMs (as many an SM as
+    registers and shared memory allow), since a task's CTAs wait for each
+    other; 1, which waits for none, where even 2 a task are not."""
+    for c in range(STREAM_MAX_CTAS, 1, -1):
+        smem = stream_smem_bytes(block, d, c, warps)
+        per_sm = min(SM_REGISTERS // (256 * 32 * warps), SM_SMEM_BYTES // (smem + 1024))
+        if smem <= MAX_SMEM_BYTES and m * c <= sms * per_sm:
+            return c
+    return 1
+
+
+def stream_smem_bytes(block: int, d: int, cluster: int, warps: int) -> int:
+    """Shared memory of one CTA of the streamed round (``StreamSmem`` in
+    csrc/sdca_stream.cuh): each warp's ring of two stages of the block's
+    rows and w over 32 columns, the slab of r, the exchange buffer, the
+    summed Gram, and per-block vectors and row offsets."""
+    ring = warps * 2 * (block + 1) * 32
+    return 4 * (ring + _slab(d, cluster) + _exchange_floats(block) + block * block + 17 * block)
 
 
 @dataclasses.dataclass(frozen=True)
 class RoundPlan:
-    """How stage 2 runs: ``path`` "chain" (``chain_kernel``, the rows held
-    in shared memory) or "stream" (``chain_stream_kernel``), ``cluster``
-    CTAs per task, ``hold`` columns kept per streaming CTA (-1 on the chain
-    path)."""
+    """How the round runs: ``path`` "chain" (``gram_kernel``, then
+    ``chain_kernel`` holding the rows in shared memory, ``cluster`` CTAs a
+    task in a thread-block cluster) or "stream" (``chain_stream_kernel``
+    alone, ``cluster`` CTAs a task in a cooperative launch), ``warps`` a
+    streaming CTA (-1 on the chain path)."""
 
     path: str
     cluster: int
-    hold: int = -1
+    warps: int = -1
 
 
 def round_plan(m: int, d: int, block: int, sms: int) -> RoundPlan:
@@ -139,15 +165,14 @@ def round_plan(m: int, d: int, block: int, sms: int) -> RoundPlan:
     784). Once the tasks alone fill every SM, the fewest CTAs per task that
     fit d run more chains per wave: at 4096 tasks and d = 100 a round took
     1.025 ms at 2, 1.590 at 4 and 2.802 at 8 (H100, ``chip_smoke.py`` phase
-    2). Where no supported cluster fits d, stage 2 streams the rows in
-    clusters of ``STREAM_CLUSTER``."""
+    2). Where no supported cluster fits d, the round streams the rows in
+    ``stream_ctas`` CTAs a task of ``STREAM_WARPS`` warps."""
     fits = [c for c in SUPPORTED_CLUSTERS if chain_smem_bytes(block, d, c) <= MAX_SMEM_BYTES]
     if m < sms:
         fits = [c for c in fits if c >= CLUSTER]
     if fits:
         return RoundPlan("chain", min(fits))
-    return RoundPlan("stream", STREAM_CLUSTER,
-                     stream_hold(m, d, block, STREAM_CLUSTER, sms))
+    return RoundPlan("stream", stream_ctas(m, d, block, sms), STREAM_WARPS)
 
 
 def round_cluster(m: int, d: int, block: int, sms: int) -> int:
@@ -161,17 +186,19 @@ def _sms(x: torch.Tensor) -> int:
 
 
 def plan_for(x: torch.Tensor, block: int, cluster: Optional[int] = None,
-             hold: Optional[int] = None) -> RoundPlan:
+             warps: Optional[int] = None) -> RoundPlan:
     """The plan a round on ``x`` (m, n_max, d) runs: ``round_plan`` by
-    default; a ``cluster`` alone asks for the chain path at that size; a
-    ``hold`` (``sdca_round_stage`` only) asks for the streaming path at
-    ``cluster``, default ``STREAM_CLUSTER``."""
+    default; a ``cluster`` alone asks for the chain path at that size;
+    ``warps`` (``sdca_round_stage`` only) asks for the streamed round at
+    ``cluster`` CTAs a task, default ``stream_ctas``."""
     m, _, d = x.shape
-    if cluster is None and hold is None:
+    if cluster is None and warps is None:
         return round_plan(m, d, block, _sms(x))
-    if hold is None:
+    if warps is None:
         return RoundPlan("chain", cluster)
-    return RoundPlan("stream", STREAM_CLUSTER if cluster is None else cluster, hold)
+    if cluster is None:
+        cluster = stream_ctas(m, d, block, _sms(x), warps)
+    return RoundPlan("stream", cluster, warps)
 
 
 def _round_checks(x, y, alpha, w, u, n, kappa, loss, block, plan: RoundPlan):
@@ -182,14 +209,19 @@ def _round_checks(x, y, alpha, w, u, n, kappa, loss, block, plan: RoundPlan):
     H = u.shape[1]
     if H % block:
         raise ValueError(f"H={H} must be a multiple of block={block}")
-    if plan.cluster not in SUPPORTED_CLUSTERS:
-        raise ValueError(f"kernel supports clusters of {SUPPORTED_CLUSTERS}, got {plan.cluster}")
     if plan.path == "chain":
+        if plan.cluster not in SUPPORTED_CLUSTERS:
+            raise ValueError(f"kernel supports clusters of {SUPPORTED_CLUSTERS}, "
+                             f"got {plan.cluster}")
         smem = chain_smem_bytes(block, d, plan.cluster)
     else:
-        if plan.hold < 0 or plan.hold % 4:
-            raise ValueError(f"hold must be a non-negative multiple of 4, got {plan.hold}")
-        smem = stream_smem_bytes(block, d, plan.cluster, plan.hold)
+        if not 1 <= plan.cluster <= STREAM_MAX_CTAS:
+            raise ValueError(f"the streamed round supports clusters of 1 to {STREAM_MAX_CTAS} "
+                             f"CTAs, got {plan.cluster}")
+        if plan.warps not in STREAM_WARP_COUNTS:
+            raise ValueError(f"the streamed round runs {STREAM_WARP_COUNTS} warps a CTA, "
+                             f"got {plan.warps}")
+        smem = stream_smem_bytes(block, d, plan.cluster, plan.warps)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"d={d} does not fit a cluster of {plan.cluster} CTAs at "
                          f"block={block} on the {plan.path} path: {smem} bytes of shared "
@@ -212,7 +244,7 @@ def _launch_round(x, y, alpha, w, u, n, kappa, loss, block, plan, scratch, group
         x.data_ptr(), y.data_ptr(), alpha.data_ptr(), w.data_ptr(),
         u.data_ptr(), n.data_ptr(), kappa.data_ptr(), dalpha.data_ptr(),
         r.data_ptr(), scratch.data_ptr(), m, n_max, d, u.shape[1], block,
-        _LOSS_IDS[loss], group, plan.cluster, stages, plan.hold,
+        _LOSS_IDS[loss], group, plan.cluster, stages, plan.warps,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     raise_on(err, "sdca_round")
@@ -234,42 +266,55 @@ def sdca_round_kernel(
     ``cluster`` is the number of CTAs that share a task's chain on the
     chain path (stage 2; default: ``round_plan``, which streams where no
     cluster holds d). ``launches`` counts every round, ``stream_launches``
-    those whose stage 2 streamed."""
+    those that streamed, ``gram_launches`` those that launched stage 1."""
     plan = plan_for(x, block, cluster)
     m, n_max, d, H = _round_checks(x, y, alpha, w, u, n, kappa, loss, block, plan)
     f32, dev = torch.float32, x.device
-    n_blocks = H // block
-    group = max(1, min(n_blocks, SCRATCH_CAP_BYTES // (4 * m * _scratch_floats(block))))
-    scratch = torch.empty((m * group * _scratch_floats(block),), dtype=f32, device=dev)
+    streamed = plan.path == "stream"
+    group = 1 if streamed else max(1, min(H // block, SCRATCH_CAP_BYTES
+                                          // (4 * m * _scratch_floats(block))))
+    # the streamed round draws its blocks itself; its scratch holds only what
+    # a task's CTAs exchange
+    scratch = torch.empty((stream_scratch_floats(block, m, plan.cluster) if streamed
+                           else m * group * _scratch_floats(block),), dtype=f32, device=dev)
     dalpha = torch.zeros((m, n_max), dtype=f32, device=dev)
     r = torch.zeros((m, d), dtype=f32, device=dev)
     _launch_round(x, y, alpha, w, u, n, kappa, loss, block, plan, scratch, group,
-                  dalpha, r, stages=3)
-    _count(sdca_round_kernel, streamed=plan.path == "stream")
+                  dalpha, r, stages=2 if streamed else 3)
+    _count(sdca_round_kernel, plan.path)
     return dalpha, r
 
 
 def sdca_round_stage(
     stage: int, x, y, alpha, w, u, n, kappa, loss: str,
-    scratch: torch.Tensor,  # (m * H/block * (block^2 + 4 block),) float32
+    scratch: Optional[torch.Tensor],  # (m * H/block * (block^2 + 4 block),) float32
     dalpha: torch.Tensor,  # (m, n_max), updated in place by stage 2
     r: torch.Tensor,  # (m, d), updated in place by stage 2
     block: int = 64,
     cluster: Optional[int] = None,
-    hold: Optional[int] = None,
+    warps: Optional[int] = None,
 ) -> None:
     """Launch one stage of the round alone on the caller's buffers, to time
-    the two apart: stage 1 writes every block's Gram, q and metadata into
-    ``scratch``; stage 2 reads them and runs the chains into ``dalpha`` and
-    ``r``. A ``hold`` streams stage 2 keeping that many columns a CTA
-    (``plan_for``). Not counted in ``sdca_round_kernel.launches``."""
-    plan = plan_for(x, block, cluster, hold)
-    m, n_max, d, H = _round_checks(x, y, alpha, w, u, n, kappa, loss, block, plan)
+    the two apart: on the chain path stage 1 writes every block's Gram, q
+    and metadata into ``scratch`` and stage 2 reads them and runs the chains
+    into ``dalpha`` and ``r``. The streamed round is one kernel: there
+    stage 2 is the whole round, ``scratch`` is not read (it brings its
+    own), and stage 1 is refused. ``warps`` asks for the streamed round (``plan_for``). Not
+    counted in ``sdca_round_kernel``'s counters."""
     if stage not in (1, 2):
         raise ValueError(f"stage must be 1 or 2, got {stage}")
+    plan = plan_for(x, block, cluster, warps)
+    if plan.path == "stream" and stage == 1:
+        raise ValueError("the streamed round has no stage 1: chain_stream_kernel forms the "
+                         "Gram and q in its own first read of the rows (launch stage 2)")
+    m, n_max, d, H = _round_checks(x, y, alpha, w, u, n, kappa, loss, block, plan)
     n_blocks = H // block
-    check_tensor("scratch", scratch, (m * n_blocks * _scratch_floats(block),),
-                 torch.float32, x.device)
+    if plan.path == "chain":
+        check_tensor("scratch", scratch, (m * n_blocks * _scratch_floats(block),),
+                     torch.float32, x.device)
+    else:
+        scratch = torch.empty((stream_scratch_floats(block, m, plan.cluster),),
+                              dtype=torch.float32, device=x.device)
     check_tensor("dalpha", dalpha, (m, n_max), torch.float32, x.device)
     check_tensor("r", r, (m, d), torch.float32, x.device)
     _launch_round(x, y, alpha, w, u, n, kappa, loss, block, plan, scratch,
@@ -320,19 +365,23 @@ def block_cluster(d: int) -> int:
     return max(fits, default=1)
 
 
-def _count(wrapper, streamed: bool = False) -> None:
+def _count(wrapper, path: Optional[str] = None) -> None:
     with _COUNT_LOCK:
         wrapper.launches += 1
-        if streamed:
+        if path == "stream":
             wrapper.stream_launches += 1
+        elif path == "chain":
+            wrapper.gram_launches += 1
 
 
 sdca_round_kernel.launches = 0
 sdca_round_kernel.stream_launches = 0
+sdca_round_kernel.gram_launches = 0
 sdca_block_kernel.launches = 0
 
 
 def reset_launch_counts() -> None:
     sdca_round_kernel.launches = 0
     sdca_round_kernel.stream_launches = 0
+    sdca_round_kernel.gram_launches = 0
     sdca_block_kernel.launches = 0

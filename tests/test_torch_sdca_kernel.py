@@ -370,7 +370,7 @@ def test_round_stages_apart_equal_the_round(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("block", [16, 32, 64])
-@pytest.mark.parametrize("d", [100, 784, 1000, 3010, 10000])
+@pytest.mark.parametrize("d", [100, 784, 1000, 3006])
 def test_stage1_writes_gram_q_and_metadata(cuda, d, block):
     """Stage 1 alone against float64 on the rows its coordinates draw, per
     block: the Gram exactly symmetric (the recursion reads it by rows); the
@@ -378,8 +378,9 @@ def test_stage1_writes_gram_q_and_metadata(cuda, d, block):
     2^-24 times the sum of the products' magnitudes (each FMA rounds once,
     then the partials of at most 4 column ranges are added); labels, alphas
     and coordinate ids bit-equal to the drawn rows'. d = 1000 is no multiple
-    of 32, d = 3010 no multiple of 4 (4-byte copies); one task has no rows
-    (its draws wrap to row n_max - 1), one has 7."""
+    of 32, d = 3006 no multiple of 4 (4-byte copies); one task has no rows
+    (its draws wrap to row n_max - 1), one has 7. Past d = 3008 the round
+    streams and launches no stage 1."""
     m, n_max, H = 3, 40, 4 * block
     nb, sf = H // block, block * block + 4 * block
     x, y, alpha, w, u, _, kappa = _t(*_problem(d + block, m, n_max, d, H), device=cuda)
@@ -500,46 +501,86 @@ def test_round_cluster_rule():
 
 @pytest.mark.parametrize("m,d,path,cluster", [
     (10, 784, "chain", 4), (16, 100, "chain", 4), (22, 2048, "chain", 8),
-    (22, 3008, "chain", 8), (22, 3009, "stream", 8), (22, 10000, "stream", 8),
-    (1, 10000, "stream", 8), (4096, 100, "chain", 2), (4096, 10000, "stream", 8),
+    (22, 3008, "chain", 8), (22, 3009, "stream", 12), (22, 10000, "stream", 12),
+    (1, 10000, "stream", 16), (4096, 100, "chain", 2), (4096, 10000, "stream", 1),
 ])
 def test_round_plan_rule(m, d, path, cluster):
-    """Stage 2 keeps today's path where a supported cluster fits d (the
+    """The round keeps its two stages where a supported cluster fits d (the
     smallest of at least CLUSTER while the tasks are fewer than the SMs:
-    4 at d = 784 and 100, 8 at d = 2048) and streams the rows where none
-    does; a streaming CTA's shared memory leaves every task's cluster
-    resident while the tasks are few."""
+    4 at d = 784 and 100, 8 at d = 2048) and streams the rows in one kernel
+    where none does, with as many CTAs a task (up to 16) as leave every
+    task's CTAs resident together: 12 for 22 tasks, two a card's SM, and
+    one, which waits for no other, for 4096 tasks."""
     k = sdca_kernel
     plan = k.round_plan(m, d, 64, 132)
     assert (plan.path, plan.cluster) == (path, cluster)
     assert k.round_cluster(m, d, 64, 132) == cluster
     if path == "chain":
-        assert plan.hold == -1 and k.chain_smem_bytes(64, d, cluster) <= k.MAX_SMEM_BYTES
+        assert plan.warps == -1 and k.chain_smem_bytes(64, d, cluster) <= k.MAX_SMEM_BYTES
         return
     assert all(k.chain_smem_bytes(64, d, c) > k.MAX_SMEM_BYTES for c in k.SUPPORTED_CLUSTERS)
-    assert plan.hold >= 0 and plan.hold % 4 == 0
-    smem = k.stream_smem_bytes(64, d, cluster, plan.hold)
+    assert plan.warps == k.STREAM_WARPS and 1 <= cluster <= k.STREAM_MAX_CTAS
+    smem = k.stream_smem_bytes(64, d, cluster, plan.warps)
     assert smem <= k.MAX_SMEM_BYTES
-    per_sm = -(-m * cluster // 132)
-    if per_sm <= 2:
-        assert per_sm * (smem + 1024) <= k.SM_SMEM_BYTES and plan.hold > 0
-    else:  # many tasks run in waves: no columns held
-        assert plan.hold == 0
+    assert cluster == 1 or m * cluster <= 132 * (k.SM_SMEM_BYTES // (smem + 1024))
 
 
 def test_round_plan_at_the_mds_width():
-    """22 tasks at d = 10 000: 8 CTAs a task, half of the 284 columns that
-    leave two CTAs an SM held (the measured best of chip_smoke.py's sweep)."""
-    assert sdca_kernel.round_plan(22, 10000, 64, 132) == sdca_kernel.RoundPlan("stream", 8, 140)
-    assert sdca_kernel.stream_smem_bytes(64, 10000, 8, 0) == 4 * (2 * 4352 + 1252 + 11 * 64)
+    """22 tasks at d = 10 000 stream in 12 CTAs a task of STREAM_WARPS
+    warps, two CTAs on every SM of the card; a CTA's
+    shared memory is StreamSmem's: the warps' rings of two 65 x 32 stages,
+    the slab of r, the exchange buffer of 32 padded tiles, 4 diagonal
+    blocks, the diagonal of rows 32..63, q and xr, the Gram, 17 vectors."""
+    k = sdca_kernel
+    assert k.round_plan(22, 10000, 64, 132) == k.RoundPlan("stream", 12, k.STREAM_WARPS)
+    assert k.stream_smem_bytes(64, 10000, 8, 4) == 4 * (4 * 2 * 65 * 32 + 1252
+                                                         + (32 * 68 + 4 * 28 + 32 + 128)
+                                                         + 64 * 64 + 17 * 64)
 
 
 def test_plan_for_explicit_cluster_and_hold():
+    """A cluster alone asks for the chain path; warps (where the parent's
+    plan took held columns) ask for the streamed round."""
     x = torch.empty((22, 5, 10000))
     pf = sdca_kernel.plan_for
     assert pf(x, 64, cluster=2) == sdca_kernel.RoundPlan("chain", 2)
-    assert pf(x, 64, hold=0) == sdca_kernel.RoundPlan("stream", sdca_kernel.STREAM_CLUSTER, 0)
-    assert pf(x, 64, cluster=4, hold=8) == sdca_kernel.RoundPlan("stream", 4, 8)
+    assert pf(x, 64, warps=4) == sdca_kernel.RoundPlan("stream", 1, 4)  # no SMs on the CPU
+    assert pf(x, 64, cluster=16, warps=2) == sdca_kernel.RoundPlan("stream", 16, 2)
+
+
+@pytest.mark.parametrize("m,d,path", [
+    (22, 10000, "stream"), (22, 3008, "chain"), (22, 3012, "stream"), (1, 3012, "stream"),
+    (10, 3008, "chain"),
+])
+def test_stream_plan_at_the_path_edge(m, d, path):
+    """The rule on d at the MDS width and on both sides of 3008: the chain
+    path takes no warps; the streamed round's CTAs fit two an SM from 8 a
+    task on with 4 warps and three with 2, a single CTA holds the whole
+    width, and the scratch is what the CTAs exchange."""
+    k = sdca_kernel
+    plan = k.round_plan(m, d, 64, 132)
+    assert plan.path == path
+    if path == "chain":
+        assert plan.warps == -1
+        return
+    assert 2 * (k.stream_smem_bytes(64, d, 8, 4) + 1024) <= k.SM_SMEM_BYTES
+    assert 3 * (k.stream_smem_bytes(64, d, 16, 2) + 1024) <= k.SM_SMEM_BYTES
+    assert k.stream_smem_bytes(64, d, 1, 4) <= k.MAX_SMEM_BYTES
+    assert k.stream_scratch_floats(64, m, plan.cluster) == m * ((plan.cluster + 1) * 2448 + 129)
+
+
+def test_stage1_refused_on_the_stream_path():
+    """The streamed round is one kernel: its stage 1 alone is refused before
+    anything is launched or checked."""
+    x, y, alpha, w, u, n_i, kappa = _t(*_problem(1, 2, 20, 3012, 64))
+    assert sdca_kernel.plan_for(x, 64).path == "stream"
+    with pytest.raises(ValueError, match="no stage 1"):
+        sdca_kernel.sdca_round_stage(1, x, y, alpha, w, u, n_i, kappa, "hinge", None,
+                                     torch.zeros_like(alpha), torch.zeros_like(w))
+    with pytest.raises(ValueError, match="no stage 1"):
+        sdca_kernel.sdca_round_stage(1, x[:, :, :100], y, alpha, w[:, :100], u, n_i, kappa,
+                                     "hinge", None, torch.zeros_like(alpha),
+                                     torch.zeros_like(w[:, :100]), warps=4)
 
 
 def test_span_args_name_nothing_off_the_card():
@@ -556,52 +597,54 @@ def test_span_args_name_nothing_off_the_card():
 # the streaming stage 2 (d past what a supported cluster holds)
 # ---------------------------------------------------------------------------
 def _stream_counts():
-    return sdca_kernel.sdca_round_kernel.launches, sdca_kernel.sdca_round_kernel.stream_launches
+    k = sdca_kernel.sdca_round_kernel
+    return k.launches, k.stream_launches, k.gram_launches
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("loss", KERNEL_LOSSES)
 @pytest.mark.parametrize("m", [1, 22])
-@pytest.mark.parametrize("d", [3009, 10000, 10001])
+@pytest.mark.parametrize("d", [3009, 3012, 10000, 10001])
 def test_round_kernel_streams_at_large_d(cuda, loss, m, d):
     """Past d = 3008 the round streams the rows (d = 10001: 4-byte loads)
-    and agrees with its plain version; both counters count it."""
+    and agrees with its plain version; launches and stream_launches count
+    it, gram_launches does not (no stage 1)."""
     x, y, alpha, w, u, n_i, kappa = _t(*_problem(d + m, m, 100, d, 256), device=cuda)
     assert sdca_kernel.plan_for(x, 64).path == "stream"
-    launches, streamed = _stream_counts()
+    launches, streamed, gram = _stream_counts()
     da, r = ops.sdca_round(x, y, alpha, w, u, n_i, kappa, loss, block=64)
     torch.cuda.synchronize()
-    assert _stream_counts() == (launches + 1, streamed + 1)
+    assert _stream_counts() == (launches + 1, streamed + 1, gram)
     da_p, r_p = ref.sdca_round_ref(x, y, alpha, w, u, n_i, kappa, loss)
     torch.testing.assert_close(da, da_p, atol=ATOL, rtol=0)
     torch.testing.assert_close(r, r_p, atol=ATOL, rtol=0)
 
 
-def _staged_stream_round(x, y, alpha, w, u, n_i, kappa, loss, **plan):
-    """The round as its two stages launched apart (``sdca_round_stage``),
-    stage 2 on the plan given."""
+def _staged_stream_round(x, y, alpha, w, u, n_i, kappa, loss, block=64, **plan):
+    """The streamed round launched as ``sdca_round_stage``'s stage 2 (the
+    whole round) on the plan given."""
     m, n_max, d = x.shape
-    scratch = torch.empty((m * (u.shape[1] // 64) * (64 * 64 + 4 * 64),), device=x.device)
     da, r = torch.zeros((m, n_max), device=x.device), torch.zeros((m, d), device=x.device)
-    for stage in (1, 2):
-        sdca_kernel.sdca_round_stage(stage, x, y, alpha, w, u, n_i, kappa, loss, scratch, da, r,
-                                     block=64, **plan)
+    sdca_kernel.sdca_round_stage(2, x, y, alpha, w, u, n_i, kappa, loss, None, da, r,
+                                 block=block, **plan)
     return da, r
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hold", [0, 8, 100])
-@pytest.mark.parametrize("cluster", sdca_kernel.SUPPORTED_CLUSTERS)
-def test_stream_every_cluster_and_hold(cuda, cluster, hold):
-    """The streaming stage 2 at every supported cluster size, with no
-    columns held, a few and many."""
-    x, y, alpha, w, u, n_i, kappa = _t(*_problem(cluster + hold, 5, 100, 10000, 256),
-                                      device=cuda)
-    da, r = _staged_stream_round(x, y, alpha, w, u, n_i, kappa, "hinge", cluster=cluster,
-                                 hold=hold)
-    da_p, r_p = ref.sdca_round_ref(x, y, alpha, w, u, n_i, kappa, "hinge")
-    torch.testing.assert_close(da, da_p, atol=ATOL, rtol=0)
-    torch.testing.assert_close(r, r_p, atol=ATOL, rtol=0)
+@pytest.mark.parametrize("warps", sdca_kernel.STREAM_WARP_COUNTS)
+@pytest.mark.parametrize("cluster", [1, 2, 5, 8, 12, 16])
+def test_stream_every_cluster_and_hold(cuda, cluster, warps):
+    """The streamed round at 1 to 16 CTAs a task and either warp count; at
+    16 CTAs the last slabs of d = 3012 hold fewer columns than a warp's
+    stage."""
+    for d in (10000, 3012):
+        x, y, alpha, w, u, n_i, kappa = _t(*_problem(cluster + warps + d, 5, 100, d, 256),
+                                          device=cuda)
+        da, r = _staged_stream_round(x, y, alpha, w, u, n_i, kappa, "hinge", cluster=cluster,
+                                     warps=warps)
+        da_p, r_p = ref.sdca_round_ref(x, y, alpha, w, u, n_i, kappa, "hinge")
+        torch.testing.assert_close(da, da_p, atol=ATOL, rtol=0)
+        torch.testing.assert_close(r, r_p, atol=ATOL, rtol=0)
 
 
 @pytest.mark.gpu
@@ -609,12 +652,16 @@ def test_stream_refuses_what_does_not_fit(cuda):
     x, y, alpha, w, u, n_i, kappa = _t(*_problem(1, 1, 40, 10000, 64), device=cuda)
     with pytest.raises(ValueError, match="does not fit"):
         sdca_kernel.sdca_round_kernel(x, y, alpha, w, u, n_i, kappa, "hinge", cluster=8)
+    wide = _t(*_problem(2, 1, 8, 70000, 64), device=cuda)
     with pytest.raises(ValueError, match="does not fit"):
-        _staged_stream_round(x, y, alpha, w, u, n_i, kappa, "hinge", cluster=2, hold=1000)
-    with pytest.raises(ValueError, match="multiple of 4"):
-        _staged_stream_round(x, y, alpha, w, u, n_i, kappa, "hinge", hold=6)
+        _staged_stream_round(*wide, "hinge", cluster=2, warps=4)
+    with pytest.raises(ValueError, match="warps a CTA"):
+        _staged_stream_round(x, y, alpha, w, u, n_i, kappa, "hinge", warps=3)
     with pytest.raises(ValueError, match="supports clusters"):
-        _staged_stream_round(x, y, alpha, w, u, n_i, kappa, "hinge", cluster=16, hold=0)
+        _staged_stream_round(x, y, alpha, w, u, n_i, kappa, "hinge", cluster=17, warps=4)
+    with pytest.raises(ValueError, match="no stage 1"):
+        sdca_kernel.sdca_round_stage(1, x, y, alpha, w, u, n_i, kappa, "hinge", None,
+                                     torch.zeros_like(alpha), torch.zeros_like(w))
 
 
 @pytest.mark.gpu
@@ -624,17 +671,17 @@ def test_round_kernel_streams_at_mds_width(cuda):
     as at MNIST width."""
     x, y, alpha, w, u, n_i, kappa = _t(*_problem(3, 2, 14525, 10000, 14528), device=cuda)
     n_i = torch.tensor([14525, 219], dtype=torch.int32, device=cuda)
-    launches, streamed = _stream_counts()
+    launches, streamed, gram = _stream_counts()
     da, r = ops.sdca_round(x, y, alpha, w, u, n_i, kappa, "hinge", block=64)
     torch.cuda.synchronize()
-    assert _stream_counts() == (launches + 1, streamed + 1)
+    assert _stream_counts() == (launches + 1, streamed + 1, gram)
     da_p, r_p = ref.sdca_round_ref(x, y, alpha, w, u, n_i, kappa, "hinge")
     torch.testing.assert_close(da, da_p, atol=5e-4, rtol=0)
     torch.testing.assert_close(r, r_p, atol=5e-4, rtol=0)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d,path,cluster", [(784, "chain", 4), (3009, "stream", 8)])
+@pytest.mark.parametrize("d,path,cluster", [(784, "chain", 4), (3009, "stream", 16)])
 def test_fit_counts_stream_launches_and_labels_its_span(cuda, d, path, cluster):
     """A fit launches K1 once a round, on the streaming path exactly where
     d asks for it, and its local_sdca spans name the path and cluster."""
@@ -659,6 +706,7 @@ def test_fit_counts_stream_launches_and_labels_its_span(cuda, d, path, cluster):
     tracer.clear()
     assert sdca_kernel.sdca_round_kernel.launches == 4
     assert sdca_kernel.sdca_round_kernel.stream_launches == (4 if path == "stream" else 0)
+    assert sdca_kernel.sdca_round_kernel.gram_launches == (0 if path == "stream" else 4)
     assert len(spans) == 4
     assert all(e["args"] == {"stage2": path, "cluster": cluster} for e in spans)
 
@@ -679,6 +727,42 @@ def test_round_kernel_stream_empty_tasks(cuda, loss):
     da_p, r_p = ref.sdca_round_ref(x, y, alpha, w, u, n_i, kappa, loss)
     torch.testing.assert_close(da, da_p, atol=ATOL, rtol=0)
     torch.testing.assert_close(r, r_p, atol=ATOL, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("loss", KERNEL_LOSSES)
+@pytest.mark.parametrize("d", [3012, 10000])
+def test_stream_round_duplicate_coordinates(cuda, loss, d):
+    """The streamed round where coordinates repeat within a block: a task of
+    one row (every draw the same coordinate), one of three rows and one of
+    ninety, against the plain version."""
+    x, y, alpha, w, u, _, kappa = _t(*_problem(d + 7, 3, 100, d, 192), device=cuda)
+    n_i = torch.tensor([1, 3, 90], dtype=torch.int32, device=cuda)
+    assert sdca_kernel.plan_for(x, 64).path == "stream"
+    da, r = ops.sdca_round(x, y, alpha, w, u, n_i, kappa, loss, block=64)
+    torch.cuda.synchronize()
+    da_p, r_p = ref.sdca_round_ref(x, y, alpha, w, u, n_i, kappa, loss)
+    torch.testing.assert_close(da, da_p, atol=ATOL, rtol=0)
+    torch.testing.assert_close(r, r_p, atol=ATOL, rtol=0)
+    assert bool((da[0, 1:] == 0).all()) and bool((da[1, 3:] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,path", [(784, "chain"), (3008, "chain"), (3012, "stream")])
+def test_gram_launches_count_stage1_rounds(cuda, d, path):
+    """gram_launches counts the rounds that launched stage 1: one a round on
+    the chain path, none on the streamed one; sdca_round_stage counts
+    nothing."""
+    x, y, alpha, w, u, n_i, kappa = _t(*_problem(d, 2, 100, d, 128), device=cuda)
+    assert sdca_kernel.plan_for(x, 64).path == path
+    sdca_kernel.reset_launch_counts()
+    for _ in range(3):
+        ops.sdca_round(x, y, alpha, w, u, n_i, kappa, "hinge", block=64)
+    sdca_kernel.sdca_round_stage(2, x, y, alpha, w, u, n_i, kappa, "hinge",
+                                 torch.zeros(2 * 2 * (64 * 64 + 4 * 64), device=cuda),
+                                 torch.zeros_like(alpha), torch.zeros_like(w))
+    torch.cuda.synchronize()
+    assert _stream_counts() == (3, 3 if path == "stream" else 0, 0 if path == "stream" else 3)
 
 
 # ---------------------------------------------------------------------------
